@@ -1,0 +1,164 @@
+"""Typed configuration of the PyTorch port.
+
+A copy of the model, recipe and sampling dataclasses of the JAX package's
+``fpqvar_tpu/config.py`` (the port imports nothing of that package), cut to
+what the port runs: the VAR/VQVAE shapes, the quantization recipe, and the
+``bf16`` and ``int8`` execution modes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+PATCH_NUMS_256 = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
+
+
+@dataclass(frozen=True)
+class VQVAEConfig:
+    """Multi-scale VQVAE tokenizer."""
+
+    vocab_size: int = 4096
+    z_channels: int = 32
+    ch: int = 160
+    ch_mult: Tuple[int, ...] = (1, 1, 2, 2, 4)
+    num_res_blocks: int = 2
+    quant_resi: float = 0.5
+    share_quant_resi: int = 4
+    patch_nums: Tuple[int, ...] = PATCH_NUMS_256
+    using_znorm: bool = False
+
+    @property
+    def downsample(self) -> int:
+        return 2 ** (len(self.ch_mult) - 1)
+
+
+@dataclass(frozen=True)
+class VARConfig:
+    """VAR transformer (width = depth*64, heads = depth unless overridden)."""
+
+    depth: int = 16
+    num_classes: int = 1000
+    shared_aln: bool = False
+    attn_l2_norm: bool = True
+    norm_eps: float = 1e-6
+    mlp_ratio: float = 4.0
+    cond_drop_rate: float = 0.1
+    patch_nums: Tuple[int, ...] = PATCH_NUMS_256
+    vae: VQVAEConfig = VQVAEConfig()
+    embed_dim: Optional[int] = None
+    num_heads: Optional[int] = None
+
+    @property
+    def width(self) -> int:
+        return self.embed_dim if self.embed_dim is not None else self.depth * 64
+
+    @property
+    def heads(self) -> int:
+        return self.num_heads if self.num_heads is not None else self.depth
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.heads
+
+    @property
+    def L(self) -> int:
+        return sum(pn * pn for pn in self.patch_nums)
+
+    @property
+    def first_l(self) -> int:
+        return self.patch_nums[0] ** 2
+
+    @property
+    def num_scales(self) -> int:
+        return len(self.patch_nums)
+
+
+def var_d16() -> VARConfig:
+    return VARConfig(depth=16)
+
+
+def var_tiny() -> VARConfig:
+    """Test shape: depth 2, width 128, 3 scales, 6x6 images."""
+    return VARConfig(
+        depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2, 3),
+        vae=VQVAEConfig(vocab_size=64, z_channels=8, ch=16,
+                        ch_mult=(1, 2), num_res_blocks=1,
+                        patch_nums=(1, 2, 3)),
+    )
+
+
+@dataclass(frozen=True)
+class QuantConfig:
+    """One quantization recipe.  ``enabled=False`` is the bf16 baseline."""
+
+    enabled: bool = False
+    w_bit: int = 4
+    a_bit: int = 4
+    kv_bit: int = 0
+    group_size: int = 128
+
+    weight_quant: str = "per_group"
+    act_quant: str = "per_group"
+    act_sym: bool = False
+    weight_format: str = "fp_e2"
+    act_format: str = "fp_e2"
+    fc2_format: str = "fp_e1m2_neg_e2m1_pos"
+    fc2_log2: bool = False
+    int_quant: bool = False
+
+    kv_format: str = "auto"
+    kv_mode: str = "store"
+    kv_backend: str = "fake"
+    kv_ref_grouping: bool = False
+    attn_int8: bool = False
+
+    rotate: bool = False
+    block_rotate: bool = True
+    rotation_block: int = 128
+    rotation_seed: int = 42
+    transform: bool = False
+
+    backend: str = "fake"
+    mixed_act_formats: Optional[Tuple[str, ...]] = None
+    quantize_ada: bool = False
+    ada_format: str = "auto"
+
+    def replace(self, **kw) -> "QuantConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def fpqvar_w4a4() -> QuantConfig:
+    """The paper's full FP4 recipe."""
+    return QuantConfig(
+        enabled=True, w_bit=4, a_bit=4, kv_bit=0,
+        weight_quant="per_group", act_quant="per_group",
+        weight_format="fp_e2", act_format="fp_e2",
+        fc2_format="fp_e1m2_neg_e2m1_pos",
+        rotate=True, block_rotate=True, transform=True,
+    )
+
+
+def bench_recipes() -> dict:
+    """The execution modes the port runs so far (the JAX package's
+    ``bench_recipes`` has more; they come with later slices):
+
+      bf16  unquantized baseline
+      int8  the paper's W4A4 recipe with grouped-128 int8 codes on both
+            sides, every block linear through the grouped int8 GEMM
+    """
+    return {
+        "bf16": QuantConfig(),
+        "int8": fpqvar_w4a4().replace(backend="int8"),
+    }
+
+
+@dataclass(frozen=True)
+class GenerateConfig:
+    """Sampling parameters."""
+
+    cfg: float = 1.5
+    top_k: int = 900
+    top_p: float = 0.96
+    more_smooth: bool = False
+    seed: int = 0

@@ -1,0 +1,65 @@
+"""Top-k / top-p sampling with an explicit ``torch.Generator``."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def top_k_top_p_filter(logits: torch.Tensor, top_k: int = 0,
+                       top_p: float = 0.0) -> torch.Tensor:
+    """Mask logits outside the top-k / nucleus top-p set with -inf.
+
+    Top-k first, then top-p over the already filtered logits; ties at the
+    k-th value are kept.  The same operations as the JAX package's
+    ``models/sampling.py`` (one ascending sort serves both filters)."""
+    v = logits.shape[-1]
+    neg_inf = torch.tensor(float("-inf"), dtype=logits.dtype,
+                           device=logits.device)
+    pos_inf = torch.tensor(float("inf"), dtype=logits.dtype,
+                           device=logits.device)
+
+    def _nucleus_floor(sorted_logits):
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) > (1.0 - top_p)
+        keep[..., -1] = True              # never drop the argmax
+        return torch.where(keep, sorted_logits, pos_inf).amin(
+            dim=-1, keepdim=True)
+
+    if top_k > 0 and top_p > 0.0:
+        sorted_logits = torch.sort(logits, dim=-1).values
+        kth = sorted_logits[..., v - min(top_k, v), None]
+        sorted_logits = torch.where(sorted_logits < kth, neg_inf,
+                                    sorted_logits)
+        min_kept = _nucleus_floor(sorted_logits)
+        return torch.where((logits < kth) | (logits < min_kept), neg_inf,
+                           logits)
+    if top_k > 0:
+        kth = torch.topk(logits, min(top_k, v), dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, neg_inf, logits)
+    if top_p > 0.0:
+        min_kept = _nucleus_floor(torch.sort(logits, dim=-1).values)
+        logits = torch.where(logits < min_kept, neg_inf, logits)
+    return logits
+
+
+def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(U))``, U uniform in (0, 1)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def sample_with_top_k_top_p(logits: torch.Tensor, top_k: int = 0,
+                            top_p: float = 0.0,
+                            generator: Optional[torch.Generator] = None,
+                            gumbel: Optional[torch.Tensor] = None):
+    """Categorical sample after top-k/top-p filtering, as
+    ``argmax(filtered + gumbel)`` (the construction of
+    ``jax.random.categorical``).  The noise comes from ``generator``
+    unless ``gumbel`` is given, so that tests can feed the same noise to
+    both packages.  Returns int64 indices of shape ``logits.shape[:-1]``."""
+    filtered = top_k_top_p_filter(logits.to(torch.float32), top_k, top_p)
+    if gumbel is None:
+        gumbel = gumbel_noise(filtered.shape, generator, filtered.device)
+    return torch.argmax(filtered + gumbel, dim=-1)

@@ -1,0 +1,321 @@
+"""VAR next-scale-prediction transformer, dense-cache generation path.
+
+Plain functions over the JAX package's params tree (block parameters
+stacked along a leading depth axis, weights (out, in)); the layer loop is a
+Python loop over depth, and the preallocated KV cache ``[depth, 2B, L, H*c]``
+is written in place, one block's new rows at a time.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fpqvar_tpu_torch.config import GenerateConfig, VARConfig
+from fpqvar_tpu_torch.models import vqvae as vq
+from fpqvar_tpu_torch.models.sampling import sample_with_top_k_top_p
+from fpqvar_tpu_torch.ops.hadamard import apply_block_hadamard
+from fpqvar_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_dual
+from fpqvar_tpu_torch.ops.packing import DUAL_CODE_MULT, IntPack
+
+MAX_SCALE_MUL = math.log(100.0)
+
+
+def linear(x: torch.Tensor, w, b=None) -> torch.Tensor:
+    """torch-layout linear: w is (out, in)."""
+    y = x @ w.to(x.dtype).T
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def layernorm_no_affine(x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def _l2norm(x: torch.Tensor) -> torch.Tensor:
+    # F.normalize(dim=-1) semantics: x / max(||x||, eps)
+    xf = x.to(torch.float32)
+    n = torch.linalg.vector_norm(xf, dim=-1, keepdim=True)
+    return (xf / n.clamp_min(1e-12)).to(x.dtype)
+
+
+def _attention(q, k, v, attn_bias: Optional[torch.Tensor]):
+    """q [B,l,H,c], k/v [B,M,H,c] -> [B,l,H*c]; f32 scores and softmax,
+    scale 1 (the queries and keys are l2-normalized)."""
+    b, l, h, c = q.shape
+    scores = torch.einsum("blhc,bmhc->bhlm", q.to(torch.float32),
+                          k.to(torch.float32))
+    if attn_bias is not None:
+        scores = scores + attn_bias
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhlm,bmhc->blhc", probs, v).reshape(b, l, h * c)
+
+
+def _q_then_lin(qrt, kind: str, xv, w, b=None):
+    """Linear of one layer kind: an :class:`IntPack` weight quantizes the
+    activation to int codes and runs the grouped int8 GEMM (fc2's dual-grid
+    format as two GEMMs); a float weight is a plain linear."""
+    if isinstance(w, IntPack):
+        fmt_a = qrt.act_fmts.get(kind) or w.fmt
+        if fmt_a in DUAL_CODE_MULT:
+            y = int8_linear_dual(xv, w, fmt_a)
+        else:
+            y = int8_linear(xv, w, fmt_a)
+        return y if b is None else y + b.to(y.dtype)
+    return linear(xv, w, b)
+
+
+def block_forward(
+    x: torch.Tensor,
+    bp: Dict,
+    mod: torch.Tensor,                  # [6, B, 1, C]
+    qrt,                                # QuantRuntime or None
+    cfg: VARConfig,
+    cache: Optional[Dict[str, torch.Tensor]] = None,   # {"k","v"} [B, L, C]
+    cur: int = 0,
+    attn_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One AdaLN self-attention block.  With a cache, this step's keys and
+    values are written into rows ``[cur, cur + l)`` of ``cache`` in place
+    and attention runs over rows ``[0, cur + l)``."""
+    heads, hd = cfg.heads, cfg.head_dim
+    b, l, c = x.shape
+    gamma1, gamma2, scale1, scale2, shift1, shift2 = mod
+    smooth = qrt is not None and qrt.transform
+    rot = qrt.rotation_block if qrt is not None else None
+
+    # ---- attention branch
+    x1 = layernorm_no_affine(x, cfg.norm_eps) * (1.0 + scale1) + shift1
+    if smooth:
+        x1 = x1 * bp["mat_qkv_s"].to(x1.dtype)
+    if rot is not None:
+        x1 = apply_block_hadamard(x1, rot)
+    qkv = _q_then_lin(qrt, "mat_qkv", x1, bp["mat_qkv_w"])
+    bias = torch.cat([bp["q_bias"], torch.zeros_like(bp["q_bias"]),
+                      bp["v_bias"]])
+    qkv = (qkv + bias.to(qkv.dtype)).reshape(b, l, 3, heads, hd)
+    q, k, v = qkv.unbind(2)
+    if cfg.attn_l2_norm:
+        scale_mul = torch.exp(
+            bp["scale_mul"].to(torch.float32).clamp_max(MAX_SCALE_MUL)
+        ).reshape(1, 1, heads, 1)
+        q = _l2norm(q) * scale_mul.to(q.dtype)
+        k = _l2norm(k)
+
+    if cache is not None:
+        end = cur + l
+        cache["k"][:, cur:end] = k.reshape(b, l, c).to(cache["k"].dtype)
+        cache["v"][:, cur:end] = v.reshape(b, l, c).to(cache["v"].dtype)
+        k = cache["k"][:, :end].reshape(b, end, heads, hd).to(q.dtype)
+        v = cache["v"][:, :end].reshape(b, end, heads, hd).to(q.dtype)
+
+    oup = _attention(q, k, v, attn_bias)
+    proj_out = _q_then_lin(qrt, "proj", oup, bp["proj_w"], bp["proj_b"])
+    x = x + (proj_out * gamma1).to(x.dtype)
+
+    # ---- FFN branch
+    x2 = layernorm_no_affine(x, cfg.norm_eps) * (1.0 + scale2) + shift2
+    if smooth:
+        x2 = x2 * bp["fc1_s"].to(x2.dtype)
+    if rot is not None:
+        x2 = apply_block_hadamard(x2, rot)
+    h = gelu_tanh(_q_then_lin(qrt, "fc1", x2, bp["fc1_w"], bp["fc1_b"]))
+    out = _q_then_lin(qrt, "fc2", h, bp["fc2_w"], bp["fc2_b"])
+    return x + (out * gamma2).to(x.dtype)
+
+
+def block_params(blocks: Dict, i: int) -> Dict:
+    """Block ``i`` of the depth-stacked block parameters (views)."""
+    out = {}
+    for key, val in blocks.items():
+        if isinstance(val, IntPack):
+            out[key] = val.block(i)
+        elif isinstance(val, torch.Tensor):
+            out[key] = val[i]
+    return out
+
+
+def compute_modulations(params, cfg: VARConfig, cond_BD: torch.Tensor):
+    """Per-block AdaLN modulation [depth, 6, B, 1, C] (non-shared
+    SiLU -> Linear(D, 6C) per block)."""
+    if cfg.shared_aln:
+        raise NotImplementedError(
+            "shared_aln is not ported yet (ROADMAP: shared_aln / d36-512)")
+    d, b, c = cfg.depth, cond_BD.shape[0], cfg.width
+    act = F.silu(cond_BD)
+    w = params["blocks"]["ada_lin"]["w"]           # [depth, 6C, D]
+    bb = params["blocks"]["ada_lin"]["b"]          # [depth, 6C]
+    mod = torch.einsum("bd,kod->kbo", act, w.to(act.dtype)) + bb[:, None, :]
+    return mod.reshape(d, b, 6, c).permute(0, 2, 1, 3)[:, :, :, None, :]
+
+
+def head_logits(params, cfg: VARConfig, x: torch.Tensor, cond_BD):
+    """AdaLN before the head, then the head linear."""
+    hn = params["head_nm"]
+    ss = linear(F.silu(cond_BD), hn["w"], hn["b"])
+    scale, shift = ss.reshape(ss.shape[0], 1, 2, cfg.width).unbind(2)
+    h = layernorm_no_affine(x.to(torch.float32), cfg.norm_eps)
+    h = h * (1.0 + scale) + shift
+    return linear(h, params["head"]["w"], params["head"]["b"])
+
+
+def run_blocks(params, cfg: VARConfig, qrt, x, mod, cache=None, cur: int = 0,
+               attn_bias=None):
+    """All blocks in order; block i reads and writes ``cache[...][i]``."""
+    blocks = params["blocks"]
+    for i in range(cfg.depth):
+        ci = None
+        if cache is not None:
+            ci = {"k": cache["k"][i], "v": cache["v"][i]}
+        x = block_forward(x, block_params(blocks, i), mod[i], qrt, cfg, ci,
+                          cur, attn_bias)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Autoregressive generation
+# ---------------------------------------------------------------------------
+
+def lvl_1L(cfg: VARConfig) -> np.ndarray:
+    return np.concatenate(
+        [np.full(pn * pn, i, np.int64) for i, pn in enumerate(cfg.patch_nums)])
+
+
+@dataclass(frozen=True)
+class GenStatics:
+    """Per-scale geometry."""
+    si: int
+    pn: int
+    cur: int          # tokens cached before this step
+    l: int            # pn*pn new tokens
+
+    @staticmethod
+    def all_steps(cfg: VARConfig):
+        out, cur = [], 0
+        for si, pn in enumerate(cfg.patch_nums):
+            out.append(GenStatics(si, pn, cur, pn * pn))
+            cur += pn * pn
+        return out
+
+
+def init_kv_cache(cfg: VARConfig, batch: int, dtype=torch.bfloat16,
+                  device="cuda"):
+    """Dense KV cache {"k","v"} at [depth, B, L, H*c]."""
+    shape = (cfg.depth, batch, cfg.L, cfg.heads * cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def scale_step(params, vae_qparams, cfg: VARConfig, qrt, gen: GenerateConfig,
+               st: GenStatics, x, cond_BD, mod, lvl_pos, cache, f_hat,
+               generator: Optional[torch.Generator]):
+    """One scale: transformer -> logits -> CFG -> sample -> residual
+    pyramid -> the next scale's token map.  Returns (next x or None at the
+    last scale, f_hat)."""
+    if gen.more_smooth:
+        raise NotImplementedError(
+            "more_smooth (gumbel-softmax blending) is not ported yet")
+    b = x.shape[0] // 2
+    x = run_blocks(params, cfg, qrt, x, mod, cache, st.cur)
+    logits = head_logits(params, cfg, x.to(torch.float32), cond_BD)
+    t = gen.cfg * (st.si / (cfg.num_scales - 1))
+    logits = (1.0 + t) * logits[:b] - t * logits[b:]
+    idx_Bl = sample_with_top_k_top_p(logits, gen.top_k, gen.top_p, generator)
+    h_BChw = vq.embed_idx(vae_qparams, idx_Bl)           # [B, l, Cvae]
+    h_BChw = h_BChw.transpose(1, 2).reshape(
+        b, cfg.vae.z_channels, st.pn, st.pn).to(torch.float32)
+    f_hat, next_raw = vq.get_next_autoregressive_input(
+        vae_qparams, cfg.vae, st.si, f_hat, h_BChw)
+    if st.si == cfg.num_scales - 1:
+        return None, f_hat
+    pn_next = cfg.patch_nums[st.si + 1]
+    nxt = next_raw.reshape(b, cfg.vae.z_channels, -1).transpose(1, 2)
+    we = params["word_embed"]
+    nxt = linear(nxt, we["w"], we["b"]).to(x.dtype)
+    cur_end = st.cur + st.l
+    nxt = nxt + lvl_pos[:, cur_end: cur_end + pn_next * pn_next]
+    return torch.cat([nxt, nxt], dim=0), f_hat      # CFG batch doubling
+
+
+def prepare_generation(params, cfg: VARConfig, label_B: torch.Tensor):
+    """Condition embeddings, modulations and the first token map."""
+    uncond = torch.full_like(label_B, cfg.num_classes)
+    cond_BD = params["class_emb"][torch.cat([label_B, uncond])]
+    lvl = torch.from_numpy(lvl_1L(cfg)).to(label_B.device)
+    lvl_pos = params["lvl_embed"][lvl][None] + params["pos_1LC"]
+    first = (cond_BD[:, None, :] + params["pos_start"]
+             + lvl_pos[:, : cfg.first_l])
+    mod = compute_modulations(params, cfg, cond_BD)
+    return cond_BD, mod, lvl_pos, first
+
+
+# ---------------------------------------------------------------------------
+# Initialization (random weights from a torch.Generator)
+# ---------------------------------------------------------------------------
+
+def init_var_params(cfg: VARConfig, seed: int = 0, device="cuda",
+                    dtype=torch.float32,
+                    adaln_gamma_std: float = 0.02 * 1e-2):
+    """Random init in the JAX package's tree layout: truncated-normal
+    (+-2 std) weights, zero biases, ``scale_mul = log 4``.  The reference
+    AdaLN gamma std makes fresh blocks near-identity; pass 0.02 to make
+    outputs depend on the block internals."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    c, d, heads = cfg.width, cfg.depth, cfg.heads
+    cvae, v = cfg.vae.z_channels, cfg.vae.vocab_size
+    init_std = math.sqrt(1.0 / c / 3.0)
+    lim = math.erf(2.0 / math.sqrt(2.0))
+
+    def tn(shape, std=init_std):
+        u = torch.rand(shape, generator=gen, device=device) * (2 * lim) - lim
+        z = torch.erfinv(u) * math.sqrt(2.0)
+        return (z.clamp(-2.0, 2.0) * std).to(dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def lin_init(o, i, std=0.02):
+        return {"w": tn((o, i), std), "b": zeros(o)}
+
+    blocks = {
+        "mat_qkv_w": tn((d, 3 * c, c), 0.02),
+        "q_bias": zeros(d, c),
+        "v_bias": zeros(d, c),
+        "scale_mul": torch.full((d, 1, heads, 1, 1), math.log(4.0),
+                                dtype=dtype, device=device),
+        "proj_w": tn((d, c, c), 0.02 / math.sqrt(2 * d)),
+        "proj_b": zeros(d, c),
+        "fc1_w": tn((d, 4 * c, c), 0.02),
+        "fc1_b": zeros(d, 4 * c),
+        "fc2_w": tn((d, c, 4 * c), 0.02 / math.sqrt(2 * d)),
+        "fc2_b": zeros(d, c),
+        "mat_qkv_s": torch.ones((d, c), dtype=dtype, device=device),
+        "fc1_s": torch.ones((d, c), dtype=dtype, device=device),
+        "ada_lin": {"w": tn((d, 6 * c, c), adaln_gamma_std),
+                    "b": zeros(d, 6 * c)},
+    }
+    if cfg.shared_aln:
+        raise NotImplementedError("shared_aln is not ported yet")
+    return {
+        "word_embed": lin_init(c, cvae),
+        "class_emb": tn((cfg.num_classes + 1, c)),
+        "pos_start": tn((1, cfg.first_l, c)),
+        "pos_1LC": tn((1, cfg.L, c)),
+        "lvl_embed": tn((cfg.num_scales, c)),
+        "blocks": blocks,
+        "head_nm": lin_init(2 * c, c),
+        "head": lin_init(v, c),
+    }

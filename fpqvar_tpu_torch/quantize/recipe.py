@@ -1,0 +1,97 @@
+"""Offline checkpoint transformation: GALT fold -> rotate -> quantize.
+
+A function over the params tree, as the JAX package's
+``quantize/recipe.py``:
+
+1. GALT fold: ``W_qkv /= s_qkv`` and ``W_fc1 /= s_fc1`` along the input
+   channels, keeping the vectors for the online activation multiply;
+2. rotation ``W <- W @ Q_block`` for mat_qkv and fc1, in float64 on the
+   host;
+3. weight quantization to :class:`IntPack` codes for the ``int8`` backend.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from fpqvar_tpu_torch.config import QuantConfig, VARConfig
+from fpqvar_tpu_torch.ops import hadamard as H
+from fpqvar_tpu_torch.ops import packing as P
+
+_WEIGHT_KEYS = ("mat_qkv_w", "proj_w", "fc1_w", "fc2_w")
+_ROTATED_KEYS = ("mat_qkv_w", "fc1_w")
+
+
+def fold_galt(blocks: dict, mat_qkv_s, fc1_s) -> dict:
+    """``W /= s`` along input channels; ``s`` ([depth, C]) is kept for the
+    online activation multiply."""
+    b = dict(blocks)
+    dev = blocks["mat_qkv_w"].device
+    s1 = torch.as_tensor(mat_qkv_s, dtype=torch.float32, device=dev)
+    s2 = torch.as_tensor(fc1_s, dtype=torch.float32, device=dev)
+    b["mat_qkv_w"] = blocks["mat_qkv_w"] / s1[:, None, :]
+    b["fc1_w"] = blocks["fc1_w"] / s2[:, None, :]
+    b["mat_qkv_s"] = s1.to(blocks["mat_qkv_s"].dtype)
+    b["fc1_s"] = s2.to(blocks["fc1_s"].dtype)
+    return b
+
+
+def rotate_blocks(blocks: dict, qcfg: QuantConfig) -> dict:
+    """Offline block rotation ``W <- W @ Q_b`` in float64 on the host."""
+    if not qcfg.block_rotate:
+        raise NotImplementedError(
+            "full-size rotation (block_rotate=False) is not ported yet")
+    qb = H.block_hadamard_block(qcfg.rotation_block, qcfg.rotation_seed)
+    out = dict(blocks)
+    for key in _ROTATED_KEYS:
+        src = blocks[key]
+        w = src.detach().cpu().numpy().astype(np.float64)   # [depth, out, in]
+        d, o, i = w.shape
+        wr = (w.reshape(d, o, i // qb.shape[0], qb.shape[0]) @ qb
+              ).reshape(d, o, i)
+        out[key] = torch.from_numpy(wr).to(device=src.device, dtype=src.dtype)
+    return out
+
+
+def quantize_weights(blocks: dict, qcfg: QuantConfig) -> dict:
+    """``int8`` backend: every block linear to per-group :class:`IntPack`
+    codes (``P.pack_int_codes`` on the depth-stacked weight)."""
+    if qcfg.backend != "int8" or qcfg.weight_quant != "per_group":
+        raise NotImplementedError(
+            f"weight quantization for backend={qcfg.backend!r}, "
+            f"weight_quant={qcfg.weight_quant!r} is not ported yet")
+    fmt = qcfg.weight_format
+    if fmt not in P.CODE_MULT:
+        raise ValueError(
+            f"int8 backend supports {sorted(P.CODE_MULT)}, got {fmt}")
+    out = dict(blocks)
+    for key in _WEIGHT_KEYS:
+        out[key] = P.pack_int_codes(blocks[key].to(torch.float32), fmt,
+                                    qcfg.group_size)
+    return out
+
+
+def quantize_var_params(
+    params: dict,
+    cfg: VARConfig,
+    qcfg: QuantConfig,
+    galt: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+) -> dict:
+    """Full offline pipeline.  ``galt`` = (mat_qkv_s, fc1_s), each
+    [depth, C], required when ``qcfg.transform`` is set.  Runs on the device
+    the params lie on, except the float64 rotation, which runs on the
+    host."""
+    out = dict(params)
+    blocks = dict(params["blocks"])
+    if qcfg.transform:
+        if galt is None:
+            raise ValueError("qcfg.transform=True requires GALT vectors")
+        blocks = fold_galt(blocks, *galt)
+    if qcfg.rotate:
+        blocks = rotate_blocks(blocks, qcfg)
+    if qcfg.enabled:
+        blocks = quantize_weights(blocks, qcfg)
+    out["blocks"] = blocks
+    return out

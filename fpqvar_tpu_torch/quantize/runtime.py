@@ -1,0 +1,67 @@
+"""QuantRuntime: the online half of a quantization recipe.
+
+Resolves a :class:`QuantConfig` into what the block forward needs at run
+time: the activation format of each quantized layer kind, the 128x128
+rotation block and the GALT flag.  The port covers two recipes so far:
+``enabled=False`` (the bf16 baseline) and the ``int8`` backend with
+per-group weights and activations; every other combination raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import torch
+
+from fpqvar_tpu_torch.config import QuantConfig
+from fpqvar_tpu_torch.ops import hadamard as H
+from fpqvar_tpu_torch.ops import packing as P
+
+#: the block linears the recipe quantizes
+LAYER_KINDS = ("mat_qkv", "proj", "fc1", "fc2")
+
+
+@dataclass(frozen=True)
+class QuantRuntime:
+    #: layer kind -> activation format name (None: not quantized)
+    act_fmts: Dict[str, Optional[str]] = field(default_factory=dict)
+    rotation_block: Optional[torch.Tensor] = None   # 128x128, float32
+    transform: bool = False
+
+
+def _unported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, modules still to port)")
+
+
+def build_runtime(qcfg: QuantConfig, device="cuda") -> QuantRuntime:
+    if qcfg.kv_bit or qcfg.attn_int8:
+        raise _unported("KV-cache quantization (kv_bit, attn_int8)")
+    if qcfg.fc2_log2:
+        raise _unported("the log2 fc2 baseline (fc2_log2)")
+    if qcfg.quantize_ada:
+        raise _unported("quantize_ada")
+    if qcfg.mixed_act_formats is not None:
+        raise _unported("mixed_act_formats")
+    rotation = None
+    if qcfg.rotate:
+        if not qcfg.block_rotate:
+            raise _unported("full-size rotation (block_rotate=False)")
+        rotation = torch.tensor(
+            H.block_hadamard_block(qcfg.rotation_block, qcfg.rotation_seed),
+            dtype=torch.float32, device=device)
+    fmts: Dict[str, Optional[str]] = {k: None for k in LAYER_KINDS}
+    if qcfg.enabled:
+        if qcfg.backend != "int8":
+            raise _unported(f"the {qcfg.backend!r} backend")
+        if qcfg.int_quant or (qcfg.act_quant, qcfg.weight_quant) != (
+                "per_group", "per_group"):
+            raise _unported("int8 backend other than per-group fp formats")
+        fmts = {k: qcfg.act_format for k in ("mat_qkv", "proj", "fc1")}
+        fmts["fc2"] = qcfg.fc2_format
+        for k, f in fmts.items():
+            if f not in P.CODE_MULT and f not in P.DUAL_CODE_MULT:
+                raise ValueError(
+                    f"int8 backend: unsupported act format {f!r} ({k})")
+    return QuantRuntime(act_fmts=fmts, rotation_block=rotation,
+                        transform=qcfg.transform)

@@ -1,0 +1,162 @@
+"""The whole slice against the JAX package: class labels -> images.
+
+JAX builds the params (``init_var_params(PRNGKey(0), cfg,
+adaln_gamma_std=0.02)``; the VQVAE in ``init_vqvae_params``'s layout with
+seeded values), quantizes them with its
+``quantize_var_params`` (seeded GALT vectors), the bridge carries them
+over, and both ``VARGenerator``s generate at ``top_k=1`` (argmax: no RNG)
+with float32 compute and cache.  The tokens of every scale must be
+identical; the CFG-mixed logits that the sampler sees (values of order 1)
+and ``f_hat`` (of order 0.1) must agree within 1e-5 and the images (in
+[0, 1]) within 5e-5, the float32 sums running in another order.
+Width 128 sends the int8 linears through one scale group (JAX's
+``_channel_dot`` route), width 256 through the grouped route.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fpqvar_tpu.config import GenerateConfig as JaxGenerateConfig
+from fpqvar_tpu.config import bench_recipes as jax_recipes
+from fpqvar_tpu.config import var_tiny as jax_var_tiny
+from fpqvar_tpu.models import var as JV
+from fpqvar_tpu.models import vqvae as Jvq
+from fpqvar_tpu.models.engine import VARGenerator as JaxGenerator
+from fpqvar_tpu.quantize import quantize_var_params as jax_quantize
+from fpqvar_tpu.utils.checkpoint import save_params
+
+from fpqvar_tpu_torch.config import GenerateConfig, bench_recipes, var_tiny
+from fpqvar_tpu_torch.models import VARGenerator
+from fpqvar_tpu_torch.models import var as V
+from fpqvar_tpu_torch.ops.packing import IntPack
+from fpqvar_tpu_torch.utils.bridge import to_torch
+from test_torch_vqvae import _params as vqvae_params
+
+LABELS = np.array([3, 5, 998])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_vae():
+    """The var_tiny VQVAE in the layout of JAX's ``init_vqvae_params``,
+    with the seeded values of ``test_torch_vqvae`` (the JAX init itself
+    costs about 9 s on the CPU, and only its layout matters here)."""
+    return vqvae_params(jax_var_tiny().vae)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_float_params(width):
+    jcfg = dataclasses.replace(jax_var_tiny(), embed_dim=width,
+                               num_heads=width // 64)
+    return jcfg, jax.jit(functools.partial(
+        JV.init_var_params, cfg=jcfg, adaln_gamma_std=0.02))(
+        jax.random.PRNGKey(0))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_params(width, mode):
+    jcfg, jp = _jax_float_params(width)
+    rng = np.random.default_rng(5)
+    galt = tuple(np.exp(0.1 * rng.standard_normal((jcfg.depth, width)))
+                 .astype(np.float32) for _ in range(2))
+    jq = jax_recipes()[mode]
+    return jcfg, (jax_quantize(jp, jcfg, jq, galt=galt) if jq.enabled
+                  else jp)
+
+
+@pytest.mark.parametrize("width,mode", [(128, "bf16"), (128, "int8"),
+                                        (256, "int8")])
+def test_generation_matches_jax(monkeypatch, width, mode):
+    jcfg, jqp = _jax_params(width, mode)
+    jvae = _jax_vae()
+    cfg = dataclasses.replace(var_tiny(), embed_dim=width,
+                              num_heads=width // 64)
+
+    jax_tokens, port_tokens, jax_logits, port_logits = [], [], [], []
+    jax_sample = JV.sample_with_top_k_top_p
+    port_sample = V.sample_with_top_k_top_p
+
+    def jax_rec(key, logits, top_k=0, top_p=0.0):
+        idx = jax_sample(key, logits, top_k, top_p)
+        jax.debug.callback(
+            lambda v, lg: (jax_tokens.append(np.asarray(v)),
+                           jax_logits.append(np.asarray(lg))),
+            idx, logits, ordered=True)
+        return idx
+
+    def port_rec(logits, top_k=0, top_p=0.0, generator=None, gumbel=None):
+        idx = port_sample(logits, top_k, top_p, generator, gumbel)
+        port_tokens.append(idx.numpy())
+        port_logits.append(logits.numpy())
+        return idx
+
+    monkeypatch.setattr(JV, "sample_with_top_k_top_p", jax_rec)
+    monkeypatch.setattr(V, "sample_with_top_k_top_p", port_rec)
+
+    jgen = JaxGenerator(jcfg, jax_recipes()[mode],
+                        JaxGenerateConfig(top_k=1, top_p=0.0),
+                        cache_dtype=jnp.float32, compute_dtype=jnp.float32)
+    jf = jgen.generate(jqp, jvae, jnp.asarray(LABELS), jax.random.PRNGKey(2),
+                       return_fhat=True)
+    jimg = np.asarray(jax.jit(
+        lambda p, f: (Jvq.decode(p, jcfg.vae, f) + 1.0) * 0.5)(jvae, jf))
+    jax.effects_barrier()
+
+    tqp = to_torch(jax.tree_util.tree_map(np.asarray, jqp), "cpu")
+    tvae = to_torch(jax.tree_util.tree_map(np.asarray, jvae), "cpu")
+    if mode == "int8":
+        assert isinstance(tqp["blocks"]["mat_qkv_w"], IntPack)
+    gen = VARGenerator(cfg, bench_recipes()[mode],
+                       GenerateConfig(top_k=1, top_p=0.0),
+                       cache_dtype=torch.float32,
+                       compute_dtype=torch.float32, device="cpu")
+    tf = gen.generate(tqp, tvae, LABELS, return_fhat=True)
+    assert len(jax_tokens) == len(port_tokens) == cfg.num_scales
+    for si in range(cfg.num_scales):
+        np.testing.assert_array_equal(port_tokens[si], jax_tokens[si],
+                                      err_msg=f"scale {si}")
+        np.testing.assert_allclose(port_logits[si], jax_logits[si], rtol=0,
+                                   atol=1e-5, err_msg=f"scale {si}")
+    timg = gen.generate(tqp, tvae, LABELS)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=0, atol=1e-5)
+    assert timg.shape == (3, 3, 6, 6) and timg.dtype == torch.float32
+    np.testing.assert_allclose(timg.numpy(), jimg, rtol=0, atol=5e-5)
+
+
+def test_bridge_reads_save_params_files(tmp_path):
+    """The flat npz of ``utils/checkpoint.save_params`` bridges to the same
+    tensors as the nested tree (IntPack leaves and empty lists included)."""
+    _, jqp = _jax_params(128, "int8")
+    tree = {"var": jqp, "vae": _jax_vae()}
+    save_params(str(tmp_path / "p.npz"), tree)
+    flat = to_torch(dict(np.load(tmp_path / "p.npz")), "cpu")
+    nested = to_torch(jax.tree_util.tree_map(np.asarray, tree), "cpu")
+
+    def same(a, b, where=""):
+        assert type(a) is type(b), where
+        if isinstance(a, dict):
+            assert a.keys() == b.keys(), where
+            for k in a:
+                same(a[k], b[k], f"{where}/{k}")
+        elif isinstance(a, list):
+            assert len(a) == len(b), where
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{where}/{i}")
+        elif isinstance(a, IntPack):
+            assert (a.fmt, a.shape, a.group_size) == (
+                b.fmt, b.shape, b.group_size), where
+            assert torch.equal(a.codes, b.codes), where
+            assert torch.equal(a.scales, b.scales), where
+        else:
+            assert torch.equal(a, b), where
+
+    same(flat, nested)
+    pack = nested["var"]["blocks"]["fc1_w"]
+    # JAX codes [d, K, N] arrive in the port's [d, N, K] layout
+    assert tuple(pack.codes.shape) == (2, 512, 128)
+    assert tuple(pack.scales.shape) == (2, 1, 512)
+    assert nested["vae"]["decoder"]["up"][0]["attn"] == []

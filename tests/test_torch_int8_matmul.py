@@ -1,0 +1,139 @@
+"""Kernel K1 (grouped int8 GEMM) and the int8 linears against the JAX
+package.
+
+On the CPU the wrapper runs K1's plain PyTorch version; it is held against
+JAX's Pallas kernel in interpret mode and its jnp mirror.  The group dots
+are exact integers on every side, so the results differ only in the f32
+order of the sum over groups: the tolerance is 1e-5 of
+``sum_g |sa*sw*part|`` per element (``int8_group_gemm_tolerance``); with
+one group (``group_size == K``) the 2-D product is bit-equal to JAX's
+``_channel_dot``.  JAX's functions run under ``jit``, as in its
+generation.  ``tests/test_torch_cuda.py`` holds the Hopper kernel against
+the plain version on the card.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fpqvar_tpu.ops import packing as JP
+from fpqvar_tpu.ops.pallas import int8_matmul as JK
+
+from fpqvar_tpu_torch.ops import int8_matmul as K
+from fpqvar_tpu_torch.ops import packing as P
+
+
+def _operands(seed, m, k, n):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
+    return x, w
+
+
+def _assert_within(ours, theirs, tol):
+    err = np.abs(np.asarray(ours, np.float32) - np.asarray(theirs, np.float32))
+    tol = np.asarray(tol)
+    assert (err <= tol).all(), f"max err/tol {(err / tol).max()}"
+
+
+def test_plain_k1_matches_jax_kernel_and_reference():
+    m, k, n = 37, 640, 384                       # ragged M, G = 5
+    x, w = _operands(0, m, k, n)
+    jac, jasc = jax.jit(functools.partial(
+        JP.quant_int_codes, fmt="fp_e2", group_size=128))(jnp.asarray(x))
+    jpw = JP.pack_int_codes(jnp.asarray(w), "fp_e2", 128)
+    jkern = JK._int8_matmul_2d(jac, jasc, jpw.codes, jpw.scales,
+                               group_size=128, n=n, k_dim=k, interpret=True)
+    jref = JK._jnp_reference(jac, jasc, jpw.codes, jpw.scales, 128)
+
+    ac, asc = P.quant_int_codes(torch.from_numpy(x), "fp_e2", 128)
+    pw = P.pack_int_codes(torch.from_numpy(w), "fp_e2", 128)
+    before = K.launches
+    ours = K.int8_group_gemm(ac, asc, pw.codes, pw.scales, 128)
+    assert K.launches == before                  # CPU tensors: plain version
+    assert ours.shape == (m, n) and ours.dtype == torch.float32
+    tol = K.int8_group_gemm_tolerance(ac, asc, pw.codes, pw.scales, 128)
+    _assert_within(ours.numpy(), jkern, tol.numpy())
+    _assert_within(ours.numpy(), jref, tol.numpy())
+
+
+def test_plain_k1_single_group_is_channel_dot():
+    """group_size == K: JAX's _channel_dot arithmetic, bit for bit."""
+    m, k, n = 9, 128, 256
+    x, w = _operands(1, m, k, n)
+
+    @jax.jit
+    def theirs_fn(x, w):
+        ac, asc = JP.quant_int_codes(x, "fp_e2", k)
+        pw = JP.pack_int_codes(w, "fp_e2", k)
+        return JK._channel_dot(ac, asc, pw.codes, pw.scales)
+
+    theirs = theirs_fn(jnp.asarray(x), jnp.asarray(w))
+    ac, asc = P.quant_int_codes(torch.from_numpy(x), "fp_e2", k)
+    pw = P.pack_int_codes(torch.from_numpy(w), "fp_e2", k)
+    ours = K.int8_group_gemm(ac, asc, pw.codes, pw.scales, k)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+
+
+@pytest.mark.parametrize("k,gs", [(256, 128), (128, 128), (384, 384)])
+def test_int8_linear_matches_jax(k, gs):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((4, 33, k)).astype(np.float32)
+    w = (rng.standard_normal((192, k)) * 0.02).astype(np.float32)
+    jpw = JP.pack_int_codes(jnp.asarray(w), "fp_e2", gs)
+    theirs = jax.jit(functools.partial(JK.int8_linear, act_fmt="fp_e2",
+                                       force_jnp=True))(jnp.asarray(x), jpw)
+    pw = P.pack_int_codes(torch.from_numpy(w), "fp_e2", gs)
+    ours = K.int8_linear(torch.from_numpy(x), pw, "fp_e2")
+    assert ours.shape == (4, 33, 192) and ours.dtype == torch.float32
+    # with one group too: XLA may fuse the two scale multiplies of its
+    # N-D _channel_dot in another order
+    ac, asc = P.quant_int_codes(torch.from_numpy(x.reshape(-1, k)),
+                                "fp_e2", gs)
+    tol = K.int8_group_gemm_tolerance(ac, asc, pw.codes, pw.scales, gs)
+    _assert_within(ours.numpy().reshape(-1, 192),
+                   np.asarray(theirs).reshape(-1, 192), tol.numpy())
+
+
+@pytest.mark.parametrize("gs", [128, 512])
+def test_int8_linear_dual_matches_jax(gs):
+    rng = np.random.default_rng(3)
+    k = 512
+    x = rng.standard_normal((2, 21, k)).astype(np.float32)
+    w = (rng.standard_normal((128, k)) * 0.02).astype(np.float32)
+    fmt = "fp_e1m2_neg_e2m1_pos"
+    jpw = JP.pack_int_codes(jnp.asarray(w), "fp_e2", gs)
+    theirs = jax.jit(functools.partial(JK.int8_linear_dual, act_fmt=fmt,
+                                       force_jnp=True))(jnp.asarray(x), jpw)
+    pw = P.pack_int_codes(torch.from_numpy(w), "fp_e2", gs)
+    ours = K.int8_linear_dual(torch.from_numpy(x), pw, fmt)
+    assert ours.shape == (2, 21, 128)
+    cn, sn, cp, sp = P.quant_int_codes_dual(
+        torch.from_numpy(x.reshape(-1, k)), fmt, gs)
+    tol = (K.int8_group_gemm_tolerance(cn, sn, pw.codes, pw.scales, gs)
+           + K.int8_group_gemm_tolerance(cp, sp, pw.codes, pw.scales, gs))
+    _assert_within(ours.numpy().reshape(-1, 128),
+                   np.asarray(theirs).reshape(-1, 128), tol.numpy())
+
+
+def test_int8_group_gemm_rejects_bad_operands():
+    ac = torch.zeros((4, 256), dtype=torch.int8)
+    asc = torch.ones((4, 2))
+    wc = torch.zeros((8, 256), dtype=torch.int8)
+    wsc = torch.ones((2, 8))
+    with pytest.raises(ValueError, match="multiples of 128"):
+        K.int8_group_gemm(ac[:, :200], asc, wc[:, :200], wsc, 100)
+    with pytest.raises(ValueError, match="scales"):
+        K.int8_group_gemm(ac, asc[:, :1], wc, wsc, 128)
+    with pytest.raises(TypeError, match="int8"):
+        K.int8_group_gemm(ac.to(torch.int32), asc, wc, wsc, 128)
+    with pytest.raises(TypeError, match="float32"):
+        K.int8_group_gemm(ac, asc.double(), wc, wsc, 128)
+    with pytest.raises(ValueError, match="K mismatch"):
+        K.int8_group_gemm(ac, asc, wc[:, :128], wsc, 128)
+    pw = P.pack_int_codes(torch.zeros((8, 256)), "fp_e2", 128)
+    with pytest.raises(NotImplementedError, match="w4a16"):
+        K.int8_linear(torch.zeros((2, 256)), pw, "bf16")

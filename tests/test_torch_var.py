@@ -1,0 +1,159 @@
+"""The port's VAR transformer pieces and sampler against the JAX package.
+
+Seeded numpy inputs go through both packages.  ``top_k_top_p_filter`` must
+be bit-equal (ties at the k-th value included), and the sampler with the
+same injected Gumbel noise must draw the same tokens.  One ``block_forward``
+step with a KV cache runs under ``bf16`` (float weights) and ``int8``
+(IntPack weights through the bridge) at width 128, where every linear has
+one scale group, and at width 256, where the grouped route runs: float32
+matmuls sum in another order, so the block output and the cache rows agree
+within 2e-5 (values of order 1).
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fpqvar_tpu.config import bench_recipes as jax_recipes
+from fpqvar_tpu.config import var_tiny as jax_var_tiny
+from fpqvar_tpu.models import sampling as JS
+from fpqvar_tpu.models import var as JV
+from fpqvar_tpu.quantize import quantize_var_params as jax_quantize
+from fpqvar_tpu.quantize.runtime import build_runtime as jax_runtime
+
+from fpqvar_tpu_torch.config import bench_recipes, var_tiny
+from fpqvar_tpu_torch.models import sampling as S
+from fpqvar_tpu_torch.models import var as V
+from fpqvar_tpu_torch.ops.packing import IntPack
+from fpqvar_tpu_torch.quantize import build_runtime, quantize_var_params
+from fpqvar_tpu_torch.utils.bridge import to_torch
+
+
+def _logits(seed, rows=3, vocab=4096):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, vocab)) * 3.0).astype(np.float32)
+    # ties at the k-th (900th largest) value: copy it to a few more slots
+    for r in range(rows):
+        kth = np.sort(x[r])[vocab - 900]
+        x[r, rng.choice(vocab, 4, replace=False)] = kth
+    return x
+
+
+@pytest.mark.parametrize("top_k,top_p", [(900, 0.96), (900, 0.0), (0, 0.96),
+                                         (1, 0.0)])
+def test_top_k_top_p_filter_bit_equal(top_k, top_p):
+    x = _logits(0)
+    theirs = jax.jit(functools.partial(
+        JS.top_k_top_p_filter, top_k=top_k, top_p=top_p))(jnp.asarray(x))
+    ours = S.top_k_top_p_filter(torch.from_numpy(x), top_k, top_p)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+
+
+def test_sampler_with_injected_gumbel_noise():
+    x = _logits(1, rows=8)
+    key = jax.random.PRNGKey(7)
+    theirs = np.asarray(jax.jit(functools.partial(
+        JS.sample_with_top_k_top_p, top_k=900, top_p=0.96))(
+        key, jnp.asarray(x)))
+    noise = np.asarray(jax.random.gumbel(key, x.shape, jnp.float32))
+    ours = S.sample_with_top_k_top_p(torch.from_numpy(x), 900, 0.96,
+                                     gumbel=torch.from_numpy(noise.copy()))
+    np.testing.assert_array_equal(ours.numpy(), theirs)
+    # from a torch.Generator: the draw stays inside the filtered set
+    gen = torch.Generator().manual_seed(0)
+    drawn = S.sample_with_top_k_top_p(torch.from_numpy(x), 900, 0.96, gen)
+    filt = S.top_k_top_p_filter(torch.from_numpy(x), 900, 0.96)
+    assert torch.isfinite(filt.gather(1, drawn[:, None])).all()
+
+
+@functools.lru_cache(maxsize=None)
+def _float_params(width):
+    jcfg = dataclasses.replace(jax_var_tiny(), embed_dim=width,
+                               num_heads=width // 64)
+    return jcfg, jax.jit(functools.partial(
+        JV.init_var_params, cfg=jcfg, adaln_gamma_std=0.02))(
+        jax.random.PRNGKey(0))
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(width, mode):
+    jcfg, jparams = _float_params(width)
+    cfg = dataclasses.replace(var_tiny(), embed_dim=width,
+                              num_heads=width // 64)
+    rng = np.random.default_rng(5)
+    galt = tuple(np.exp(0.1 * rng.standard_normal((cfg.depth, width)))
+                 .astype(np.float32) for _ in range(2))
+    jq, q = jax_recipes()[mode], bench_recipes()[mode]
+    jqp = jax_quantize(jparams, jcfg, jq, galt=galt) if jq.enabled else jparams
+    tqp = to_torch(jax.tree_util.tree_map(np.asarray, jqp), "cpu")
+    jrt = jax_runtime(jq, jcfg.depth, jcfg.width)
+    return jcfg, cfg, jqp, tqp, jrt, build_runtime(q, "cpu")
+
+
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_block_forward_step_with_cache(width, mode):
+    jcfg, cfg, jqp, tqp, jrt, qrt = _setup(width, mode)
+    if mode == "int8":
+        assert isinstance(tqp["blocks"]["fc2_w"], IntPack)
+    b, cur, l, c, L = 2, 5, 9, cfg.width, cfg.L      # the last scale, pn 3
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((b, l, c)).astype(np.float32)
+    mod = (rng.standard_normal((6, b, 1, c)) * 0.1).astype(np.float32)
+    kc = np.zeros((b, L, c), np.float32)
+    vc = np.zeros((b, L, c), np.float32)
+    kc[:, :cur] = rng.standard_normal((b, cur, c))
+    vc[:, :cur] = rng.standard_normal((b, cur, c))
+    i = 1
+    jbp = jax.tree_util.tree_map(lambda a: a[i], jqp["blocks"])
+
+    @jax.jit
+    def theirs_fn(x, mod, kc, vc):
+        return JV.block_forward(x, jbp, mod, jrt, jcfg,
+                                {"k": kc, "v": vc}, cur)[:2]
+
+    jx, upd = theirs_fn(*map(jnp.asarray, (x, mod, kc, vc)))
+    cache = {"k": torch.from_numpy(kc.copy()), "v": torch.from_numpy(vc.copy())}
+    ours = V.block_forward(torch.from_numpy(x), V.block_params(tqp["blocks"], i),
+                           torch.from_numpy(mod), qrt, cfg, cache, cur)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(jx), rtol=0, atol=2e-5)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache[name][:, cur:cur + l].numpy(),
+                                   np.asarray(upd[name][0]), rtol=0, atol=2e-5)
+        np.testing.assert_array_equal(cache[name][:, :cur].numpy(),
+                                      (kc if name == "k" else vc)[:, :cur])
+
+
+def test_prepare_generation_and_head_match_jax():
+    jcfg, cfg, jqp, tqp, _, _ = _setup(128, "bf16")
+    labels = np.array([3, 5, 999])
+    jc, jm, jl, jf = JV.prepare_generation(jqp, jcfg, jnp.asarray(labels))
+    tc, tm, tl, tf = V.prepare_generation(tqp, cfg, torch.from_numpy(labels))
+    for ours, theirs in ((tc, jc), (tm, jm), (tl, jl), (tf, jf)):
+        assert tuple(ours.shape) == tuple(theirs.shape)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=0,
+                                   atol=1e-6)
+    x = np.random.default_rng(7).standard_normal((6, 4, cfg.width)
+                                                 ).astype(np.float32)
+    np.testing.assert_allclose(
+        V.head_logits(tqp, cfg, torch.from_numpy(x), tc).numpy(),
+        np.asarray(JV.head_logits(jqp, jcfg, jnp.asarray(x), jc)),
+        rtol=0, atol=1e-5)
+
+
+def test_runtime_rejects_unported_recipes():
+    from fpqvar_tpu_torch.config import fpqvar_w4a4
+
+    for q in (fpqvar_w4a4(), bench_recipes()["int8"].replace(kv_bit=4),
+              bench_recipes()["int8"].replace(weight_quant="per_channel",
+                                              act_quant="per_token")):
+        with pytest.raises(NotImplementedError):
+            build_runtime(q, "cpu")
+    rt = build_runtime(bench_recipes()["int8"], "cpu")
+    assert rt.act_fmts == {"mat_qkv": "fp_e2", "proj": "fp_e2",
+                           "fc1": "fp_e2", "fc2": "fp_e1m2_neg_e2m1_pos"}
+    assert rt.transform and tuple(rt.rotation_block.shape) == (128, 128)
