@@ -8,21 +8,26 @@ non-zero:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
    limit from nvidia-smi and turns TF32 off for float32 matmuls and convs;
-2. build: compiles the port's CUDA kernel K1 from ``fpqvar_tpu_torch/
-   csrc`` with nvcc for sm_90a;
-3. kernels: K1 (the grouped int8 GEMM) against its plain PyTorch version at
-   the VAR-d16 shapes of the last scale at batch 8 (M = 2*8*256 = 4096) and
-   one ragged shape, with times, the card's bound and a library yardstick;
-4. small reference: a small generation (width 256, so every linear takes
-   the grouped route) on the card against the same generation on the CPU;
+2. build: compiles the port's CUDA kernels K1 and K2 from ``fpqvar_tpu_torch/
+   csrc`` with nvcc for sm_90a, one nvcc per source, all started together,
+   and prints each kernel's registers and spills;
+3. kernels: K1 (the grouped int8 GEMM) and K2 (the dequantize-in-register
+   GEMM over packed fp4 / fp6 codes) against their plain PyTorch versions
+   at the VAR-d16 shapes of the last scale at batch 8 (M = 2*8*256 = 4096)
+   and ragged shapes, with times, the card's bound and a library yardstick;
+4. small reference: small generations (width 256, so every linear has more
+   than one scale group) under ``int8``, ``bf16``, ``packed``, ``w4a16p``,
+   W6A6 on the packed backend and ``fake``, on the card against the same
+   generations on the CPU;
 5. main path: VAR-d16 with the full d16 VQVAE, random seeded weights,
    ``quantize_var_params`` and ``VARGenerator.generate`` for two batches of
-   8 labels under the ``int8`` recipe and under ``bf16``; checks images and
-   kernel launch counts and prints img/s;
-6. profile: one more batch-8 generation per recipe under torch.profiler,
-   after the launch counts were read: device busy time, idle share, K1's
-   share and the kernels that take the most device time (the source of
-   PERF.md's "Where the time goes"; about 50 s of the run on an H100).
+   8 labels under ``int8``, ``bf16``, ``packed`` and ``w4a16p``; checks
+   images and each recipe's kernel launch counts and prints img/s;
+6. profile: one more batch-8 generation under ``int8``, ``bf16`` and
+   ``packed`` under torch.profiler, after the launch counts were read:
+   device busy time, idle share, K1's and K2's shares and the kernels that
+   take the most device time (the source of PERF.md's "Where the time
+   goes").
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernel table as one JSON object.
@@ -34,12 +39,18 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 H100_INT8_OPS = 1979e12      # dense int8 tensor-core peak, H100 SXM
+H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES = 3.35e12         # HBM3 bandwidth, H100 SXM
+KERNEL_SOURCES = ("int8_group_gemm", "packed_dequant_gemm")
+#: the last scale's block linears of VAR-d16 at batch 8: (name, M, K, N)
+D16_SHAPES = (("qkv", 4096, 1024, 3072), ("proj", 4096, 1024, 1024),
+              ("fc1", 4096, 1024, 4096), ("fc2", 4096, 4096, 1024))
 
 
 def fail(msg: str):
@@ -79,15 +90,23 @@ def phase_device() -> str:
 
 
 def phase_build():
+    """Both kernel sources at once: one nvcc process each."""
     from fpqvar_tpu_torch.ops import _build
 
-    name = "int8_group_gemm"
+    def timed(name):
+        t0 = time.perf_counter()
+        _build.build(name)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    _build.build(name)
-    secs = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
-            if "registers" in ln or "spill" in ln]
-    print(f"build: {name} for sm_90a in {secs:.2f} s: {'; '.join(regs)}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        secs = list(pool.map(timed, KERNEL_SOURCES))
+    for name, sec in zip(KERNEL_SOURCES, secs):
+        regs = [ln.strip() for ln in
+                _build.build_logs.get(name, "").splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"build: {name} for sm_90a in {sec:.2f} s: {'; '.join(regs)}")
+    print(f"build: both sources in {time.perf_counter() - t0:.2f} s")
 
 
 def _k1_operands(m, k, n, gen):
@@ -102,56 +121,118 @@ def _k1_operands(m, k, n, gen):
     return ac, asc, pw.codes, pw.scales
 
 
+def check_and_time(label: str, row: dict, run, plain, tol, lib, nbytes: int,
+                   peak: float, tol_text: str, lib_text: str) -> dict:
+    """Hold ``run()`` (a kernel) against ``plain()`` within ``tol()`` per
+    element, then time the kernel, its plain version and the library
+    yardstick ``lib()``; ``row`` (shape, M, K, N, ...) gains the numbers.
+    The bound is the larger of ``nbytes`` over the memory rate and
+    2*M*N*K operations over ``peak``."""
+    y = run()
+    torch.cuda.synchronize()
+    ref, bound = plain(), tol()
+    err = (y - ref).abs()
+    worst = float((err / bound.clamp_min(1e-30)).max())
+    desc = " ".join(f"{k}={v}" for k, v in row.items() if k != "shape")
+    if not bool(torch.isfinite(y).all()) or bool((err > bound).any()):
+        fail(f"{label} {row['shape']} {desc}: max err {float(err.max())} "
+             f"exceeds the tolerance (worst err/tol {worst:.3g})")
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(plain, reps=5)
+    lib_ms = cuda_ms(lib)
+    t_bytes = nbytes / H100_BYTES * 1e3
+    t_ops = 2 * row["M"] * row["N"] * row["K"] / peak * 1e3
+    row.update(max_abs_err=float(err.max()), worst_err_over_tol=worst,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"kernels: {label} {row['shape']:8s} {desc}: max err "
+          f"{row['max_abs_err']:.3e} (err/tol {worst:.3f} <= 1, tol "
+          f"{tol_text}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"{lib_text} {lib_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
+          f"({row['bound_by']})")
+    return row
+
+
 def phase_kernels():
     from fpqvar_tpu_torch.ops import int8_matmul as K
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    shapes = [("qkv", 4096, 1024, 3072), ("proj", 4096, 1024, 1024),
-              ("fc1", 4096, 1024, 4096), ("fc2", 4096, 4096, 1024),
-              ("ragged", 16, 1024, 1000)]
+    shapes = list(D16_SHAPES) + [("ragged", 16, 1024, 1000)]
     rows = []
     for name, m, k, n in shapes:
-        ops = _k1_operands(m, k, n, gen)
-        y = K.int8_group_gemm(*ops, 128)
-        torch.cuda.synchronize()
-        ref = K.int8_group_gemm_ref(*ops, 128)
-        tol = K.int8_group_gemm_tolerance(*ops, 128)
-        err = (y - ref).abs()
-        worst = float((err / tol.clamp_min(1e-30)).max())
-        if not bool(torch.isfinite(y).all()) or bool((err > tol).any()):
-            fail(f"K1 {name} M={m} K={k} N={n}: max err {float(err.max())} "
-                 f"exceeds the tolerance (worst err/tol {worst:.3g})")
+        ops = _k1_operands(m, k, n, gen) + (128,)
         a_bf = torch.randn((m, k), generator=gen, device="cuda",
                            dtype=torch.bfloat16)
         b_bf = torch.randn((k, n), generator=gen, device="cuda",
                            dtype=torch.bfloat16)
-        ms = cuda_ms(lambda: K.int8_group_gemm(*ops, 128))
-        plain_ms = cuda_ms(lambda: K.int8_group_gemm_ref(*ops, 128), reps=5)
-        lib_ms = cuda_ms(lambda: torch.matmul(a_bf, b_bf))
         g = k // 128
-        nbytes = m * k + m * g * 4 + n * k + g * n * 4 + m * n * 4
-        nops = 2 * m * n * k
-        t_bytes, t_ops = nbytes / H100_BYTES * 1e3, nops / H100_INT8_OPS * 1e3
-        row = {"shape": name, "M": m, "K": k, "N": n,
-               "max_abs_err": float(err.max()), "worst_err_over_tol": worst,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        rows.append(row)
-        print(f"kernels: K1 {name:6s} M={m} K={k} N={n}: max err "
-              f"{row['max_abs_err']:.3e} (err/tol {worst:.3f} <= 1, tol "
-              f"{K.K1_REL_TOL:g}*sum_g|sa*sw*part|); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bf16 torch.matmul {lib_ms:.4f} ms, bound "
-              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+        rows.append(check_and_time(
+            "K1", {"shape": name, "M": m, "K": k, "N": n},
+            lambda: K.int8_group_gemm(*ops),
+            lambda: K.int8_group_gemm_ref(*ops),
+            lambda: K.int8_group_gemm_tolerance(*ops),
+            lambda: torch.matmul(a_bf, b_bf),
+            m * k + m * g * 4 + n * k + g * n * 4 + m * n * 4, H100_INT8_OPS,
+            f"{K.K1_REL_TOL:g}*sum_g|sa*sw*part|", "bf16 torch.matmul"))
     return rows
 
 
+def phase_k2():
+    """K2 against ``packed_matmul_ref`` at the d16 shapes with bfloat16 x
+    and e2m1 nibbles, then e2m3 bytes at the fc1 shape, float32 x at the
+    proj shape and a ragged M.  The bound counts the operations at the
+    bf16 tensor-core peak for float32 x too: the kernel runs its product
+    there (x split into three exact bf16 parts)."""
+    from fpqvar_tpu_torch.ops import packing as P
+    from fpqvar_tpu_torch.ops import quant_matmul as QM
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, m, k, n, "fp_e2", bf16) for name, m, k, n in D16_SHAPES]
+    cases += [("fc1-e2m3", 4096, 1024, 4096, "fp6_e2m3", bf16),
+              ("proj-f32", 4096, 1024, 1024, "fp_e2", f32),
+              ("ragged", 16, 1024, 1024, "fp_e2", bf16)]
+    rows = []
+    for name, m, k, n, fmt, dtype in cases:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+        pw = P.pack(w, fmt, 128)
+        ops = (x, pw.codes, pw.scales, fmt, 128, pw.nibble_packed)
+        b_lib = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+        x_name = str(dtype).replace("torch.", "")
+        rows.append(check_and_time(
+            "K2", {"shape": name, "M": m, "K": k, "N": n, "fmt": fmt,
+                   "x": x_name, "nibble": pw.nibble_packed},
+            lambda: QM.packed_matmul(*ops),
+            lambda: QM.packed_matmul_ref(*ops),
+            lambda: QM.packed_matmul_tolerance(*ops),
+            lambda: torch.matmul(x, b_lib),
+            (x.numel() * x.element_size() + pw.codes.numel()
+             + pw.scales.numel() * 4 + m * n * 4), H100_BF16_FLOPS,
+            f"{QM.K2_REL_TOL:g}*sum_g|s|*sum_k|x*grid|",
+            f"{x_name} torch.matmul"))
+    return rows
+
+
+def _small_recipes():
+    """The small-reference recipes: ``bench_recipes`` entries and W6A6 on
+    the packed backend."""
+    from fpqvar_tpu_torch.config import bench_recipes, fpqvar_w6a6
+
+    recipes = {m: bench_recipes()[m]
+               for m in ("int8", "bf16", "packed", "w4a16p", "fake")}
+    recipes["w6a6-packed"] = fpqvar_w6a6().replace(backend="packed")
+    return recipes
+
+
 def phase_small_reference():
-    """A width-256 int8 generation (grouped K1 route, G = 2) and a bf16 one
+    """Width-256 generations (every linear has more than one scale group)
     on the card against the same generations on the CPU, at top_k=1 and
     float32 compute."""
-    from fpqvar_tpu_torch.config import GenerateConfig, bench_recipes, var_tiny
+    from fpqvar_tpu_torch.config import GenerateConfig, var_tiny
     from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                          init_vqvae_params)
     from fpqvar_tpu_torch.quantize import quantize_var_params
@@ -163,8 +244,7 @@ def phase_small_reference():
     params = init_var_params(cfg, seed=4, device="cpu", adaln_gamma_std=0.02)
     vae = init_vqvae_params(cfg.vae, seed=5, device="cpu")
     labels = [3, 5, 7]
-    for mode in ("int8", "bf16"):
-        q = bench_recipes()[mode]
+    for mode, q in _small_recipes().items():
         out = {}
         for dev in ("cpu", "cuda"):
             qp = quantize_var_params(_to(params, dev), cfg, q, galt=galt)
@@ -188,14 +268,17 @@ def _to(tree, dev):
 
 
 def phase_main_path(card: str):
+    """Each recipe's generations with both launch counts set to 0 just
+    before them and read just after: K1 runs exactly under ``int8``, K2
+    exactly under ``packed`` and ``w4a16p``."""
     from fpqvar_tpu_torch.config import GenerateConfig, bench_recipes, var_d16
     from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                          init_vqvae_params)
     from fpqvar_tpu_torch.ops import int8_matmul as K
+    from fpqvar_tpu_torch.ops import quant_matmul as QM
     from fpqvar_tpu_torch.quantize import quantize_var_params
 
     cfg = var_d16()
-    K.launches = 0               # counts from here on are the main path's
     t0 = time.perf_counter()
     params = init_var_params(cfg, seed=0, device="cuda", adaln_gamma_std=0.02)
     vae = init_vqvae_params(cfg.vae, seed=1, device="cuda")
@@ -207,9 +290,16 @@ def phase_main_path(card: str):
           f"{cfg.depth}, L={cfg.L}) + d16 VQVAE, random init in "
           f"{time.perf_counter() - t0:.1f} s")
     batch, n_batches = 8, 2
-    per_gen_launches = cfg.depth * cfg.num_scales * 5
+    blocks = cfg.depth * cfg.num_scales
+    # launches per generation: int8 runs fc2 as two K1 GEMMs (dual grid);
+    # packed fake-quantizes fc2's dual grid first and runs one K2 GEMM
+    per_gen = {"int8": {"K1": blocks * 5, "K2": 0},
+               "bf16": {"K1": 0, "K2": 0},
+               "packed": {"K1": 0, "K2": blocks * 4},
+               "w4a16p": {"K1": 0, "K2": blocks * 4}}
+    totals = {"K1": 0, "K2": 0}
     results, setups = {}, {}
-    for mode in ("int8", "bf16"):
+    for mode in per_gen:
         q = bench_recipes()[mode]
         t0 = time.perf_counter()
         qp = quantize_var_params(params, cfg, q, galt=galt)
@@ -218,8 +308,8 @@ def phase_main_path(card: str):
         gen = VARGenerator(cfg, q, GenerateConfig())
         rng_gen = torch.Generator(device="cuda")
         rng_gen.manual_seed(3)
-        before = K.launches
         times = []
+        K.launches = QM.launches = 0
         for i in range(n_batches):
             labels = torch.arange(i * batch, (i + 1) * batch, device="cuda")
             torch.cuda.synchronize()
@@ -234,29 +324,34 @@ def phase_main_path(card: str):
             lo, hi = float(imgs.min()), float(imgs.max())
             if lo < 0.0 or hi > 1.0:
                 fail(f"{mode}: image values outside [0, 1]: {lo}, {hi}")
-        n = K.launches - before
-        want = per_gen_launches * n_batches if mode == "int8" else 0
-        if n != want:
-            fail(f"{mode}: K1 launched {n} times over {n_batches} "
-                 f"generations, expected {want}")
+        counts = {"K1": K.launches, "K2": QM.launches}
+        for kern, n in counts.items():
+            want = per_gen[mode][kern] * n_batches
+            if n != want:
+                fail(f"{mode}: {kern} launched {n} times over {n_batches} "
+                     f"generations, expected {want}")
+            totals[kern] += n
         steady = times[-1]
         results[mode] = steady
         print(f"main path: {mode}: quantize_var_params {t_quant:.2f} s; "
               f"generation ms/batch-of-{batch} = "
               f"{', '.join(f'{t * 1e3:.1f}' for t in times)} (first includes "
               f"warm-up); steady {batch / steady:.2f} img/s; K1 launches "
-              f"{n} ({n // n_batches} per generation); images "
-              f"[{batch}, 3, 256, 256] finite in [0, 1]; on {card}")
+              f"{counts['K1']}, K2 launches {counts['K2']} "
+              f"({counts['K1'] // n_batches} and {counts['K2'] // n_batches} "
+              f"per generation); images [{batch}, 3, 256, 256] finite in "
+              f"[0, 1]; on {card}")
         setups[mode] = (gen, qp, rng_gen)
-    launches = K.launches
-    print(f"main path: int8/bf16 steady time ratio "
-          f"{results['int8'] / results['bf16']:.3f} on {card}; K1 launches "
-          f"over the whole main path {launches}")
+    print("main path: steady time against bf16: " + ", ".join(
+        f"{m} {results[m] / results['bf16']:.3f}" for m in results)
+        + f" on {card}; launches over the main path: K1 {totals['K1']}, "
+        f"K2 {totals['K2']}")
     labels = torch.arange(batch, device="cuda")
-    for mode, (gen, qp, rng_gen) in setups.items():
+    for mode in ("int8", "bf16", "packed"):
+        gen, qp, rng_gen = setups[mode]
         phase_profile(mode, lambda: gen.generate(qp, vae, labels, rng_gen),
                       card)
-    return launches
+    return totals
 
 
 def phase_profile(mode: str, run, card: str):
@@ -285,40 +380,52 @@ def phase_profile(mode: str, run, card: str):
         print(f"profile: {mode}: device time not measured (the profiler "
               f"recorded no kernel time); wall {wall_ms:.1f} ms")
         return
-    k1 = [e for e in kernels if "int8_group_gemm" in e.key]
+    ours = []
+    for label, key in (("K1", "int8_group_gemm"),
+                       ("K2", "packed_dequant_gemm")):
+        hits = [e for e in kernels if key in e.key]
+        ours.append(f"{label} {sum(dev_ms(e) for e in hits):.2f} ms in "
+                    f"{sum(e.count for e in hits)} launches")
     top = sorted(kernels, key=dev_ms, reverse=True)[:6]
     print(f"profile: {mode} batch-8 generation under the profiler: wall "
           f"{wall_ms:.1f} ms, device busy {busy:.1f} ms in {n_kernels} "
-          f"kernel launches, idle share {1.0 - busy / wall_ms:.3f}; K1 "
-          f"{sum(dev_ms(e) for e in k1):.2f} ms in "
-          f"{sum(e.count for e in k1)} launches; on {card}")
+          f"kernel launches, idle share {1.0 - busy / wall_ms:.3f}; "
+          f"{'; '.join(ours)}; on {card}")
     for e in top:
         print(f"profile: {mode}   {dev_ms(e):8.2f} ms {e.count:6d}x "
               f"{e.key[:90]}")
 
 
+def _kernel_row(name, source, replaces, launches, rows):
+    """One kernel of the JSON table: timed at the d16 fc1 shape, the max
+    error over every shape it was checked at."""
+    head = next(r for r in rows if r["shape"] == "fc1")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "timed_shape": "fc1 M=4096 K=1024 N=4096", "shapes": rows}
+
+
 def main():
     card = phase_device()
     phase_build()
-    rows = phase_kernels()
+    k1_rows = phase_kernels()
+    k2_rows = phase_k2()
     phase_small_reference()
     launches = phase_main_path(card)
-    head = next(r for r in rows if r["shape"] == "fc1")
-    kernels = {"kernels": [{
-        "name": "int8_group_gemm",
-        "route": "cuda",
-        "source": "fpqvar_tpu_torch/csrc/int8_group_gemm.cu",
-        "replaces": "fpqvar_tpu/ops/pallas/int8_matmul.py:185",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "timed_shape": "fc1 M=4096 K=1024 N=4096",
-        "shapes": rows,
-    }]}
+    kernels = {"kernels": [
+        _kernel_row("int8_group_gemm",
+                    "fpqvar_tpu_torch/csrc/int8_group_gemm.cu",
+                    "fpqvar_tpu/ops/pallas/int8_matmul.py:185",
+                    launches["K1"], k1_rows),
+        _kernel_row("packed_dequant_gemm",
+                    "fpqvar_tpu_torch/csrc/packed_dequant_gemm.cu",
+                    "fpqvar_tpu/ops/pallas/quant_matmul.py:87",
+                    launches["K2"], k2_rows),
+    ]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 A copy of the model, recipe and sampling dataclasses of the JAX package's
 ``fpqvar_tpu/config.py`` (the port imports nothing of that package), cut to
-what the port runs: the VAR/VQVAE shapes, the quantization recipe, and the
-``bf16`` and ``int8`` execution modes.
+what the port runs: the VAR/VQVAE shapes, the quantization recipes, and the
+``bf16``, ``fake``, ``int8``, ``packed`` and ``w4a16p`` execution modes.
 """
 from __future__ import annotations
 
@@ -139,17 +139,53 @@ def fpqvar_w4a4() -> QuantConfig:
     )
 
 
+def fpqvar_w4a16() -> QuantConfig:
+    """Weights-only FP4: fp_e2 weights, activations unquantized (``bf16``
+    act format), no rotation or GALT.  The port runs it on the ``packed``
+    backend (``w4a16p``); the ``int8`` form is not ported yet."""
+    return QuantConfig(
+        enabled=True, w_bit=4, a_bit=16, kv_bit=0,
+        weight_quant="per_channel", act_quant="per_token",
+        weight_format="fp_e2", act_format="bf16", fc2_format="bf16",
+        backend="int8",
+    )
+
+
+def fpqvar_w6a6() -> QuantConfig:
+    """FP6 e2m3 weights and activations, integer-negative / e2m3-positive
+    dual grid at fc2, with rotation and GALT."""
+    return QuantConfig(
+        enabled=True, w_bit=6, a_bit=6, kv_bit=0,
+        weight_quant="per_group", act_quant="per_group",
+        weight_format="fp6_e2m3", act_format="fp6_e2m3",
+        fc2_format="fp6_int_neg_e2m3_pos",
+        rotate=True, block_rotate=True, transform=True,
+    )
+
+
 def bench_recipes() -> dict:
     """The execution modes the port runs so far (the JAX package's
     ``bench_recipes`` has more; they come with later slices):
 
-      bf16  unquantized baseline
-      int8  the paper's W4A4 recipe with grouped-128 int8 codes on both
-            sides, every block linear through the grouped int8 GEMM
+      bf16    unquantized baseline
+      fake    the paper's W4A4 recipe as exact fp4 values: activations
+              fake-quantized, weights dequantized, dense matmuls
+      int8    the W4A4 recipe with grouped-128 int8 codes on both sides,
+              every block linear through the grouped int8 GEMM (K1)
+      packed  the W4A4 recipe with nibble-packed fp4 weight codes: fake-
+              quantized activations through the dequantize-in-register
+              GEMM (K2)
+      w4a16p  weights-only nibble-packed fp4 codes through K2, activations
+              unquantized
     """
+    base = fpqvar_w4a4()
     return {
         "bf16": QuantConfig(),
-        "int8": fpqvar_w4a4().replace(backend="int8"),
+        "fake": base,
+        "int8": base.replace(backend="int8"),
+        "packed": base.replace(backend="packed"),
+        "w4a16p": fpqvar_w4a16().replace(backend="packed",
+                                         weight_quant="per_group"),
     }
 
 

@@ -20,14 +20,19 @@ from fpqvar_tpu_torch.models import vqvae as vq
 from fpqvar_tpu_torch.models.sampling import sample_with_top_k_top_p
 from fpqvar_tpu_torch.ops.hadamard import apply_block_hadamard
 from fpqvar_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_dual
-from fpqvar_tpu_torch.ops.packing import DUAL_CODE_MULT, IntPack
+from fpqvar_tpu_torch.ops.packing import DUAL_CODE_MULT, IntPack, PackedTensor
+from fpqvar_tpu_torch.ops.quant_matmul import packed_linear
 
 MAX_SCALE_MUL = math.log(100.0)
 
 
 def linear(x: torch.Tensor, w, b=None) -> torch.Tensor:
-    """torch-layout linear: w is (out, in)."""
-    y = x @ w.to(x.dtype).T
+    """torch-layout linear: w is (out, in), a float tensor or a
+    :class:`PackedTensor` (through the packed GEMM, K2)."""
+    if isinstance(w, PackedTensor):
+        y = packed_linear(x, w)
+    else:
+        y = x @ w.to(x.dtype).T
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -66,7 +71,8 @@ def _attention(q, k, v, attn_bias: Optional[torch.Tensor]):
 def _q_then_lin(qrt, kind: str, xv, w, b=None):
     """Linear of one layer kind: an :class:`IntPack` weight quantizes the
     activation to int codes and runs the grouped int8 GEMM (fc2's dual-grid
-    format as two GEMMs); a float weight is a plain linear."""
+    format as two GEMMs); otherwise the kind's activation quantizer (if
+    any) runs first, then the linear on the float or packed weight."""
     if isinstance(w, IntPack):
         fmt_a = qrt.act_fmts.get(kind) or w.fmt
         if fmt_a in DUAL_CODE_MULT:
@@ -74,6 +80,9 @@ def _q_then_lin(qrt, kind: str, xv, w, b=None):
         else:
             y = int8_linear(xv, w, fmt_a)
         return y if b is None else y + b.to(y.dtype)
+    aq = qrt.act_q.get(kind) if qrt is not None else None
+    if aq is not None:
+        xv = aq(xv)
     return linear(xv, w, b)
 
 
@@ -140,7 +149,7 @@ def block_params(blocks: Dict, i: int) -> Dict:
     """Block ``i`` of the depth-stacked block parameters (views)."""
     out = {}
     for key, val in blocks.items():
-        if isinstance(val, IntPack):
+        if isinstance(val, (IntPack, PackedTensor)):
             out[key] = val.block(i)
         elif isinstance(val, torch.Tensor):
             out[key] = val[i]

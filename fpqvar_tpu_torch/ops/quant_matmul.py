@@ -1,0 +1,188 @@
+"""Packed-weight linears on the dequantize-in-register GEMM (kernel K2).
+
+``packed_matmul`` computes
+
+    out[m,n] = sum_g  s[g,n] * sum_{k in g} x[m,k] * grid[code[n,k]]
+
+with float32 output, for ``x [M, K]`` in bf16 or float32, the codes of a
+:class:`~fpqvar_tpu_torch.ops.packing.PackedTensor` (row-split e2m1 nibbles
+``[N/2, K]`` or one code per byte ``[N, K]``) and float32 scales
+``[G, N]``.  On a CUDA tensor it launches the hand-written Hopper kernel
+``csrc/packed_dequant_gemm.cu`` (the port of the TPU kernel
+``fpqvar_tpu/ops/pallas/quant_matmul.py`` ``_kernel`` /
+``_packed_matmul_2d``) or raises; on a CPU tensor it runs the plain version
+``packed_matmul_ref``.  ``launches`` counts kernel launches.
+
+The plain version follows the kernel's arithmetic: exact grid values in
+each group's dot, the float32 scale applied to each group's partial
+product.  The JAX package's CPU fallback instead rounds ``grid * scale`` to
+``x.dtype`` before one dense product; the two agree only within rounding.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from fpqvar_tpu_torch.ops import _build
+from fpqvar_tpu_torch.ops import grids as G
+from fpqvar_tpu_torch.ops import packing as P
+
+#: K chunk of the kernel: every group is a multiple of it
+KERNEL_K = 128
+
+#: format -> the kernel's decoder id (the formats K2 decodes in-kernel)
+KERNEL_FMTS = {"fp_e2": 0, "fp6_e2m3": 1}
+
+#: number of K2 kernel launches in this process
+launches = 0
+
+#: Bound on |kernel - plain| per element, as a share of
+#: ``sum_g |s[g,n]| * sum_{k in g} |x[m,k] * grid[code[n,k]]|``.  Every
+#: product is exact on the kernel's side (bf16 x or its three-way bf16
+#: split times grid values of <= 4 significant bits) and rounded once
+#: (u = 2^-24) on the plain side.  The plain version sums each 128-term
+#: group in float32 in some order: <= 127 u of the sum of the terms' sizes.
+#: The kernel sums on tensor cores, which align and truncate (<= 2 u per
+#: addition), over 128 terms a group for bf16 x and 3 * 128 for float32 x:
+#: <= 768 u.  The scale products and the sum over G <= 32 groups add
+#: <= (G + 2) * 2 u on each side.  In all <= (1 + 127 + 768 + 136) u
+#: = 1032 u = 6.2e-5, which this covers.
+K2_REL_TOL = 1e-4
+
+
+def _check_format(fmt: str, nibble: bool):
+    if fmt not in G.GRIDS:
+        raise ValueError(f"unknown packed format {fmt!r}")
+    if nibble and len(G.GRIDS[fmt]) > 16:
+        raise ValueError(f"{fmt} codes do not fit in a nibble")
+
+
+def _grouped_dot(x, w, scales, group_size: int):
+    """``sum_g scales[g] * (x_g @ w_g.T)`` in float32, group by group in
+    order, as the kernel accumulates: x [M, K], w [N, K], scales [G, N]."""
+    m, k = x.shape
+    xf = x.to(torch.float32)
+    out = torch.zeros((m, w.shape[0]), dtype=torch.float32, device=x.device)
+    for g in range(k // group_size):
+        ks = slice(g * group_size, (g + 1) * group_size)
+        out += (xf[:, ks] @ w[:, ks].T) * scales[g]
+    return out
+
+
+def _weight(codes, scales, fmt: str, group_size: int, nibble: bool):
+    n, k = scales.shape[1], codes.shape[1]
+    return P.grid_values(P.PackedTensor(codes, scales, fmt, (n, k),
+                                        group_size, nibble))
+
+
+def packed_matmul_ref(x, codes, scales, fmt: str, group_size: int,
+                      nibble: bool):
+    """Plain PyTorch version of K2: unpack, decode the exact grid values,
+    one float32 dot per group, each output column scaled per group."""
+    _check_format(fmt, nibble)
+    w = _weight(codes, scales, fmt, group_size, nibble)
+    return _grouped_dot(x, w, scales, group_size)
+
+
+def packed_matmul_tolerance(x, codes, scales, fmt: str, group_size: int,
+                            nibble: bool):
+    """Per-element bound on |kernel - plain|: ``K2_REL_TOL * sum_g |s| *
+    sum_k |x * grid[code]|``."""
+    w = _weight(codes, scales, fmt, group_size, nibble)
+    return K2_REL_TOL * _grouped_dot(x.abs(), w.abs(), scales.abs(),
+                                     group_size)
+
+
+def _check(x, codes, scales, fmt: str, group_size: int, nibble: bool):
+    _check_format(fmt, nibble)
+    if x.dim() != 2 or codes.dim() != 2 or scales.dim() != 2:
+        raise ValueError("x [M, K], codes and scales [G, N] must be 2-D")
+    m, k = x.shape
+    n = scales.shape[1]
+    if k % KERNEL_K or group_size % KERNEL_K or k % group_size:
+        raise ValueError(f"K={k} and group_size={group_size} must be "
+                         f"multiples of {KERNEL_K}, with K % group_size == 0")
+    if nibble and n % 128:
+        raise ValueError(f"nibble-packed codes need N % 128 == 0, got N={n}")
+    want = (n // 2 if nibble else n, k)
+    if tuple(codes.shape) != want:
+        raise ValueError(f"codes must be {list(want)}, got "
+                         f"{list(codes.shape)}")
+    if scales.shape[0] != k // group_size:
+        raise ValueError(f"scales must be [{k // group_size}, {n}], got "
+                         f"{list(scales.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
+    if codes.dtype != torch.int8:
+        raise TypeError("codes must be int8")
+    if scales.dtype != torch.float32:
+        raise TypeError("scales must be float32")
+    devs = {t.device for t in (x, codes, scales)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """``csrc/packed_dequant_gemm.cu``, built on first use, with its C
+    signatures."""
+    lib = _build.load("packed_dequant_gemm")
+    lib.packed_dequant_gemm.argtypes = ([ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] * 7
+                                        + [ctypes.c_void_p])
+    lib.packed_dequant_gemm.restype = ctypes.c_int
+    lib.packed_dequant_gemm_error_string.argtypes = [ctypes.c_int]
+    lib.packed_dequant_gemm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def packed_matmul(x, codes, scales, fmt: str, group_size: int = 128,
+                  nibble: bool = True):
+    """K2: x [M, K] times the decoded packed weight, per-group scaled ->
+    [M, N] f32 (operands as in ``packed_matmul_ref``).  Ragged M works;
+    byte codes also take a ragged N."""
+    global launches
+    _check(x, codes, scales, fmt, group_size, nibble)
+    dev = x.device
+    if dev.type == "cpu":
+        return packed_matmul_ref(x, codes, scales, fmt, group_size, nibble)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if fmt not in KERNEL_FMTS:
+        raise NotImplementedError(
+            f"K2 decodes {sorted(KERNEL_FMTS)} in-kernel; {fmt!r} has no "
+            "CUDA decoder yet (ROADMAP.md: the rest of the fake backend)")
+    if not all(t.is_contiguous() for t in (x, codes, scales)):
+        raise ValueError("packed_matmul operands must be contiguous")
+    if x.data_ptr() % 16 or codes.data_ptr() % 16:
+        raise ValueError("packed_matmul x and codes must be 16-byte aligned "
+                         "(the kernel copies them in 16-byte chunks)")
+    m, k = x.shape
+    n = scales.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.packed_dequant_gemm(
+            x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), m, n, k, group_size,
+            int(x.dtype == torch.float32), KERNEL_FMTS[fmt], int(nibble),
+            stream)
+    if rc != 0:
+        msg = lib.packed_dequant_gemm_error_string(rc).decode()
+        raise RuntimeError(f"packed_dequant_gemm launch failed: {msg} ({rc})")
+    launches += 1
+    return out
+
+
+def packed_linear(x, pw: P.PackedTensor):
+    """``x [..., K]`` times the packed ``[N, K]`` weight through K2 (f32
+    out), returned in ``x.dtype`` as ``[..., N]``."""
+    n, k = pw.shape
+    out = packed_matmul(x.reshape(-1, k).contiguous(), pw.codes, pw.scales,
+                        pw.fmt, pw.group_size, pw.nibble_packed)
+    return out.reshape(x.shape[:-1] + (n,)).to(x.dtype)

@@ -7,7 +7,9 @@ A function over the params tree, as the JAX package's
    channels, keeping the vectors for the online activation multiply;
 2. rotation ``W <- W @ Q_block`` for mat_qkv and fc1, in float64 on the
    host;
-3. weight quantization to :class:`IntPack` codes for the ``int8`` backend.
+3. weight quantization: :class:`IntPack` integer codes for the ``int8``
+   backend, :class:`PackedTensor` grid codes for the ``packed`` backend, or
+   fake-quantized (dequantized) float weights for the ``fake`` backend.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ import torch
 
 from fpqvar_tpu_torch.config import QuantConfig, VARConfig
 from fpqvar_tpu_torch.ops import hadamard as H
+from fpqvar_tpu_torch.ops import grids as G
 from fpqvar_tpu_torch.ops import packing as P
+from fpqvar_tpu_torch.ops import quantizers as Q
 
 _WEIGHT_KEYS = ("mat_qkv_w", "proj_w", "fc1_w", "fc2_w")
 _ROTATED_KEYS = ("mat_qkv_w", "fc1_w")
@@ -56,20 +60,41 @@ def rotate_blocks(blocks: dict, qcfg: QuantConfig) -> dict:
 
 
 def quantize_weights(blocks: dict, qcfg: QuantConfig) -> dict:
-    """``int8`` backend: every block linear to per-group :class:`IntPack`
-    codes (``P.pack_int_codes`` on the depth-stacked weight)."""
-    if qcfg.backend != "int8" or qcfg.weight_quant != "per_group":
+    """Every block linear, as the JAX package's ``quantize_weights``:
+    ``packed`` -> per-group :class:`PackedTensor` (``P.pack_stacked``);
+    ``int8`` -> per-group :class:`IntPack` (``P.pack_int_codes``); ``fake``
+    -> the weight quantizer's dequantized floats in the weight's dtype."""
+    fmt = qcfg.weight_format
+    out = dict(blocks)
+    if qcfg.backend == "packed":
+        if fmt not in G.GRIDS:
+            raise ValueError(f"packed backend needs a grid format, got {fmt}")
+        for key in _WEIGHT_KEYS:
+            out[key] = P.pack_stacked(blocks[key].to(torch.float32), fmt,
+                                      qcfg.group_size)
+        return out
+    if qcfg.backend == "int8":
+        if qcfg.weight_quant != "per_group":
+            raise NotImplementedError(
+                f"int8 weight_quant={qcfg.weight_quant!r} is not ported yet "
+                "(ROADMAP.md: per-channel int8ch* recipes and w4a16)")
+        if fmt not in P.CODE_MULT:
+            raise ValueError(
+                f"int8 backend supports {sorted(P.CODE_MULT)}, got {fmt}")
+        for key in _WEIGHT_KEYS:
+            out[key] = P.pack_int_codes(blocks[key].to(torch.float32), fmt,
+                                        qcfg.group_size)
+        return out
+    if qcfg.backend != "fake" or qcfg.int_quant:
         raise NotImplementedError(
             f"weight quantization for backend={qcfg.backend!r}, "
-            f"weight_quant={qcfg.weight_quant!r} is not ported yet")
-    fmt = qcfg.weight_format
-    if fmt not in P.CODE_MULT:
-        raise ValueError(
-            f"int8 backend supports {sorted(P.CODE_MULT)}, got {fmt}")
-    out = dict(blocks)
+            f"int_quant={qcfg.int_quant} is not ported yet")
+    wq = Q.make_weight_quantizer(fmt, qcfg.w_bit,
+                                 granularity=qcfg.weight_quant,
+                                 group_size=qcfg.group_size)
     for key in _WEIGHT_KEYS:
-        out[key] = P.pack_int_codes(blocks[key].to(torch.float32), fmt,
-                                    qcfg.group_size)
+        w = blocks[key]
+        out[key] = wq(w.to(torch.float32)).to(w.dtype)
     return out
 
 

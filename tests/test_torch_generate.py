@@ -4,13 +4,21 @@ JAX builds the params (``init_var_params(PRNGKey(0), cfg,
 adaln_gamma_std=0.02)``; the VQVAE in ``init_vqvae_params``'s layout with
 seeded values), quantizes them with its
 ``quantize_var_params`` (seeded GALT vectors), the bridge carries them
-over, and both ``VARGenerator``s generate at ``top_k=1`` (argmax: no RNG)
+over (the port's own ``quantize_var_params`` on the bridged float params
+must give the same weights bit for bit: codes and scale bits, or the
+dequantized floats of ``fake``), and both ``VARGenerator``s generate at
+``top_k=1`` (argmax: no RNG)
 with float32 compute and cache.  The tokens of every scale must be
 identical; the CFG-mixed logits that the sampler sees (values of order 1)
 and ``f_hat`` (of order 0.1) must agree within 1e-5 and the images (in
 [0, 1]) within 5e-5, the float32 sums running in another order.
 Width 128 sends the int8 linears through one scale group (JAX's
-``_channel_dot`` route), width 256 through the grouped route.
+``_channel_dot`` route), width 256 through the grouped route.  The
+``packed`` recipe (fp4 nibble codes through K2's plain version) runs at
+both widths, so that every linear also has more than one scale group;
+``w4a16p`` (packed weights, unquantized activations), ``fake`` (dequantized
+weights, fake-quantized activations) and W6A6 on the packed backend
+(``w6a6p`` here: fp6 byte codes) at width 128.
 """
 import dataclasses
 import functools
@@ -23,6 +31,7 @@ import torch
 
 from fpqvar_tpu.config import GenerateConfig as JaxGenerateConfig
 from fpqvar_tpu.config import bench_recipes as jax_recipes
+from fpqvar_tpu.config import fpqvar_w6a6 as jax_w6a6
 from fpqvar_tpu.config import var_tiny as jax_var_tiny
 from fpqvar_tpu.models import var as JV
 from fpqvar_tpu.models import vqvae as Jvq
@@ -30,14 +39,28 @@ from fpqvar_tpu.models.engine import VARGenerator as JaxGenerator
 from fpqvar_tpu.quantize import quantize_var_params as jax_quantize
 from fpqvar_tpu.utils.checkpoint import save_params
 
-from fpqvar_tpu_torch.config import GenerateConfig, bench_recipes, var_tiny
+from fpqvar_tpu_torch.config import (GenerateConfig, bench_recipes,
+                                     fpqvar_w6a6, var_tiny)
 from fpqvar_tpu_torch.models import VARGenerator
 from fpqvar_tpu_torch.models import var as V
-from fpqvar_tpu_torch.ops.packing import IntPack
+from fpqvar_tpu_torch.ops.packing import IntPack, PackedTensor
+from fpqvar_tpu_torch.quantize import quantize_var_params
 from fpqvar_tpu_torch.utils.bridge import to_torch
 from test_torch_vqvae import _params as vqvae_params
 
 LABELS = np.array([3, 5, 998])
+#: quantized weight leaf of each recipe's block linears (None: floats)
+LEAF = {"bf16": None, "fake": None, "int8": IntPack, "packed": PackedTensor,
+        "w4a16p": PackedTensor, "w6a6p": PackedTensor}
+
+
+def _recipe(mode, jax_side=False):
+    """A recipe of ``bench_recipes`` or ``w6a6p``: W6A6 on the packed
+    backend, as the JAX package's tests write it."""
+    if mode == "w6a6p":
+        return (jax_w6a6() if jax_side else fpqvar_w6a6()).replace(
+            backend="packed")
+    return (jax_recipes() if jax_side else bench_recipes())[mode]
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,6 +72,12 @@ def _jax_vae():
 
 
 @functools.lru_cache(maxsize=None)
+def _jax_decode(vae_cfg):
+    """JAX's images from ``f_hat``, jitted once for all the tests."""
+    return jax.jit(lambda p, f: (Jvq.decode(p, vae_cfg, f) + 1.0) * 0.5)
+
+
+@functools.lru_cache(maxsize=None)
 def _jax_float_params(width):
     jcfg = dataclasses.replace(jax_var_tiny(), embed_dim=width,
                                num_heads=width // 64)
@@ -57,19 +86,40 @@ def _jax_float_params(width):
         jax.random.PRNGKey(0))
 
 
+def _galt(depth, width):
+    rng = np.random.default_rng(5)
+    return tuple(np.exp(0.1 * rng.standard_normal((depth, width)))
+                 .astype(np.float32) for _ in range(2))
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_params(width, mode):
     jcfg, jp = _jax_float_params(width)
-    rng = np.random.default_rng(5)
-    galt = tuple(np.exp(0.1 * rng.standard_normal((jcfg.depth, width)))
-                 .astype(np.float32) for _ in range(2))
-    jq = jax_recipes()[mode]
-    return jcfg, (jax_quantize(jp, jcfg, jq, galt=galt) if jq.enabled
-                  else jp)
+    jq = _recipe(mode, jax_side=True)
+    return jcfg, (jax_quantize(jp, jcfg, jq, galt=_galt(jcfg.depth, width))
+                  if jq.enabled else jp)
 
 
-@pytest.mark.parametrize("width,mode", [(128, "bf16"), (128, "int8"),
-                                        (256, "int8")])
+def _assert_same_weights(ours, theirs):
+    """The block linears of two port trees hold the same bits: float
+    tensors, or every field of their IntPack / PackedTensor leaves."""
+    for key in ("mat_qkv_w", "proj_w", "fc1_w", "fc2_w"):
+        o, t = ours[key], theirs[key]
+        assert type(o) is type(t), key
+        pairs = ([(o, t)] if isinstance(o, torch.Tensor) else
+                 [(getattr(o, f.name), getattr(t, f.name))
+                  for f in dataclasses.fields(o)])
+        for a, b in pairs:
+            if isinstance(a, torch.Tensor):
+                assert (a.dtype, a.shape) == (b.dtype, b.shape), key
+                assert a.numpy().tobytes() == b.numpy().tobytes(), key
+            else:
+                assert a == b, key
+
+
+@pytest.mark.parametrize("width,mode", [
+    (128, "bf16"), (128, "int8"), (256, "int8"), (128, "packed"),
+    (256, "packed"), (128, "w4a16p"), (128, "fake"), (128, "w6a6p")])
 def test_generation_matches_jax(monkeypatch, width, mode):
     jcfg, jqp = _jax_params(width, mode)
     jvae = _jax_vae()
@@ -97,20 +147,28 @@ def test_generation_matches_jax(monkeypatch, width, mode):
     monkeypatch.setattr(JV, "sample_with_top_k_top_p", jax_rec)
     monkeypatch.setattr(V, "sample_with_top_k_top_p", port_rec)
 
-    jgen = JaxGenerator(jcfg, jax_recipes()[mode],
+    jgen = JaxGenerator(jcfg, _recipe(mode, jax_side=True),
                         JaxGenerateConfig(top_k=1, top_p=0.0),
                         cache_dtype=jnp.float32, compute_dtype=jnp.float32)
     jf = jgen.generate(jqp, jvae, jnp.asarray(LABELS), jax.random.PRNGKey(2),
                        return_fhat=True)
-    jimg = np.asarray(jax.jit(
-        lambda p, f: (Jvq.decode(p, jcfg.vae, f) + 1.0) * 0.5)(jvae, jf))
+    jimg = np.asarray(_jax_decode(jcfg.vae)(jvae, jf))
     jax.effects_barrier()
 
     tqp = to_torch(jax.tree_util.tree_map(np.asarray, jqp), "cpu")
     tvae = to_torch(jax.tree_util.tree_map(np.asarray, jvae), "cpu")
-    if mode == "int8":
-        assert isinstance(tqp["blocks"]["mat_qkv_w"], IntPack)
-    gen = VARGenerator(cfg, bench_recipes()[mode],
+    for key in ("mat_qkv_w", "proj_w", "fc1_w", "fc2_w"):
+        leaf = tqp["blocks"][key]
+        assert (type(leaf) is LEAF[mode] if LEAF[mode]
+                else isinstance(leaf, torch.Tensor)), key
+    if _recipe(mode).enabled:
+        # the port's own recipe (fold, float64 rotation, quantize) gives
+        # JAX's quantized weights bit for bit
+        ours = quantize_var_params(to_torch(_jax_float_params(width)[1], "cpu"),
+                                   cfg, _recipe(mode),
+                                   galt=_galt(cfg.depth, width))
+        _assert_same_weights(ours["blocks"], tqp["blocks"])
+    gen = VARGenerator(cfg, _recipe(mode),
                        GenerateConfig(top_k=1, top_p=0.0),
                        cache_dtype=torch.float32,
                        compute_dtype=torch.float32, device="cpu")
@@ -160,3 +218,29 @@ def test_bridge_reads_save_params_files(tmp_path):
     assert tuple(pack.codes.shape) == (2, 512, 128)
     assert tuple(pack.scales.shape) == (2, 1, 512)
     assert nested["vae"]["decoder"]["up"][0]["attn"] == []
+
+
+def test_bridge_carries_packed_trees(tmp_path):
+    """A JAX ``packed`` tree, nested and through the ``save_params`` npz,
+    becomes the port's PackedTensor leaves with JAX's exact codes (the
+    nibble bytes keep their ``[d, N/2, K]`` layout; the scales arrive
+    transposed to ``[d, G, N]``), never IntPacks."""
+    _, jqp = _jax_params(128, "packed")
+    save_params(str(tmp_path / "p.npz"), jqp)
+    nested = to_torch(jax.tree_util.tree_map(np.asarray, jqp), "cpu")
+    flat = to_torch(dict(np.load(tmp_path / "p.npz")), "cpu")
+    for key in ("mat_qkv_w", "proj_w", "fc1_w", "fc2_w"):
+        theirs = jqp["blocks"][key]
+        for tree in (nested, flat):
+            ours = tree["blocks"][key]
+            assert type(ours) is PackedTensor, key
+            assert (ours.fmt, ours.shape, ours.group_size,
+                    ours.nibble_packed) == (theirs.fmt, theirs.shape,
+                                            theirs.group_size, True), key
+            np.testing.assert_array_equal(ours.codes.numpy(),
+                                          np.asarray(theirs.codes))
+            np.testing.assert_array_equal(
+                ours.scales.numpy(), np.swapaxes(np.asarray(theirs.scales),
+                                                 -1, -2))
+    assert tuple(nested["blocks"]["fc1_w"].codes.shape) == (2, 256, 128)
+    assert tuple(nested["blocks"]["fc1_w"].scales.shape) == (2, 1, 512)

@@ -7,7 +7,13 @@ step with a KV cache runs under ``bf16`` (float weights) and ``int8``
 (IntPack weights through the bridge) at width 128, where every linear has
 one scale group, and at width 256, where the grouped route runs: float32
 matmuls sum in another order, so the block output and the cache rows agree
-within 2e-5 (values of order 1).
+within 2e-5 (values of order 1).  One more step runs the ``packed`` recipe
+(PackedTensor weights through K2's plain version) at width 256 and
+bfloat16 compute, as generation does on the card: JAX's CPU path rounds
+``grid * scale`` to bfloat16 before one dense product, where the port
+takes exact grid values and scales each group's float32 partial, so the
+two differ by bfloat16 roundings (8 significant bits): within 2^-7 of each
+value plus 2^-8.
 """
 import dataclasses
 import functools
@@ -28,7 +34,7 @@ from fpqvar_tpu.quantize.runtime import build_runtime as jax_runtime
 from fpqvar_tpu_torch.config import bench_recipes, var_tiny
 from fpqvar_tpu_torch.models import sampling as S
 from fpqvar_tpu_torch.models import var as V
-from fpqvar_tpu_torch.ops.packing import IntPack
+from fpqvar_tpu_torch.ops.packing import IntPack, PackedTensor
 from fpqvar_tpu_torch.quantize import build_runtime, quantize_var_params
 from fpqvar_tpu_torch.utils.bridge import to_torch
 
@@ -128,6 +134,46 @@ def test_block_forward_step_with_cache(width, mode):
                                       (kc if name == "k" else vc)[:, :cur])
 
 
+def test_packed_block_forward_bf16():
+    jcfg, cfg, jqp, tqp, jrt, qrt = _setup(256, "packed")
+    assert isinstance(tqp["blocks"]["fc1_w"], PackedTensor)
+    b, cur, l, c, L = 2, 5, 9, cfg.width, cfg.L
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((b, l, c)).astype(np.float32)
+    mod = (rng.standard_normal((6, b, 1, c)) * 0.1).astype(np.float32)
+    kc = np.zeros((b, L, c), np.float32)
+    vc = np.zeros((b, L, c), np.float32)
+    kc[:, :cur] = rng.standard_normal((b, cur, c))
+    vc[:, :cur] = rng.standard_normal((b, cur, c))
+    i = 1
+    jbp = jax.tree_util.tree_map(lambda a: a[i], jqp["blocks"])
+
+    @jax.jit
+    def theirs_fn(x, mod, kc, vc):
+        return JV.block_forward(x, jbp, mod, jrt, jcfg,
+                                {"k": kc, "v": vc}, cur)[:2]
+
+    jx, upd = theirs_fn(*(jnp.asarray(a).astype(jnp.bfloat16)
+                          for a in (x, mod, kc, vc)))
+
+    def bf16(a):
+        return torch.from_numpy(a).to(torch.bfloat16)
+
+    cache = {"k": bf16(kc), "v": bf16(vc)}
+    ours = V.block_forward(bf16(x), V.block_params(tqp["blocks"], i),
+                           bf16(mod), qrt, cfg, cache, cur)
+    assert ours.dtype == torch.bfloat16
+
+    def close(a, b):
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b.astype(jnp.float32)),
+                                   rtol=2 ** -7, atol=2 ** -8)
+
+    close(ours, jx)
+    close(cache["k"][:, cur:cur + l], upd["k"][0])
+    close(cache["v"][:, cur:cur + l], upd["v"][0])
+
+
 def test_prepare_generation_and_head_match_jax():
     jcfg, cfg, jqp, tqp, _, _ = _setup(128, "bf16")
     labels = np.array([3, 5, 999])
@@ -146,9 +192,11 @@ def test_prepare_generation_and_head_match_jax():
 
 
 def test_runtime_rejects_unported_recipes():
-    from fpqvar_tpu_torch.config import fpqvar_w4a4
-
-    for q in (fpqvar_w4a4(), bench_recipes()["int8"].replace(kv_bit=4),
+    fake = bench_recipes()["fake"]
+    for q in (fake.replace(block_rotate=False),
+              fake.replace(mixed_act_formats=("fp_e2", "fp_e1")),
+              fake.replace(int_quant=True),
+              bench_recipes()["int8"].replace(kv_bit=4),
               bench_recipes()["int8"].replace(weight_quant="per_channel",
                                               act_quant="per_token")):
         with pytest.raises(NotImplementedError):
@@ -157,3 +205,11 @@ def test_runtime_rejects_unported_recipes():
     assert rt.act_fmts == {"mat_qkv": "fp_e2", "proj": "fp_e2",
                            "fc1": "fp_e2", "fc2": "fp_e1m2_neg_e2m1_pos"}
     assert rt.transform and tuple(rt.rotation_block.shape) == (128, 128)
+    assert all(v is None for v in rt.act_q.values())
+    for mode in ("fake", "packed"):
+        rt = build_runtime(bench_recipes()[mode], "cpu")
+        assert all(callable(v) for v in rt.act_q.values()), mode
+        assert rt.transform and rt.rotation_block is not None
+    rt = build_runtime(bench_recipes()["w4a16p"], "cpu")
+    assert all(v is None for v in rt.act_q.values())
+    assert not rt.transform and rt.rotation_block is None
