@@ -8,26 +8,30 @@ non-zero:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
    limit from nvidia-smi and turns TF32 off for float32 matmuls and convs;
-2. build: compiles the port's CUDA kernels K1 and K2 from ``fpqvar_tpu_torch/
+2. build: compiles the port's CUDA kernels K1 to K4 from ``fpqvar_tpu_torch/
    csrc`` with nvcc for sm_90a, one nvcc per source, all started together,
    and prints each kernel's registers and spills;
-3. kernels: K1 (the grouped int8 GEMM) and K2 (the dequantize-in-register
-   GEMM over packed fp4 / fp6 codes) against their plain PyTorch versions
-   at the VAR-d16 shapes of the last scale at batch 8 (M = 2*8*256 = 4096)
-   and ragged shapes, with times, the card's bound and a library yardstick;
-4. small reference: small generations (width 256, so every linear has more
-   than one scale group) under ``int8``, ``bf16``, ``packed``, ``w4a16p``,
-   W6A6 on the packed backend and ``fake``, on the card against the same
+3. kernels: K1 (the grouped int8 GEMM), K2 (the dequantize-in-register
+   GEMM over packed fp4 / fp6 codes), K3 (the full-K int8 GEMM with fused
+   rescale) and K4 (per-token quantize inside the full-K int8 GEMM) against
+   their plain PyTorch versions at the VAR-d16 shapes of the last scale at
+   batch 8 (M = 2*8*256 = 4096) and extra cases, with times, the card's
+   bound and a library yardstick; K3 and K4 must equal theirs exactly;
+4. small reference: small generations (width 256, so every grouped linear
+   has more than one scale group) under ``int8``, ``bf16``, ``packed``,
+   ``w4a16p``, W6A6 on the packed backend, ``fake``, ``int8ch``,
+   ``int8chs``, ``int8chsnr`` and ``w4a16``, on the card against the same
    generations on the CPU;
 5. main path: VAR-d16 with the full d16 VQVAE, random seeded weights,
    ``quantize_var_params`` and ``VARGenerator.generate`` for two batches of
-   8 labels under ``int8``, ``bf16``, ``packed`` and ``w4a16p``; checks
-   images and each recipe's kernel launch counts and prints img/s;
-6. profile: one more batch-8 generation under ``int8``, ``bf16`` and
-   ``packed`` under torch.profiler, after the launch counts were read:
-   device busy time, idle share, K1's and K2's shares and the kernels that
-   take the most device time (the source of PERF.md's "Where the time
-   goes").
+   8 labels under ``int8``, ``bf16``, ``packed``, ``w4a16p``, ``int8ch``,
+   ``int8chs``, ``int8chsnr`` and ``w4a16``; checks images and each
+   recipe's kernel launch counts and prints img/s;
+6. profile: one more batch-8 generation under ``int8``, ``bf16``,
+   ``packed`` and ``int8chs`` under torch.profiler, after the launch counts
+   were read: device busy time, idle share, the four kernels' shares and
+   the kernels that take the most device time (the source of PERF.md's
+   "Where the time goes").
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernel table as one JSON object.
@@ -47,7 +51,8 @@ import torch
 H100_INT8_OPS = 1979e12      # dense int8 tensor-core peak, H100 SXM
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES = 3.35e12         # HBM3 bandwidth, H100 SXM
-KERNEL_SOURCES = ("int8_group_gemm", "packed_dequant_gemm")
+KERNEL_SOURCES = ("int8_group_gemm", "packed_dequant_gemm", "int8ch_gemm",
+                  "fused_ch_gemm")
 #: the last scale's block linears of VAR-d16 at batch 8: (name, M, K, N)
 D16_SHAPES = (("qkv", 4096, 1024, 3072), ("proj", 4096, 1024, 1024),
               ("fc1", 4096, 1024, 4096), ("fc2", 4096, 4096, 1024))
@@ -90,7 +95,7 @@ def phase_device() -> str:
 
 
 def phase_build():
-    """Both kernel sources at once: one nvcc process each."""
+    """Every kernel source at once: one nvcc process each."""
     from fpqvar_tpu_torch.ops import _build
 
     def timed(name):
@@ -106,7 +111,8 @@ def phase_build():
                 _build.build_logs.get(name, "").splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"build: {name} for sm_90a in {sec:.2f} s: {'; '.join(regs)}")
-    print(f"build: both sources in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {len(KERNEL_SOURCES)} sources in "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 def _k1_operands(m, k, n, gen):
@@ -122,35 +128,60 @@ def _k1_operands(m, k, n, gen):
 
 
 def check_and_time(label: str, row: dict, run, plain, tol, lib, nbytes: int,
-                   peak: float, tol_text: str, lib_text: str) -> dict:
+                   peak: float, tol_text: str, lib_text: str,
+                   int_mm=None) -> dict:
     """Hold ``run()`` (a kernel) against ``plain()`` within ``tol()`` per
-    element, then time the kernel, its plain version and the library
-    yardstick ``lib()``; ``row`` (shape, M, K, N, ...) gains the numbers.
-    The bound is the larger of ``nbytes`` over the memory rate and
-    2*M*N*K operations over ``peak``."""
+    element, or, with ``tol=None``, require the two to be equal
+    (``torch.equal``); then time the kernel, its plain version, the library
+    yardstick ``lib()`` and, where given and where it runs, the int8
+    yardstick ``int_mm()``; ``row`` (shape, M, K, N, ...) gains the numbers.
+    The bound is the larger of ``nbytes`` over the memory rate and 2*M*N*K
+    operations over ``peak``."""
     y = run()
     torch.cuda.synchronize()
-    ref, bound = plain(), tol()
-    err = (y - ref).abs()
-    worst = float((err / bound.clamp_min(1e-30)).max())
+    ref = plain()
+    err = (y.float() - ref.float()).abs()
     desc = " ".join(f"{k}={v}" for k, v in row.items() if k != "shape")
-    if not bool(torch.isfinite(y).all()) or bool((err > bound).any()):
-        fail(f"{label} {row['shape']} {desc}: max err {float(err.max())} "
-             f"exceeds the tolerance (worst err/tol {worst:.3g})")
+    if tol is None:
+        worst = 0.0
+        if y.dtype != ref.dtype or not torch.equal(y, ref):
+            fail(f"{label} {row['shape']} {desc}: kernel and plain version "
+                 f"differ (max err {float(err.max())}), exact equality "
+                 "required")
+    else:
+        bound = tol()
+        worst = float((err / bound.clamp_min(1e-30)).max())
+        if not bool(torch.isfinite(y).all()) or bool((err > bound).any()):
+            fail(f"{label} {row['shape']} {desc}: max err {float(err.max())} "
+                 f"exceeds the tolerance (worst err/tol {worst:.3g})")
     ms = cuda_ms(run)
     plain_ms = cuda_ms(plain, reps=5)
     lib_ms = cuda_ms(lib)
+    int_mm_ms = None
+    if int_mm is not None:
+        try:
+            int_mm()
+        except RuntimeError as e:       # a yardstick only: absent is fine
+            print(f"kernels: {label} {row['shape']}: torch._int_mm does not "
+                  f"run here ({str(e).splitlines()[0][:80]})")
+        else:
+            int_mm_ms = cuda_ms(int_mm)
     t_bytes = nbytes / H100_BYTES * 1e3
     t_ops = 2 * row["M"] * row["N"] * row["K"] / peak * 1e3
     row.update(max_abs_err=float(err.max()), worst_err_over_tol=worst,
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if int_mm is not None:
+        row["int_mm_ms"] = int_mm_ms
+    check = ("equal to the plain version" if tol is None else
+             f"err/tol {worst:.3f} <= 1, tol {tol_text}")
+    extra = ("" if int_mm_ms is None else
+             f", int8 torch._int_mm {int_mm_ms:.4f} ms")
     print(f"kernels: {label} {row['shape']:8s} {desc}: max err "
-          f"{row['max_abs_err']:.3e} (err/tol {worst:.3f} <= 1, tol "
-          f"{tol_text}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"{lib_text} {lib_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
-          f"({row['bound_by']})")
+          f"{row['max_abs_err']:.3e} ({check}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, {lib_text} {lib_ms:.4f} ms{extra}, bound "
+          f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
     return row
 
 
@@ -217,21 +248,110 @@ def phase_k2():
     return rows
 
 
+def _int_mm(m, k, n, gen):
+    """The int8 yardstick: ``torch._int_mm`` (s8 x s8 -> s32) on random
+    codes of the same shape; the port never calls it."""
+    a = torch.randint(-12, 13, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-12, 13, (n, k), generator=gen, device="cuda",
+                      dtype=torch.int8).t()
+    return lambda: torch._int_mm(a, b)
+
+
+def phase_k3():
+    """K3 against ``int8ch_gemm_ref`` (exact equality) on per-token fp_e2
+    codes of a Gaussian activation and per-channel codes of a 0.02-std
+    weight: float32 output at the fc2 shape (as ``int8ch`` runs it, the two
+    dual-grid halves summed after), bfloat16 output at the other d16
+    shapes, and a ragged M and N.  The bound counts codes, scales and the
+    output at its dtype."""
+    from fpqvar_tpu_torch.ops import int8_matmul as K
+    from fpqvar_tpu_torch.ops import packing as P
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, m, k, n, f32 if name == "fc2" else bf16)
+             for name, m, k, n in D16_SHAPES]
+    cases += [("ragged", 16, 1024, 1000, bf16)]
+    rows = []
+    for name, m, k, n, out_dtype in cases:
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+        ac, asc = P.quant_int_codes(x, "fp_e2", k)
+        pw = P.pack_int_codes(w, "fp_e2", k)
+        ops = (ac, asc, pw.codes, pw.scales, out_dtype)
+        a_bf = torch.randn((m, k), generator=gen, device="cuda", dtype=bf16)
+        b_bf = torch.randn((k, n), generator=gen, device="cuda", dtype=bf16)
+        out_name = str(out_dtype).replace("torch.", "")
+        rows.append(check_and_time(
+            "K3", {"shape": name, "M": m, "K": k, "N": n, "out": out_name},
+            lambda: K.int8ch_gemm(*ops), lambda: K.int8ch_gemm_ref(*ops),
+            None, lambda: torch.matmul(a_bf, b_bf),
+            m * k + m * 4 + n * k + n * 4 + m * n * (4 if out_dtype == f32
+                                                     else 2),
+            H100_INT8_OPS, "", "bf16 torch.matmul",
+            int_mm=_int_mm(m, k, n, gen)))
+    return rows
+
+
+def phase_k4():
+    """K4 against ``fused_ch_gemm_ref`` (exact equality): bfloat16 x and
+    fp_e2 at the four d16 shapes (output in x's dtype, as the per-channel
+    recipes run it), fp_e1, fp_e3 and fp6_e2m3 at the fc1 shape, float32 x
+    at the proj shape, and a ragged M and N with an all-zero row.  The bound
+    counts x at its dtype, the weight codes and scales and the output; the
+    activation codes never leave the chip."""
+    from fpqvar_tpu_torch.ops import int8_matmul as K
+    from fpqvar_tpu_torch.ops import packing as P
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, m, k, n, "fp_e2", bf16) for name, m, k, n in D16_SHAPES]
+    cases += [(f"fc1-{fmt}", 4096, 1024, 4096, fmt, bf16)
+              for fmt in ("fp_e1", "fp_e3", "fp6_e2m3")]
+    cases += [("proj-f32", 4096, 1024, 1024, "fp_e2", f32),
+              ("ragged", 16, 1024, 1000, "fp_e2", bf16)]
+    rows = []
+    for name, m, k, n, fmt, dtype in cases:
+        x = (torch.randn((m, k), generator=gen, device="cuda") * 3.0)
+        if name == "ragged":
+            x[m // 2] = 0.0                                # an all-zero row
+        x = x.to(dtype)
+        w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
+        pw = P.pack_int_codes(w, fmt, k)
+        ops = (x, pw.codes, pw.scales, fmt, dtype)
+        b_lib = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+        x_name = str(dtype).replace("torch.", "")
+        rows.append(check_and_time(
+            "K4", {"shape": name, "M": m, "K": k, "N": n, "fmt": fmt,
+                   "x": x_name},
+            lambda: K.fused_ch_gemm(*ops), lambda: K.fused_ch_gemm_ref(*ops),
+            None, lambda: torch.matmul(x, b_lib),
+            (x.numel() * x.element_size() + pw.codes.numel()
+             + pw.scales.numel() * 4 + m * n * x.element_size()),
+            H100_INT8_OPS, "", f"{x_name} torch.matmul",
+            int_mm=_int_mm(m, k, n, gen)))
+    return rows
+
+
 def _small_recipes():
     """The small-reference recipes: ``bench_recipes`` entries and W6A6 on
     the packed backend."""
     from fpqvar_tpu_torch.config import bench_recipes, fpqvar_w6a6
 
     recipes = {m: bench_recipes()[m]
-               for m in ("int8", "bf16", "packed", "w4a16p", "fake")}
+               for m in ("int8", "bf16", "packed", "w4a16p", "fake", "int8ch",
+                         "int8chs", "int8chsnr", "w4a16")}
     recipes["w6a6-packed"] = fpqvar_w6a6().replace(backend="packed")
     return recipes
 
 
 def phase_small_reference():
-    """Width-256 generations (every linear has more than one scale group)
-    on the card against the same generations on the CPU, at top_k=1 and
-    float32 compute."""
+    """Width-256 generations (every grouped linear has more than one scale
+    group) on the card against the same generations on the CPU, at top_k=1
+    and float32 compute."""
     from fpqvar_tpu_torch.config import GenerateConfig, var_tiny
     from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                          init_vqvae_params)
@@ -267,15 +387,40 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+#: kernel -> the module attribute that counts its launches
+COUNTERS = {"K1": ("int8_matmul", "launches"),
+            "K2": ("quant_matmul", "launches"),
+            "K3": ("int8_matmul", "ch_launches"),
+            "K4": ("int8_matmul", "fused_launches")}
+#: the recipes profiled after the main path (phase 6)
+PROFILED = ("int8", "bf16", "packed", "int8chs")
+
+
+def _counter_modules():
+    from fpqvar_tpu_torch.ops import int8_matmul, quant_matmul
+
+    return {"int8_matmul": int8_matmul, "quant_matmul": quant_matmul}
+
+
+def reset_counts():
+    mods = _counter_modules()
+    for mod, attr in COUNTERS.values():
+        setattr(mods[mod], attr, 0)
+
+
+def read_counts() -> dict:
+    mods = _counter_modules()
+    return {k: getattr(mods[mod], attr) for k, (mod, attr) in COUNTERS.items()}
+
+
 def phase_main_path(card: str):
-    """Each recipe's generations with both launch counts set to 0 just
+    """Each recipe's generations with every launch count set to 0 just
     before them and read just after: K1 runs exactly under ``int8``, K2
-    exactly under ``packed`` and ``w4a16p``."""
+    exactly under ``packed`` and ``w4a16p``, K3 and K4 exactly under the
+    per-channel recipes."""
     from fpqvar_tpu_torch.config import GenerateConfig, bench_recipes, var_d16
     from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                          init_vqvae_params)
-    from fpqvar_tpu_torch.ops import int8_matmul as K
-    from fpqvar_tpu_torch.ops import quant_matmul as QM
     from fpqvar_tpu_torch.quantize import quantize_var_params
 
     cfg = var_d16()
@@ -291,13 +436,21 @@ def phase_main_path(card: str):
           f"{time.perf_counter() - t0:.1f} s")
     batch, n_batches = 8, 2
     blocks = cfg.depth * cfg.num_scales
-    # launches per generation: int8 runs fc2 as two K1 GEMMs (dual grid);
-    # packed fake-quantizes fc2's dual grid first and runs one K2 GEMM
-    per_gen = {"int8": {"K1": blocks * 5, "K2": 0},
-               "bf16": {"K1": 0, "K2": 0},
-               "packed": {"K1": 0, "K2": blocks * 4},
-               "w4a16p": {"K1": 0, "K2": blocks * 4}}
-    totals = {"K1": 0, "K2": 0}
+    # launches per generation (160 block forwards, CFG's doubled batch in
+    # one call): int8 runs fc2 as two K1 GEMMs (dual grid); packed fake-
+    # quantizes fc2's dual grid first and runs one K2 GEMM; int8ch runs K4
+    # on qkv, proj and fc1 and fc2's dual grid as two K3 GEMMs; int8chs and
+    # int8chsnr run K4 on all four; w4a16 runs no kernel (wonly_dot)
+    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    per_gen = {"int8": {**none, "K1": blocks * 5},
+               "bf16": none,
+               "packed": {**none, "K2": blocks * 4},
+               "w4a16p": {**none, "K2": blocks * 4},
+               "int8ch": {**none, "K3": blocks * 2, "K4": blocks * 3},
+               "int8chs": {**none, "K4": blocks * 4},
+               "int8chsnr": {**none, "K4": blocks * 4},
+               "w4a16": none}
+    totals = dict(none)
     results, setups = {}, {}
     for mode in per_gen:
         q = bench_recipes()[mode]
@@ -309,7 +462,7 @@ def phase_main_path(card: str):
         rng_gen = torch.Generator(device="cuda")
         rng_gen.manual_seed(3)
         times = []
-        K.launches = QM.launches = 0
+        reset_counts()
         for i in range(n_batches):
             labels = torch.arange(i * batch, (i + 1) * batch, device="cuda")
             torch.cuda.synchronize()
@@ -324,7 +477,7 @@ def phase_main_path(card: str):
             lo, hi = float(imgs.min()), float(imgs.max())
             if lo < 0.0 or hi > 1.0:
                 fail(f"{mode}: image values outside [0, 1]: {lo}, {hi}")
-        counts = {"K1": K.launches, "K2": QM.launches}
+        counts = read_counts()
         for kern, n in counts.items():
             want = per_gen[mode][kern] * n_batches
             if n != want:
@@ -333,21 +486,21 @@ def phase_main_path(card: str):
             totals[kern] += n
         steady = times[-1]
         results[mode] = steady
+        per = ", ".join(f"{k} {n // n_batches}" for k, n in counts.items())
         print(f"main path: {mode}: quantize_var_params {t_quant:.2f} s; "
               f"generation ms/batch-of-{batch} = "
               f"{', '.join(f'{t * 1e3:.1f}' for t in times)} (first includes "
-              f"warm-up); steady {batch / steady:.2f} img/s; K1 launches "
-              f"{counts['K1']}, K2 launches {counts['K2']} "
-              f"({counts['K1'] // n_batches} and {counts['K2'] // n_batches} "
-              f"per generation); images [{batch}, 3, 256, 256] finite in "
+              f"warm-up); steady {batch / steady:.2f} img/s; launches per "
+              f"generation {per}; images [{batch}, 3, 256, 256] finite in "
               f"[0, 1]; on {card}")
-        setups[mode] = (gen, qp, rng_gen)
+        if mode in PROFILED:
+            setups[mode] = (gen, qp, rng_gen)
     print("main path: steady time against bf16: " + ", ".join(
         f"{m} {results[m] / results['bf16']:.3f}" for m in results)
-        + f" on {card}; launches over the main path: K1 {totals['K1']}, "
-        f"K2 {totals['K2']}")
+        + f" on {card}; launches over the main path: "
+        + ", ".join(f"{k} {n}" for k, n in totals.items()))
     labels = torch.arange(batch, device="cuda")
-    for mode in ("int8", "bf16", "packed"):
+    for mode in PROFILED:
         gen, qp, rng_gen = setups[mode]
         phase_profile(mode, lambda: gen.generate(qp, vae, labels, rng_gen),
                       card)
@@ -382,7 +535,8 @@ def phase_profile(mode: str, run, card: str):
         return
     ours = []
     for label, key in (("K1", "int8_group_gemm"),
-                       ("K2", "packed_dequant_gemm")):
+                       ("K2", "packed_dequant_gemm"), ("K3", "int8ch_gemm"),
+                       ("K4", "fused_ch_gemm")):
         hits = [e for e in kernels if key in e.key]
         ours.append(f"{label} {sum(dev_ms(e) for e in hits):.2f} ms in "
                     f"{sum(e.count for e in hits)} launches")
@@ -396,17 +550,18 @@ def phase_profile(mode: str, run, card: str):
               f"{e.key[:90]}")
 
 
-def _kernel_row(name, source, replaces, launches, rows):
-    """One kernel of the JSON table: timed at the d16 fc1 shape, the max
-    error over every shape it was checked at."""
-    head = next(r for r in rows if r["shape"] == "fc1")
+def _kernel_row(name, source, replaces, launches, rows, timed="fc1"):
+    """One kernel of the JSON table: timed at the d16 shape ``timed``, the
+    max error over every shape it was checked at."""
+    head = next(r for r in rows if r["shape"] == timed)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "timed_shape": "fc1 M=4096 K=1024 N=4096", "shapes": rows}
+            "timed_shape": f"{timed} M={head['M']} K={head['K']} "
+                           f"N={head['N']}", "shapes": rows}
 
 
 def main():
@@ -414,17 +569,25 @@ def main():
     phase_build()
     k1_rows = phase_kernels()
     k2_rows = phase_k2()
+    k3_rows = phase_k3()
+    k4_rows = phase_k4()
     phase_small_reference()
     launches = phase_main_path(card)
+    src = "fpqvar_tpu_torch/csrc/"
     kernels = {"kernels": [
-        _kernel_row("int8_group_gemm",
-                    "fpqvar_tpu_torch/csrc/int8_group_gemm.cu",
+        _kernel_row("int8_group_gemm", src + "int8_group_gemm.cu",
                     "fpqvar_tpu/ops/pallas/int8_matmul.py:185",
                     launches["K1"], k1_rows),
-        _kernel_row("packed_dequant_gemm",
-                    "fpqvar_tpu_torch/csrc/packed_dequant_gemm.cu",
+        _kernel_row("packed_dequant_gemm", src + "packed_dequant_gemm.cu",
                     "fpqvar_tpu/ops/pallas/quant_matmul.py:87",
                     launches["K2"], k2_rows),
+        # K3 runs on the main path only at fc2 (int8ch's dual grid)
+        _kernel_row("int8ch_gemm", src + "int8ch_gemm.cu",
+                    "fpqvar_tpu/ops/pallas/int8_matmul.py:274",
+                    launches["K3"], k3_rows, timed="fc2"),
+        _kernel_row("fused_ch_gemm", src + "fused_ch_gemm.cu",
+                    "fpqvar_tpu/ops/pallas/int8_matmul.py:381",
+                    launches["K4"], k4_rows),
     ]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 A copy of the model, recipe and sampling dataclasses of the JAX package's
 ``fpqvar_tpu/config.py`` (the port imports nothing of that package), cut to
 what the port runs: the VAR/VQVAE shapes, the quantization recipes, and the
-``bf16``, ``fake``, ``int8``, ``packed`` and ``w4a16p`` execution modes.
+execution modes of :func:`bench_recipes`.
 """
 from __future__ import annotations
 
@@ -140,9 +140,11 @@ def fpqvar_w4a4() -> QuantConfig:
 
 
 def fpqvar_w4a16() -> QuantConfig:
-    """Weights-only FP4: fp_e2 weights, activations unquantized (``bf16``
-    act format), no rotation or GALT.  The port runs it on the ``packed``
-    backend (``w4a16p``); the ``int8`` form is not ported yet."""
+    """Weights-only FP4: per-channel fp_e2 int8 weight codes, activations
+    unquantized (``bf16`` act format), no rotation or GALT.  Every block
+    linear is one product of the bf16-rounded activation and the codes,
+    rescaled per output channel (``ops/int8_matmul.py`` ``wonly_dot``);
+    ``w4a16p`` is the same recipe with packed per-group codes."""
     return QuantConfig(
         enabled=True, w_bit=4, a_bit=16, kv_bit=0,
         weight_quant="per_channel", act_quant="per_token",
@@ -165,25 +167,44 @@ def fpqvar_w6a6() -> QuantConfig:
 
 def bench_recipes() -> dict:
     """The execution modes the port runs so far (the JAX package's
-    ``bench_recipes`` has more; they come with later slices):
+    ``bench_recipes`` also has ``int8kv`` and ``int8att``; they come with a
+    later slice):
 
-      bf16    unquantized baseline
-      fake    the paper's W4A4 recipe as exact fp4 values: activations
-              fake-quantized, weights dequantized, dense matmuls
-      int8    the W4A4 recipe with grouped-128 int8 codes on both sides,
-              every block linear through the grouped int8 GEMM (K1)
-      packed  the W4A4 recipe with nibble-packed fp4 weight codes: fake-
-              quantized activations through the dequantize-in-register
-              GEMM (K2)
-      w4a16p  weights-only nibble-packed fp4 codes through K2, activations
-              unquantized
+      bf16      unquantized baseline
+      fake      the paper's W4A4 recipe as exact fp4 values: activations
+                fake-quantized, weights dequantized, dense matmuls
+      int8      the W4A4 recipe with grouped-128 int8 codes on both sides,
+                every block linear through the grouped int8 GEMM (K1)
+      int8ch    the W4A4 recipe with per-channel weight and per-token
+                activation scales: qkv, proj and fc1 through the
+                quantize-in-kernel full-K GEMM (K4), the dual-grid fc2 as
+                two full-K GEMMs on its codes (K3)
+      int8chs   int8ch with a single-grid fp_e2 fc2: every block linear
+                through K4
+      int8chsnr int8chs without rotation and GALT (a diagnostic)
+      packed    the W4A4 recipe with nibble-packed fp4 weight codes: fake-
+                quantized activations through the dequantize-in-register
+                GEMM (K2)
+      w4a16     weights-only per-channel int8 codes, activations
+                unquantized (``wonly_dot``, no kernel)
+      w4a16p    weights-only nibble-packed fp4 codes through K2, activations
+                unquantized
     """
     base = fpqvar_w4a4()
     return {
         "bf16": QuantConfig(),
         "fake": base,
         "int8": base.replace(backend="int8"),
+        "int8ch": base.replace(backend="int8", weight_quant="per_channel",
+                               act_quant="per_token"),
+        "int8chs": base.replace(backend="int8", weight_quant="per_channel",
+                                act_quant="per_token", fc2_format="fp_e2"),
+        "int8chsnr": base.replace(backend="int8",
+                                  weight_quant="per_channel",
+                                  act_quant="per_token", fc2_format="fp_e2",
+                                  rotate=False, transform=False),
         "packed": base.replace(backend="packed"),
+        "w4a16": fpqvar_w4a16(),
         "w4a16p": fpqvar_w4a16().replace(backend="packed",
                                          weight_quant="per_group"),
     }

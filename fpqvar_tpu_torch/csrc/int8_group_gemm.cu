@@ -8,12 +8,10 @@
 // wants the B operand K-contiguous, where the TPU kernel took [K,N]),
 // wsc [G,N] f32, out [M,N] f32.  G = K / group, group a multiple of 128.
 //
-// Design.  One thread block owns one 128x128 output tile and walks K in
-// 128-wide chunks inside the block (the TPU kernel's sequential K grid
-// axis becomes this loop).  Each chunk of A and W codes is staged in shared
-// memory by cp.async, two stages deep, rows padded to 144 bytes so the
-// 32-bit fragment loads hit 32 distinct banks.  Eight warps (2 x 4) each
-// own a 64x32 sub-tile and run mma.sync m16n8k32 s8 x s8 -> s32 on it.
+// Design.  The tile loop of int8_mma.cuh: one 128x128 output tile per
+// block, K walked in 128-wide chunks inside the block (the TPU kernel's
+// sequential K grid axis becomes this loop), each chunk of A and W codes
+// staged by cp.async two stages deep, mma.sync m16n8k32 s8 x s8 -> s32.
 // At the end of every scale group the exact int32 partials are converted to
 // f32 and accumulated as part * asc * wsc in f32 registers.  Ragged M and N
 // edges are zero-filled on load (cp.async with src-size 0) and masked on
@@ -29,66 +27,14 @@
 // 3.35 TB/s: the f32 output write bounds it.  This first version is
 // mma.sync without wgmma, TMA or a bf16 epilogue, and is slower than that
 // bound (PERF.md has its times).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "int8_mma.cuh"
+
+using namespace int8mma;
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 128;                 // K chunk staged per pipeline step
-constexpr int PITCH = BK + 16;          // padded smem row, bytes
-constexpr int WARPS_M = 2;
-constexpr int WARPS_N = 4;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int WM = BM / WARPS_M;        // 64 rows per warp
-constexpr int WN = BN / WARPS_N;        // 32 cols per warp
-constexpr int MI = WM / 16;             // m16 tiles per warp
-constexpr int NI = WN / 8;              // n8 tiles per warp
-constexpr int STAGE_BYTES = (BM + BN) * PITCH;
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;   // A and W chunks
 constexpr int SMEM_BYTES = 2 * STAGE_BYTES;
-constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Stage rows [r0, r0 + 128) x K chunk [k0, k0 + 128) of a [rows, K] int8
-// matrix into smem; rows at or past `rows` are zero-filled.
-__device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* src,
-                                          int rows, int K, int r0, int k0,
-                                          int tid) {
-#pragma unroll
-  for (int i = 0; i < (128 * BK / 16) / THREADS; ++i) {
-    const int c = tid + i * THREADS;
-    const int r = c >> 3;
-    const int col = (c & 7) * 16;
-    const int gr = r0 + r;
-    const bool ok = gr < rows;
-    const int8_t* p = src + static_cast<size_t>(ok ? gr : 0) * K + k0 + col;
-    cp_async16(dst + r * PITCH + col, p, ok ? 16 : 0);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 int8_group_gemm_kernel(const int8_t* __restrict__ ac,
@@ -113,55 +59,30 @@ int8_group_gemm_kernel(const int8_t* __restrict__ ac,
 
   float acc[MI][NI][4];
   int part[MI][NI][4];
+  zero(part);
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[mi][ni][e] = 0.f;
-        part[mi][ni][e] = 0;
-      }
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
   load_tile(smem, ac, M, K, m0, 0, tid);
-  load_tile(smem + BM * PITCH, wc, N, K, n0, 0, tid);
+  load_tile(smem + TILE_BYTES, wc, N, K, n0, 0, tid);
   cp_async_commit();
 
   for (int kc = 0; kc < nchunks; ++kc) {
     if (kc + 1 < nchunks) {
       int8_t* nxt = smem + ((kc + 1) & 1) * STAGE_BYTES;
       load_tile(nxt, ac, M, K, m0, (kc + 1) * BK, tid);
-      load_tile(nxt + BM * PITCH, wc, N, K, n0, (kc + 1) * BK, tid);
+      load_tile(nxt + TILE_BYTES, wc, N, K, n0, (kc + 1) * BK, tid);
     }
     cp_async_commit();         // possibly empty: keeps the wait count uniform
     cp_async_wait_prev();      // chunk kc has landed
     __syncthreads();
 
     const int8_t* sA = smem + (kc & 1) * STAGE_BYTES;
-    const int8_t* sB = sA + BM * PITCH;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      unsigned af[MI][4];
-      unsigned bf[NI][2];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int8_t* p = sA + (wm * WM + mi * 16 + g) * PITCH + ks + t * 4;
-        af[mi][0] = *reinterpret_cast<const unsigned*>(p);
-        af[mi][1] = *reinterpret_cast<const unsigned*>(p + 8 * PITCH);
-        af[mi][2] = *reinterpret_cast<const unsigned*>(p + 16);
-        af[mi][3] = *reinterpret_cast<const unsigned*>(p + 8 * PITCH + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int8_t* q = sB + (wn * WN + ni * 8 + g) * PITCH + ks + t * 4;
-        bf[ni][0] = *reinterpret_cast<const unsigned*>(q);
-        bf[ni][1] = *reinterpret_cast<const unsigned*>(q + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) mma_s8(part[mi][ni], af[mi], bf[ni]);
-    }
+    mma_chunk(sA, sA + TILE_BYTES, part, wm, wn, g, t);
     __syncthreads();           // the next iteration refills this stage
 
     if ((kc + 1) % chunks_per_group == 0) {
@@ -231,20 +152,8 @@ extern "C" int int8_group_gemm(const void* ac, const void* asc,
       K % group != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // The shared-memory opt-in is a per-device function attribute: set it on
-  // the first launch on each device only (setting it twice is harmless).
-  static bool smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = opt_in_smem<int8_group_gemm_kernel>(SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!smem_set[dev]) {
-    e = cudaFuncSetAttribute(int8_group_gemm_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set[dev] = true;
-  }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   int8_group_gemm_kernel<<<grid, THREADS, SMEM_BYTES,
                            static_cast<cudaStream_t>(stream)>>>(

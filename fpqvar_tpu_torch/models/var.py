@@ -69,10 +69,14 @@ def _attention(q, k, v, attn_bias: Optional[torch.Tensor]):
 
 
 def _q_then_lin(qrt, kind: str, xv, w, b=None):
-    """Linear of one layer kind: an :class:`IntPack` weight quantizes the
-    activation to int codes and runs the grouped int8 GEMM (fc2's dual-grid
-    format as two GEMMs); otherwise the kind's activation quantizer (if
-    any) runs first, then the linear on the float or packed weight."""
+    """Linear of one layer kind.  An :class:`IntPack` weight takes the int8
+    linears of ``ops/int8_matmul.py``, which quantize the activation to int
+    codes inside the GEMM call: the grouped GEMM (K1) per group, the
+    quantize-in-kernel full-K GEMM (K4) per channel, two GEMMs for fc2's
+    dual-grid format (K1, or K3 per channel), and the weights-only product
+    for the ``bf16`` activation format.  Otherwise the kind's activation
+    quantizer (if any) runs first, then the linear on the float or packed
+    weight."""
     if isinstance(w, IntPack):
         fmt_a = qrt.act_fmts.get(kind) or w.fmt
         if fmt_a in DUAL_CODE_MULT:

@@ -2,9 +2,12 @@
 
 A ``csrc/<name>.cu`` with a plain C interface is compiled at first use with
 ``nvcc`` for ``sm_90a`` into ``fpqvar_tpu_torch/_build/`` (listed in
-``.gitignore``) and loaded with ctypes; the caller sets the C signatures.
-Only sources in the repository are built.  Nothing here runs at import
-time: the CPU tests import every module and have no ``nvcc``.
+``.gitignore``) and loaded with ctypes.  Every source exports
+``int <name>(..., void* stream)``, which launches its kernel on ``stream``
+and returns the launch's ``cudaError_t``, and ``const char*
+<name>_error_string(int)``.  Only sources in the repository are built.
+Nothing here runs at import time: the CPU tests import every module and
+have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -39,12 +42,13 @@ def _nvcc() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless this exact source was built
-    already; returns the shared library's path.  Raises with nvcc's output
-    if the build fails."""
+    """Compile ``csrc/<name>.cu`` unless this exact source (with the
+    shared headers ``csrc/*.cuh``) was built already; returns the shared
+    library's path.  Raises with nvcc's output if the build fails."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
     if out.exists():
         return out
@@ -61,10 +65,31 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def load(name: str, argtypes) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+    the C signature of ``<name>``: ``argtypes`` then the stream."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name)))
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libs[name] = lib
         return lib
+
+
+def launch(lib: ctypes.CDLL, name: str, device, *args) -> None:
+    """Call ``<name>(*args, stream)`` on the current stream of ``device``
+    (a CUDA ``torch.device``); raise if the launch was refused."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")

@@ -1,30 +1,58 @@
-"""Quantized linears on the grouped int8 GEMM (kernel K1).
+"""Quantized linears on the int8 GEMM kernels K1, K3 and K4.
 
-``int8_group_gemm`` computes
+``int8_group_gemm`` (K1) computes the grouped-scale product
 
     y[m,n] = sum_g  sa[m,g] * sw[g,n] * sum_{k in g} ac[m,k] * wc[n,k]
 
-with f32 output.  On a CUDA tensor it launches the hand-written Hopper
-kernel ``csrc/int8_group_gemm.cu`` (the port of the TPU kernel
-``fpqvar_tpu/ops/pallas/int8_matmul.py`` ``_kernel`` / ``_int8_matmul_2d``)
-or raises; on a CPU tensor it runs the plain version
-``int8_group_gemm_ref``.  ``launches`` counts kernel launches.
+with f32 output (the ``int8`` recipe).  The per-channel recipes
+(``int8ch``, ``int8chs``, ``int8chsnr``) keep one scale per activation row
+and one per weight column, so the whole K depth is one exact int32 dot:
+
+    y[m,n] = (float(sum_k ac[m,k] * wc[n,k]) * sa[m]) * sw[n]
+
+``int8ch_gemm`` (K3) takes activation codes that are already quantized
+(fc2's dual grid); ``fused_ch_gemm`` (K4) quantizes each activation row
+inside the kernel and never writes its codes to device memory.  On a CUDA
+tensor each wrapper launches its hand-written Hopper kernel
+(``csrc/int8_group_gemm.cu``, ``csrc/int8ch_gemm.cu``,
+``csrc/fused_ch_gemm.cu``: the ports of the TPU kernels of
+``fpqvar_tpu/ops/pallas/int8_matmul.py`` ``_int8_matmul_2d``,
+``_int8ch_matmul_2d`` and ``_fused_ch_matmul_2d``) or raises; on a CPU
+tensor it runs its plain version.  ``launches``, ``ch_launches`` and
+``fused_launches`` count the launches of K1, K3 and K4.
+
+``wonly_dot`` is the weights-only (``w4a16``) product, plain PyTorch as
+JAX's ``_wonly_dot`` is plain XLA.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from fpqvar_tpu_torch.ops import _build
+from fpqvar_tpu_torch.ops import grids as G
 from fpqvar_tpu_torch.ops import packing as P
+from fpqvar_tpu_torch.ops import quantizers as Q
 
-#: K chunk of the kernel: every group is a multiple of it
+#: K chunk of the kernels: K and every group are multiples of it
 KERNEL_K = 128
 
 #: number of K1 kernel launches in this process
 launches = 0
+#: number of K3 kernel launches in this process
+ch_launches = 0
+#: number of K4 kernel launches in this process
+fused_launches = 0
+
+#: K up to which every partial sum of a code dot is an integer below 2^24
+#: (|code| <= 64 on both sides: 64 * 64 * 4096 = 2^24), so a float32 dot
+#: is exact in any summation order
+EXACT_F32_K = 4096
+
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def int8_group_gemm_ref(acodes, ascales, wcodes, wscales, group_size: int):
@@ -85,22 +113,31 @@ def _check(acodes, ascales, wcodes, wscales, group_size: int):
         raise TypeError("codes must be int8")
     if ascales.dtype != torch.float32 or wscales.dtype != torch.float32:
         raise TypeError("scales must be float32")
-    devs = {t.device for t in (acodes, ascales, wcodes, wscales)}
+    _check_device(acodes, ascales, wcodes, wscales)
+
+
+def _check_device(*ops):
+    devs = {t.device for t in ops}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
+    dev = ops[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
 
 
-@functools.lru_cache(maxsize=None)
+def _check_cuda_layout(name: str, *ops, aligned=()):
+    """The kernels read contiguous rows in 16-byte chunks."""
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError(f"{name} operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError(f"{name} row operands must be 16-byte aligned "
+                         "(the kernel copies them in 16-byte chunks)")
+
+
 def _lib():
-    """``csrc/int8_group_gemm.cu``, built on first use, with its C
-    signatures."""
-    lib = _build.load("int8_group_gemm")
-    lib.int8_group_gemm.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                                    + [ctypes.c_void_p])
-    lib.int8_group_gemm.restype = ctypes.c_int
-    lib.int8_group_gemm_error_string.argtypes = [ctypes.c_int]
-    lib.int8_group_gemm_error_string.restype = ctypes.c_char_p
-    return lib
+    """``csrc/int8_group_gemm.cu``: codes, scales, out, M, N, K, group."""
+    return _build.load("int8_group_gemm",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4)
 
 
 def int8_group_gemm(acodes, ascales, wcodes, wscales, group_size: int = 128):
@@ -112,58 +149,245 @@ def int8_group_gemm(acodes, ascales, wcodes, wscales, group_size: int = 128):
     if dev.type == "cpu":
         return int8_group_gemm_ref(acodes, ascales, wcodes, wscales,
                                    group_size)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    ops = (acodes, ascales, wcodes, wscales)
-    if not all(t.is_contiguous() for t in ops):
-        raise ValueError("int8_group_gemm operands must be contiguous")
-    if acodes.data_ptr() % 16 or wcodes.data_ptr() % 16:
-        raise ValueError("int8_group_gemm codes must be 16-byte aligned "
-                         "(the kernel copies them in 16-byte chunks)")
+    _check_cuda_layout("int8_group_gemm", acodes, ascales, wcodes, wscales,
+                       aligned=(acodes, wcodes))
     m, k = acodes.shape
     n = wcodes.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.int8_group_gemm(
-            acodes.data_ptr(), ascales.data_ptr(), wcodes.data_ptr(),
-            wscales.data_ptr(), out.data_ptr(), m, n, k, group_size, stream)
-    if rc != 0:
-        msg = lib.int8_group_gemm_error_string(rc).decode()
-        raise RuntimeError(f"int8_group_gemm launch failed: {msg} ({rc})")
+    _build.launch(_lib(), "int8_group_gemm", dev, acodes.data_ptr(),
+                  ascales.data_ptr(), wcodes.data_ptr(), wscales.data_ptr(),
+                  out.data_ptr(), m, n, k, group_size)
     launches += 1
     return out
 
 
-def int8_linear(x, pw: P.IntPack, act_fmt: str = None):
-    """Quantize the activation ``x [..., K]`` to int codes and run K1
-    against the weight codes; returns ``[..., N]`` in ``x.dtype``.
+# ---------------------------------------------------------------------------
+# Per-channel int8 GEMMs: K3 and K4
+# ---------------------------------------------------------------------------
 
-    ``act_fmt`` defaults to the weight format.  With ``group_size == K``
-    (one scale per row and one per column, which JAX sends to its
-    ``_channel_dot``) K1 runs with G = 1: ``part * asc * ws`` is the same
-    arithmetic in the same order."""
-    if act_fmt == "bf16":
-        raise NotImplementedError(
-            "weights-only int8 linears (w4a16) are not ported yet "
-            "(ROADMAP: per-channel int8ch* recipes and w4a16)")
+def channel_dot_ref(ac, asc, wc, ws):
+    """Plain version of JAX's ``_channel_dot``: ``(float(ac . wc) * asc) *
+    ws`` in float32, the two multiplies in that order.
+
+    ac [M, K] int8, asc [M, 1] f32, wc [N, K] int8, ws [1, N] f32 -> [M, N]
+    f32.  The integer dot runs as a float32 matmul up to ``EXACT_F32_K``
+    (every partial sum is an integer below 2^24, exact in any order) and as
+    a float64 one beyond; either way it is the exact int32 dot, converted
+    to float32 as JAX converts its int32 result."""
+    dt = torch.float32 if ac.shape[-1] <= EXACT_F32_K else torch.float64
+    p = (ac.to(dt) @ wc.to(dt).T).to(torch.float32)
+    return (p * asc) * ws
+
+
+def _check_ch(ac, asc, wc, ws):
+    if ac.dim() != 2 or wc.dim() != 2:
+        raise ValueError("ac [M, K] and wc [N, K] must be 2-D")
+    m, k = ac.shape
+    n = wc.shape[0]
+    if wc.shape[1] != k:
+        raise ValueError(f"K mismatch: ac {tuple(ac.shape)}, "
+                         f"wc {tuple(wc.shape)}")
+    if k % KERNEL_K:
+        raise ValueError(f"K={k} must be a multiple of {KERNEL_K}")
+    if tuple(asc.shape) != (m, 1) or tuple(ws.shape) != (1, n):
+        raise ValueError(f"scales must be asc [{m}, 1] and ws [1, {n}], got "
+                         f"{tuple(asc.shape)} and {tuple(ws.shape)}")
+    if ac.dtype != torch.int8 or wc.dtype != torch.int8:
+        raise TypeError("codes must be int8")
+    if asc.dtype != torch.float32 or ws.dtype != torch.float32:
+        raise TypeError("scales must be float32")
+    _check_device(ac, asc, wc, ws)
+
+
+def _check_out_dtype(out_dtype):
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+
+
+def int8ch_gemm_ref(ac, asc, wc, ws, out_dtype=torch.float32):
+    """Plain version of K3: ``channel_dot_ref`` cast to ``out_dtype``."""
+    return channel_dot_ref(ac, asc, wc, ws).to(out_dtype)
+
+
+def _ch_lib():
+    """``csrc/int8ch_gemm.cu``: codes, scales, out, M, N, K, out_bf16."""
+    return _build.load("int8ch_gemm",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4)
+
+
+def int8ch_gemm(ac, asc, wc, ws, out_dtype=torch.float32):
+    """K3: full-K int8 GEMM with the per-row and per-column rescale fused
+    into its epilogue -> [M, N] ``out_dtype`` (float32 or bfloat16;
+    operands as in ``channel_dot_ref``)."""
+    global ch_launches
+    _check_ch(ac, asc, wc, ws)
+    _check_out_dtype(out_dtype)
+    dev = ac.device
+    if dev.type == "cpu":
+        return int8ch_gemm_ref(ac, asc, wc, ws, out_dtype)
+    _check_cuda_layout("int8ch_gemm", ac, asc, wc, ws, aligned=(ac, wc))
+    m, k = ac.shape
+    n = wc.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if m == 0:
+        return out
+    _build.launch(_ch_lib(), "int8ch_gemm", dev, ac.data_ptr(),
+                  asc.data_ptr(), wc.data_ptr(), ws.data_ptr(),
+                  out.data_ptr(), m, n, k, int(out_dtype == torch.bfloat16))
+    ch_launches += 1
+    return out
+
+
+def fused_ch_gemm_ref(x, wc, ws, fmt: str, out_dtype=torch.float32):
+    """Plain version of K4: ``channel_dot_ref(*quant_int_codes(x, fmt, K),
+    wc, ws)`` cast to ``out_dtype``."""
+    ac, asc = P.quant_int_codes(x, fmt, x.shape[-1])
+    return channel_dot_ref(ac, asc, wc, ws).to(out_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_table(fmt: str):
+    """What K4 needs of a format: (midpoints in grid units as float32 --
+    the values ``quant_int_codes`` compares ``x / scale`` against --, the
+    integer code of every grid value, ``f32(1 / max|grid|)``, the code
+    multiplier)."""
+    grid = np.asarray(G.GRIDS[fmt], np.float32)
+    mult = P.CODE_MULT[fmt]
+    mids = ((grid[1:] + grid[:-1]) * np.float32(0.5)).astype(np.float32)
+    codes = np.round(grid * np.float32(mult)).astype(np.int32)
+    return mids, codes, Q.inv_max(grid), float(mult)
+
+
+def _check_fused(x, wc, ws, fmt: str):
+    if fmt not in P.CODE_MULT:
+        raise ValueError(f"K4 quantizes {sorted(P.CODE_MULT)}, got {fmt!r}")
+    if x.dim() != 2 or wc.dim() != 2:
+        raise ValueError("x [M, K] and wc [N, K] must be 2-D")
+    m, k = x.shape
+    n = wc.shape[0]
+    if wc.shape[1] != k:
+        raise ValueError(f"K mismatch: x {tuple(x.shape)}, "
+                         f"wc {tuple(wc.shape)}")
+    if k % KERNEL_K:
+        raise ValueError(f"K={k} must be a multiple of {KERNEL_K}")
+    if tuple(ws.shape) != (1, n):
+        raise ValueError(f"ws must be [1, {n}], got {tuple(ws.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
+    if wc.dtype != torch.int8:
+        raise TypeError("codes must be int8")
+    if ws.dtype != torch.float32:
+        raise TypeError("scales must be float32")
+    _check_device(x, wc, ws)
+
+
+def _fused_lib():
+    """``csrc/fused_ch_gemm.cu``: x, codes, scales, out, M, N, K, x_bf16,
+    out_bf16, then the grid tables (host pointers, copied into the
+    kernel's arguments), their length, 1/gmax and the multiplier."""
+    return _build.load("fused_ch_gemm",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_float])
+
+
+def fused_ch_gemm(x, wc, ws, fmt: str, out_dtype=torch.float32):
+    """K4: per-row quantize ``x [M, K]`` (bfloat16 or float32) to ``fmt``
+    codes inside the kernel, then the full-K int8 GEMM against ``wc
+    [N, K]`` with the rescale fused -> [M, N] ``out_dtype``."""
+    global fused_launches
+    _check_fused(x, wc, ws, fmt)
+    _check_out_dtype(out_dtype)
+    dev = x.device
+    if dev.type == "cpu":
+        return fused_ch_gemm_ref(x, wc, ws, fmt, out_dtype)
+    _check_cuda_layout("fused_ch_gemm", x, wc, ws, aligned=(x, wc))
+    m, k = x.shape
+    n = wc.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if m == 0:
+        return out
+    mids, codes, inv, mult = _grid_table(fmt)
+    _build.launch(_fused_lib(), "fused_ch_gemm", dev, x.data_ptr(),
+                  wc.data_ptr(), ws.data_ptr(), out.data_ptr(), m, n, k,
+                  int(x.dtype == torch.bfloat16),
+                  int(out_dtype == torch.bfloat16), mids.ctypes.data,
+                  codes.ctypes.data, len(mids), inv, mult)
+    fused_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Weights-only product (w4a16)
+# ---------------------------------------------------------------------------
+
+def wonly_dot(x, wc, ws, group_size: int):
+    """JAX's ``_wonly_dot``: ``x [..., K]`` (rounded to bfloat16, as JAX
+    rounds it whatever the compute dtype) times int weight codes ``wc
+    [N, K]`` with scales ``ws [G, N]`` -> float32 ``[..., N]``.
+
+    Per channel (``group_size == K``): ``(x_bf16 @ codes) * ws``.  Per
+    group: ``codes * ws[g]`` rounded to bfloat16, then one product.  JAX
+    takes the product in float32 (``preferred_element_type``); here it is a
+    float32 matmul over the bfloat16 values, whose products are exact, so
+    the two differ only in the order of the float32 sums."""
+    n, k = wc.shape
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    if group_size == k:
+        return (xb @ wc.to(torch.float32).T) * ws
+    g = k // group_size
+    wdq = (wc.reshape(n, g, group_size).to(torch.float32)
+           * ws.T[:, :, None]).to(torch.bfloat16).reshape(n, k)
+    return xb @ wdq.to(torch.float32).T
+
+
+# ---------------------------------------------------------------------------
+# Linears, routed as JAX's int8_linear / int8_linear_dual
+# ---------------------------------------------------------------------------
+
+def int8_linear(x, pw: P.IntPack, act_fmt: str = None):
+    """The linear of an int8 weight pack on ``x [..., K]`` -> ``[..., N]``
+    in ``x.dtype``, routed as JAX's ``int8_linear``:
+
+    - ``act_fmt == "bf16"`` (weights only): ``wonly_dot``;
+    - one scale per weight column (``group_size == K``): K4 quantizes each
+      row of ``x`` per token and runs the full-K GEMM;
+    - per group: ``quant_int_codes`` per group, then K1.
+
+    ``act_fmt`` defaults to the weight format.  The port flattens
+    ``[..., K]`` to ``[M, K]``; the integer dots are exact, so this gives
+    JAX's N-D results bit for bit."""
     n, k = pw.shape
+    lead = x.shape[:-1]
+    if act_fmt == "bf16":
+        out = wonly_dot(x, pw.codes, pw.scales, pw.group_size)
+        return out.to(x.dtype)
+    fmt = act_fmt or pw.fmt
     x2 = x.reshape(-1, k)
-    ac, asc = P.quant_int_codes(x2, act_fmt or pw.fmt, pw.group_size)
+    if pw.group_size == k:
+        out = fused_ch_gemm(x2.contiguous(), pw.codes, pw.scales, fmt,
+                            x.dtype)
+        return out.reshape(lead + (n,))
+    ac, asc = P.quant_int_codes(x2, fmt, pw.group_size)
     out = int8_group_gemm(ac, asc, pw.codes, pw.scales, pw.group_size)
-    return out.reshape(x.shape[:-1] + (n,)).to(x.dtype)
+    return out.reshape(lead + (n,)).to(x.dtype)
 
 
 def int8_linear_dual(x, pw: P.IntPack, act_fmt: str):
     """fc2: dual-grid activation (separate negative/positive codes and
-    scales) against single-grid weight codes, two K1 calls whose f32
-    halves are summed before the cast to ``x.dtype``."""
+    scales) against single-grid weight codes.  Two GEMMs whose float32
+    halves are summed before the cast to ``x.dtype``: K3 per channel
+    (``group_size == K``), K1 per group."""
     n, k = pw.shape
     x2 = x.reshape(-1, k)
     cn, sn, cp, sp = P.quant_int_codes_dual(x2, act_fmt, pw.group_size)
-    out = (int8_group_gemm(cn, sn, pw.codes, pw.scales, pw.group_size)
-           + int8_group_gemm(cp, sp, pw.codes, pw.scales, pw.group_size))
+    if pw.group_size == k:
+        out = (int8ch_gemm(cn, sn, pw.codes, pw.scales)
+               + int8ch_gemm(cp, sp, pw.codes, pw.scales))
+    else:
+        out = (int8_group_gemm(cn, sn, pw.codes, pw.scales, pw.group_size)
+               + int8_group_gemm(cp, sp, pw.codes, pw.scales, pw.group_size))
     return out.reshape(x.shape[:-1] + (n,)).to(x.dtype)

@@ -21,7 +21,6 @@ product.  The JAX package's CPU fallback instead rounds ``grid * scale`` to
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -124,18 +123,11 @@ def _check(x, codes, scales, fmt: str, group_size: int, nibble: bool):
         raise ValueError(f"operands on several devices: {devs}")
 
 
-@functools.lru_cache(maxsize=None)
 def _lib():
-    """``csrc/packed_dequant_gemm.cu``, built on first use, with its C
-    signatures."""
-    lib = _build.load("packed_dequant_gemm")
-    lib.packed_dequant_gemm.argtypes = ([ctypes.c_void_p] * 4
-                                        + [ctypes.c_int] * 7
-                                        + [ctypes.c_void_p])
-    lib.packed_dequant_gemm.restype = ctypes.c_int
-    lib.packed_dequant_gemm_error_string.argtypes = [ctypes.c_int]
-    lib.packed_dequant_gemm_error_string.restype = ctypes.c_char_p
-    return lib
+    """``csrc/packed_dequant_gemm.cu``: x, codes, scales, out, M, N, K,
+    group, x_f32, decoder, nibble."""
+    return _build.load("packed_dequant_gemm",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7)
 
 
 def packed_matmul(x, codes, scales, fmt: str, group_size: int = 128,
@@ -164,17 +156,10 @@ def packed_matmul(x, codes, scales, fmt: str, group_size: int = 128,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.packed_dequant_gemm(
-            x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), m, n, k, group_size,
-            int(x.dtype == torch.float32), KERNEL_FMTS[fmt], int(nibble),
-            stream)
-    if rc != 0:
-        msg = lib.packed_dequant_gemm_error_string(rc).decode()
-        raise RuntimeError(f"packed_dequant_gemm launch failed: {msg} ({rc})")
+    _build.launch(_lib(), "packed_dequant_gemm", dev, x.data_ptr(),
+                  codes.data_ptr(), scales.data_ptr(), out.data_ptr(), m, n,
+                  k, group_size, int(x.dtype == torch.float32),
+                  KERNEL_FMTS[fmt], int(nibble))
     launches += 1
     return out
 

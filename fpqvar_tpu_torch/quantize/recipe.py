@@ -8,7 +8,8 @@ A function over the params tree, as the JAX package's
 2. rotation ``W <- W @ Q_block`` for mat_qkv and fc1, in float64 on the
    host;
 3. weight quantization: :class:`IntPack` integer codes for the ``int8``
-   backend, :class:`PackedTensor` grid codes for the ``packed`` backend, or
+   backend (per group of 128, or per output channel),
+   :class:`PackedTensor` grid codes for the ``packed`` backend, or
    fake-quantized (dequantized) float weights for the ``fake`` backend.
 """
 from __future__ import annotations
@@ -62,8 +63,10 @@ def rotate_blocks(blocks: dict, qcfg: QuantConfig) -> dict:
 def quantize_weights(blocks: dict, qcfg: QuantConfig) -> dict:
     """Every block linear, as the JAX package's ``quantize_weights``:
     ``packed`` -> per-group :class:`PackedTensor` (``P.pack_stacked``);
-    ``int8`` -> per-group :class:`IntPack` (``P.pack_int_codes``); ``fake``
-    -> the weight quantizer's dequantized floats in the weight's dtype."""
+    ``int8`` -> :class:`IntPack` (``P.pack_int_codes``), per group, or with
+    ``weight_quant="per_channel"`` one group of the layer's whole K (one
+    scale per output channel); ``fake`` -> the weight quantizer's
+    dequantized floats in the weight's dtype."""
     fmt = qcfg.weight_format
     out = dict(blocks)
     if qcfg.backend == "packed":
@@ -74,16 +77,14 @@ def quantize_weights(blocks: dict, qcfg: QuantConfig) -> dict:
                                       qcfg.group_size)
         return out
     if qcfg.backend == "int8":
-        if qcfg.weight_quant != "per_group":
-            raise NotImplementedError(
-                f"int8 weight_quant={qcfg.weight_quant!r} is not ported yet "
-                "(ROADMAP.md: per-channel int8ch* recipes and w4a16)")
         if fmt not in P.CODE_MULT:
             raise ValueError(
                 f"int8 backend supports {sorted(P.CODE_MULT)}, got {fmt}")
+        per_channel = qcfg.weight_quant == "per_channel"
         for key in _WEIGHT_KEYS:
-            out[key] = P.pack_int_codes(blocks[key].to(torch.float32), fmt,
-                                        qcfg.group_size)
+            w = blocks[key].to(torch.float32)
+            gs = w.shape[-1] if per_channel else qcfg.group_size
+            out[key] = P.pack_int_codes(w, fmt, gs)
         return out
     if qcfg.backend != "fake" or qcfg.int_quant:
         raise NotImplementedError(

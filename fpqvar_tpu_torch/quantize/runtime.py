@@ -5,9 +5,11 @@ time: per quantized layer kind the activation format (the ``int8`` backend
 quantizes inside its GEMM call and needs the name) and the activation
 quantizer (the ``fake`` and ``packed`` backends quantize, then dequantize,
 before the matmul), the 128x128 rotation block and the GALT flag.  The port
-covers the bf16 baseline, the ``int8`` backend with per-group weights and
-activations, and the ``fake`` and ``packed`` backends with grid and
-dual-grid activation formats; every other combination raises.
+covers the bf16 baseline, the ``int8`` backend (per-group weights and
+activations, per-channel weights with per-token activations, and
+weights-only ``bf16`` activations), and the ``fake`` and ``packed``
+backends with grid and dual-grid activation formats; every other
+combination raises.
 """
 from __future__ import annotations
 
@@ -64,12 +66,22 @@ def build_runtime(qcfg: QuantConfig, device="cuda") -> QuantRuntime:
         fmts = {k: qcfg.act_format for k in ("mat_qkv", "proj", "fc1")}
         fmts["fc2"] = qcfg.fc2_format
         if qcfg.backend == "int8":
-            if (qcfg.act_quant, qcfg.weight_quant) != ("per_group",
-                                                        "per_group"):
-                raise _unported("int8 backend other than per-group fp "
-                                "formats")
+            # the activation is quantized inside the GEMM call (codes and
+            # scales, no dequantized intermediate): see ops/int8_matmul.py
+            if qcfg.act_quant not in ("per_group", "per_token"):
+                raise ValueError(
+                    "int8 backend requires per-group or per-token fp act "
+                    "quantization")
+            if ((qcfg.act_quant == "per_token")
+                    != (qcfg.weight_quant == "per_channel")):
+                raise ValueError(
+                    "int8 backend: per-token acts pair with per-channel "
+                    "weights (the int8ch full-K path): set both or neither")
             for k, f in fmts.items():
-                if f not in P.CODE_MULT and f not in P.DUAL_CODE_MULT:
+                # "bf16" = weights only (w4a16): the activation is not
+                # quantized (ops/int8_matmul.py wonly_dot)
+                if (f != "bf16" and f not in P.CODE_MULT
+                        and f not in P.DUAL_CODE_MULT):
                     raise ValueError(
                         f"int8 backend: unsupported act format {f!r} ({k})")
         elif qcfg.backend in ("fake", "packed"):

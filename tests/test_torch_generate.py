@@ -12,8 +12,11 @@ with float32 compute and cache.  The tokens of every scale must be
 identical; the CFG-mixed logits that the sampler sees (values of order 1)
 and ``f_hat`` (of order 0.1) must agree within 1e-5 and the images (in
 [0, 1]) within 5e-5, the float32 sums running in another order.
-Width 128 sends the int8 linears through one scale group (JAX's
-``_channel_dot`` route), width 256 through the grouped route.  The
+Width 128 sends the ``int8`` linears through one scale group (JAX's
+``_channel_dot`` route; the port's K4), width 256 through the grouped
+route.  The per-channel recipes (``int8ch`` at width 128, ``int8chs`` at
+256, ``int8chsnr``, and the weights-only ``w4a16`` at 128) run K4's and
+K3's plain versions and ``wonly_dot``.  The
 ``packed`` recipe (fp4 nibble codes through K2's plain version) runs at
 both widths, so that every linear also has more than one scale group;
 ``w4a16p`` (packed weights, unquantized activations), ``fake`` (dequantized
@@ -51,7 +54,8 @@ from test_torch_vqvae import _params as vqvae_params
 LABELS = np.array([3, 5, 998])
 #: quantized weight leaf of each recipe's block linears (None: floats)
 LEAF = {"bf16": None, "fake": None, "int8": IntPack, "packed": PackedTensor,
-        "w4a16p": PackedTensor, "w6a6p": PackedTensor}
+        "w4a16p": PackedTensor, "w6a6p": PackedTensor, "int8ch": IntPack,
+        "int8chs": IntPack, "int8chsnr": IntPack, "w4a16": IntPack}
 
 
 def _recipe(mode, jax_side=False):
@@ -119,7 +123,8 @@ def _assert_same_weights(ours, theirs):
 
 @pytest.mark.parametrize("width,mode", [
     (128, "bf16"), (128, "int8"), (256, "int8"), (128, "packed"),
-    (256, "packed"), (128, "w4a16p"), (128, "fake"), (128, "w6a6p")])
+    (256, "packed"), (128, "w4a16p"), (128, "fake"), (128, "w6a6p"),
+    (128, "int8ch"), (256, "int8chs"), (128, "int8chsnr"), (128, "w4a16")])
 def test_generation_matches_jax(monkeypatch, width, mode):
     jcfg, jqp = _jax_params(width, mode)
     jvae = _jax_vae()
@@ -244,3 +249,30 @@ def test_bridge_carries_packed_trees(tmp_path):
                                                  -1, -2))
     assert tuple(nested["blocks"]["fc1_w"].codes.shape) == (2, 256, 128)
     assert tuple(nested["blocks"]["fc1_w"].scales.shape) == (2, 1, 512)
+
+
+def test_bridge_carries_per_channel_intpacks(tmp_path):
+    """A JAX per-channel ``int8ch`` tree (codes ``[d, K, N]``, scales
+    ``[d, 1, N]``), nested and through the ``save_params`` npz, becomes the
+    port's IntPack leaves with JAX's exact codes in ``[d, N, K]`` and its
+    scales as they are, one group per layer."""
+    _, jqp = _jax_params(128, "int8ch")
+    save_params(str(tmp_path / "p.npz"), jqp)
+    nested = to_torch(jax.tree_util.tree_map(np.asarray, jqp), "cpu")
+    flat = to_torch(dict(np.load(tmp_path / "p.npz")), "cpu")
+    for key, k in (("mat_qkv_w", 128), ("proj_w", 128), ("fc1_w", 128),
+                   ("fc2_w", 512)):
+        theirs = jqp["blocks"][key]
+        assert theirs.group_size == k and theirs.scales.shape[-2] == 1, key
+        for tree in (nested, flat):
+            ours = tree["blocks"][key]
+            assert type(ours) is IntPack, key
+            assert (ours.fmt, ours.shape, ours.group_size) == (
+                theirs.fmt, theirs.shape, theirs.group_size), key
+            np.testing.assert_array_equal(
+                ours.codes.numpy(), np.swapaxes(np.asarray(theirs.codes),
+                                                -1, -2))
+            np.testing.assert_array_equal(ours.scales.numpy(),
+                                          np.asarray(theirs.scales))
+    assert tuple(nested["blocks"]["fc2_w"].codes.shape) == (2, 128, 512)
+    assert tuple(nested["blocks"]["fc2_w"].scales.shape) == (2, 1, 128)

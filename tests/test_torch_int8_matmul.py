@@ -7,7 +7,8 @@ are exact integers on every side, so the results differ only in the f32
 order of the sum over groups: the tolerance is 1e-5 of
 ``sum_g |sa*sw*part|`` per element (``int8_group_gemm_tolerance``); with
 one group (``group_size == K``) the 2-D product is bit-equal to JAX's
-``_channel_dot``.  JAX's functions run under ``jit``, as in its
+``_channel_dot``, and so are the linears, which then route through K4
+(K3 for the dual grid).  JAX's functions run under ``jit``, as in its
 generation.  ``tests/test_torch_cuda.py`` holds the Hopper kernel against
 the plain version on the card.
 """
@@ -98,6 +99,57 @@ def test_int8_linear_matches_jax(k, gs):
                    np.asarray(theirs).reshape(-1, 192), tol.numpy())
 
 
+def _jit_pack(w, fmt, gs):
+    return jax.jit(functools.partial(JP.pack_int_codes, fmt=fmt,
+                                     group_size=gs))(jnp.asarray(w))
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+@pytest.mark.parametrize("k", [256, 1024])
+def test_int8_linear_per_channel_bit_equal(k, dual):
+    """group_size == K: the port's K4 route gives JAX's jitted N-D
+    ``int8_linear`` bit for bit on the same weights.  fc2's dual grid (K3
+    twice, the float32 halves summed) gives the sum of JAX's two jitted
+    ``_channel_dot`` halves bit for bit.  JAX's jitted ``int8_linear_dual``
+    itself differs from that sum in the last bit: XLA on the CPU contracts
+    ``(p_neg*s_neg)*ws + half_pos`` into one fused multiply-add, which
+    skips the rounding of ``(p_neg*s_neg)*ws``: it is held within that
+    rounding (2^-24 of ``|half_neg|``) and one unit in the last place of
+    the sum."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 19, k)).astype(np.float32)
+    x[1, 4] = 0.0                                    # an all-zero row
+    w = (rng.standard_normal((256, k)) * 0.02).astype(np.float32)
+    jpw = _jit_pack(w, "fp_e2", k)
+    pw = P.pack_int_codes(torch.from_numpy(w), "fp_e2", k)
+    fmt = "fp_e1m2_neg_e2m1_pos" if dual else "fp_e2"
+    jfn = JK.int8_linear_dual if dual else JK.int8_linear
+    theirs = np.asarray(jax.jit(functools.partial(jfn, act_fmt=fmt))(
+        jnp.asarray(x), jpw))
+    counts = (K.launches, K.ch_launches, K.fused_launches)
+    ours = (K.int8_linear_dual if dual else K.int8_linear)(
+        torch.from_numpy(x), pw, fmt).numpy()
+    assert (K.launches, K.ch_launches, K.fused_launches) == counts  # CPU
+    assert ours.shape == (3, 19, 256) and ours.dtype == np.float32
+    if not dual:
+        np.testing.assert_array_equal(ours.view(np.uint32),
+                                      theirs.view(np.uint32))
+        return
+
+    @jax.jit
+    def halves(x, wc, ws):
+        cn, sn, cp, sp = JP.quant_int_codes_dual(x, fmt, k)
+        return JK._channel_dot(cn, sn, wc, ws), JK._channel_dot(cp, sp, wc, ws)
+
+    neg, pos = (np.asarray(h) for h in halves(jnp.asarray(x), jpw.codes,
+                                               jpw.scales))
+    np.testing.assert_array_equal(ours.view(np.uint32),
+                                  (neg + pos).view(np.uint32))
+    tol = 2.0 ** -24 * (np.abs(neg) + 2.0 * np.abs(ours))
+    assert (np.abs(ours - theirs) <= tol).all()
+    assert (ours != theirs).any()        # the contraction shows at this size
+
+
 @pytest.mark.parametrize("gs", [128, 512])
 def test_int8_linear_dual_matches_jax(gs):
     rng = np.random.default_rng(3)
@@ -134,6 +186,13 @@ def test_int8_group_gemm_rejects_bad_operands():
         K.int8_group_gemm(ac, asc.double(), wc, wsc, 128)
     with pytest.raises(ValueError, match="K mismatch"):
         K.int8_group_gemm(ac, asc, wc[:, :128], wsc, 128)
-    pw = P.pack_int_codes(torch.zeros((8, 256)), "fp_e2", 128)
-    with pytest.raises(NotImplementedError, match="w4a16"):
-        K.int8_linear(torch.zeros((2, 256)), pw, "bf16")
+    # K3 and K4 take one scale per row and per column only
+    with pytest.raises(ValueError, match="asc"):
+        K.int8ch_gemm(ac, asc, wc, wsc)
+    x = torch.zeros((4, 256))
+    with pytest.raises(ValueError, match="K4 quantizes"):
+        K.fused_ch_gemm(x, wc, wsc[:1], "fp6_e3m2")
+    with pytest.raises(TypeError, match="out_dtype"):
+        K.fused_ch_gemm(x, wc, wsc[:1], "fp_e2", torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        K.fused_ch_gemm(x.half(), wc, wsc[:1], "fp_e2")

@@ -197,10 +197,14 @@ def test_runtime_rejects_unported_recipes():
               fake.replace(mixed_act_formats=("fp_e2", "fp_e1")),
               fake.replace(int_quant=True),
               bench_recipes()["int8"].replace(kv_bit=4),
-              bench_recipes()["int8"].replace(weight_quant="per_channel",
-                                              act_quant="per_token")):
+              bench_recipes()["int8ch"].replace(kv_bit=4),
+              bench_recipes()["int8ch"].replace(attn_int8=True)):
         with pytest.raises(NotImplementedError):
             build_runtime(q, "cpu")
+    # per-token activations pair with per-channel weights, as in JAX
+    with pytest.raises(ValueError, match="per-token"):
+        build_runtime(bench_recipes()["int8"].replace(act_quant="per_token"),
+                      "cpu")
     rt = build_runtime(bench_recipes()["int8"], "cpu")
     assert rt.act_fmts == {"mat_qkv": "fp_e2", "proj": "fp_e2",
                            "fc1": "fp_e2", "fc2": "fp_e1m2_neg_e2m1_pos"}
