@@ -8,15 +8,18 @@ non-zero:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
    limit from nvidia-smi and turns TF32 off for float32 matmuls and convs;
-2. build: compiles the port's CUDA kernels K1 to K4 from ``fpqvar_tpu_torch/
+2. build: compiles the port's CUDA kernels K1 to K7 from ``fpqvar_tpu_torch/
    csrc`` with nvcc for sm_90a, one nvcc per source, all started together,
    and prints each kernel's registers and spills;
 3. kernels: K1 (the grouped int8 GEMM), K2 (the dequantize-in-register
    GEMM over packed fp4 / fp6 codes), K3 (the full-K int8 GEMM with fused
-   rescale) and K4 (per-token quantize inside the full-K int8 GEMM) against
+   rescale), K4 (per-token quantize inside the full-K int8 GEMM), K5 (K1's
+   sum over [B, T, K] written once as bf16 or f32), K6 (the rate probe's
+   full-K int8 GEMM with a bf16 output) and K7 (its bf16 GEMM) against
    their plain PyTorch versions at the VAR-d16 shapes of the last scale at
-   batch 8 (M = 2*8*256 = 4096) and extra cases, with times, the card's
-   bound and a library yardstick; K3 and K4 must equal theirs exactly;
+   batch 8 (M = 2*8*256 = 4096), the probe's shapes and extra cases, with
+   times, the card's bound and a library yardstick; K3, K4 and K6 must
+   equal theirs exactly, and K5 must also equal K1 followed by a cast;
 4. small reference: small generations (width 256, so every grouped linear
    has more than one scale group) under ``int8``, ``bf16``, ``packed``,
    ``w4a16p``, W6A6 on the packed backend, ``fake``, ``int8ch``,
@@ -26,12 +29,23 @@ non-zero:
    ``quantize_var_params`` and ``VARGenerator.generate`` for two batches of
    8 labels under ``int8``, ``bf16``, ``packed``, ``w4a16p``, ``int8ch``,
    ``int8chs``, ``int8chsnr`` and ``w4a16``; checks images and each
-   recipe's kernel launch counts and prints img/s;
+   recipe's kernel launch counts and prints img/s and the host thread's
+   CPU time inside each ``generate`` call;
 6. profile: one more batch-8 generation under ``int8``, ``bf16``,
    ``packed`` and ``int8chs`` under torch.profiler, after the launch counts
-   were read: device busy time, idle share, the four kernels' shares and
+   were read: device busy time, idle share, the port kernels' shares and
    the kernels that take the most device time (the source of PERF.md's
-   "Where the time goes").
+   "Where the time goes");
+7. serving: the d16 ``int8`` and ``bf16`` generators of phase 5 behind a
+   ``GenerationServer`` (max_batch 8): one request alone, then a burst of
+   20 with that request again inside it; images finite in [0, 1], the
+   repeat equal to its lone twin, the depth-2 pipeline used, K5 480 and
+   K1 320 launches per ``int8`` batch; one direct generation runs with
+   CUDA's sync debug mode set to raise, to show that ``generate`` does not
+   wait for the device; then ``tools/serving_bench.run_recipe`` under
+   ``int8`` with small counts;
+8. probe: ``tools/int8_rate_probe.run`` at its default shapes (library
+   bf16 and int8 GEMMs, K6, K7), with the launches of K6 and K7 counted.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernel table as one JSON object.
@@ -52,10 +66,14 @@ H100_INT8_OPS = 1979e12      # dense int8 tensor-core peak, H100 SXM
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES = 3.35e12         # HBM3 bandwidth, H100 SXM
 KERNEL_SOURCES = ("int8_group_gemm", "packed_dequant_gemm", "int8ch_gemm",
-                  "fused_ch_gemm")
+                  "fused_ch_gemm", "int8_nd_gemm", "int8_probe_gemm",
+                  "bf16_probe_gemm")
 #: the last scale's block linears of VAR-d16 at batch 8: (name, M, K, N)
 D16_SHAPES = (("qkv", 4096, 1024, 3072), ("proj", 4096, 1024, 1024),
               ("fc1", 4096, 1024, 4096), ("fc2", 4096, 4096, 1024))
+#: the int8 rate probe's default shapes: (name, M, K, N)
+PROBE_SHAPES = (("probe-1920", 4096, 1920, 5760),
+                ("probe-4096", 4096, 4096, 4096))
 
 
 def fail(msg: str):
@@ -129,14 +147,15 @@ def _k1_operands(m, k, n, gen):
 
 def check_and_time(label: str, row: dict, run, plain, tol, lib, nbytes: int,
                    peak: float, tol_text: str, lib_text: str,
-                   int_mm=None) -> dict:
+                   int_mm=None, extras=()) -> dict:
     """Hold ``run()`` (a kernel) against ``plain()`` within ``tol()`` per
     element, or, with ``tol=None``, require the two to be equal
     (``torch.equal``); then time the kernel, its plain version, the library
-    yardstick ``lib()`` and, where given and where it runs, the int8
-    yardstick ``int_mm()``; ``row`` (shape, M, K, N, ...) gains the numbers.
-    The bound is the larger of ``nbytes`` over the memory rate and 2*M*N*K
-    operations over ``peak``."""
+    yardstick ``lib()`` (None: there is none), where given and where it
+    runs the int8 yardstick ``int_mm()``, and each ``(key, fn)`` of
+    ``extras`` (as ``<key>_ms``); ``row`` (shape, M, K, N, ...) gains the
+    numbers.  The bound is the larger of ``nbytes`` over the memory rate
+    and 2*M*N*K operations over ``peak``."""
     y = run()
     torch.cuda.synchronize()
     ref = plain()
@@ -156,7 +175,9 @@ def check_and_time(label: str, row: dict, run, plain, tol, lib, nbytes: int,
                  f"exceeds the tolerance (worst err/tol {worst:.3g})")
     ms = cuda_ms(run)
     plain_ms = cuda_ms(plain, reps=5)
-    lib_ms = cuda_ms(lib)
+    lib_ms = None if lib is None else cuda_ms(lib)
+    for key, fn in extras:
+        row[f"{key}_ms"] = cuda_ms(fn)
     int_mm_ms = None
     if int_mm is not None:
         try:
@@ -178,9 +199,12 @@ def check_and_time(label: str, row: dict, run, plain, tol, lib, nbytes: int,
              f"err/tol {worst:.3f} <= 1, tol {tol_text}")
     extra = ("" if int_mm_ms is None else
              f", int8 torch._int_mm {int_mm_ms:.4f} ms")
+    extra += "".join(f", {key} {row[key + '_ms']:.4f} ms"
+                     for key, _ in extras)
+    lib_part = "" if lib is None else f", {lib_text} {lib_ms:.4f} ms"
     print(f"kernels: {label} {row['shape']:8s} {desc}: max err "
           f"{row['max_abs_err']:.3e} ({check}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, {lib_text} {lib_ms:.4f} ms{extra}, bound "
+          f"{plain_ms:.4f} ms{lib_part}{extra}, bound "
           f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
     return row
 
@@ -336,6 +360,139 @@ def phase_k4():
     return rows
 
 
+def phase_k5():
+    """K5 against ``int8_group_gemm_nd_ref`` within its tolerance, on
+    ``[B, T, K]`` fp_e2 codes per group of 128: bfloat16 output at the d16
+    qkv, proj and fc1 shapes of the last scale (B = 16 rows of CFG's
+    doubled batch 8, T = 256), float32 output at fc1, and the first scales'
+    ragged T = 9 (N = 1000) and T = 1.  K5 must also equal K1 followed by
+    a cast (the route it replaces, timed beside it): the two share the tile
+    and its f32 sums."""
+    from fpqvar_tpu_torch.ops import int8_matmul as K
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, 16, 256, k, n, bf16) for name, _, k, n in D16_SHAPES
+             if name != "fc2"]
+    cases += [("fc1-f32", 16, 256, 1024, 4096, f32),
+              ("ragged", 16, 9, 1024, 1000, bf16),
+              ("T=1", 16, 1, 1024, 3072, bf16)]
+    rows = []
+    for name, b, t, k, n, out_dtype in cases:
+        m, g = b * t, k // 128
+        ac, asc, wc, ws = _k1_operands(m, k, n, gen)
+        ac, asc = ac.reshape(b, t, k), asc.reshape(b, t, g)
+        ops = (ac, asc, wc, ws, 128, out_dtype)
+        k1_cast = (lambda: K.int8_group_gemm(ac.reshape(m, k),
+                                             asc.reshape(m, g), wc, ws,
+                                             128).to(out_dtype))
+        y = K.int8_group_gemm_nd(*ops)
+        if not torch.equal(y.reshape(m, n), k1_cast()):
+            fail(f"K5 {name}: differs from K1 followed by a cast")
+        a_bf = torch.randn((m, k), generator=gen, device="cuda", dtype=bf16)
+        b_bf = torch.randn((k, n), generator=gen, device="cuda", dtype=bf16)
+        out_name = str(out_dtype).replace("torch.", "")
+        rows.append(check_and_time(
+            "K5", {"shape": name, "B": b, "T": t, "M": m, "K": k, "N": n,
+                   "out": out_name},
+            lambda: K.int8_group_gemm_nd(*ops),
+            lambda: K.int8_group_gemm_nd_ref(*ops),
+            lambda: K.int8_group_gemm_nd_tolerance(*ops),
+            lambda: torch.matmul(a_bf, b_bf),
+            m * k + m * g * 4 + n * k + g * n * 4
+            + m * n * (4 if out_dtype == f32 else 2), H100_INT8_OPS,
+            f"{K.K1_REL_TOL:g}*sum_g|sa*sw*part| (+1 bf16 gap)",
+            "bf16 torch.matmul", extras=(("k1_cast", k1_cast),)))
+    return rows
+
+
+#: an s8 row pair whose dot is 2^24 + 2^16 + 1: rounded to float32 and then
+#: to bfloat16 (PyTorch's and JAX's conversion) it is 2^24, rounded once it
+#: would be 2^24 + 2^17
+WITNESS = ((127, 127, 1044), (63, 64, 1), (45, 1, 1))
+
+
+def phase_k6():
+    """K6 against ``int8_probe_gemm_ref`` (exact equality) on random codes
+    in [-60, 60] (the probe's) at the d16 and probe shapes, and on codes
+    of +-127 at K = 4096 whose signs agree in most places, so that most
+    sums exceed 2^24; its first two rows and columns hold ``WITNESS`` and
+    its negation, where one rounding of the exact sum would differ from
+    the conversion's two.  The library yardstick is ``torch._int_mm``
+    (s8 x s8 -> s32, no conversion), timed with and without ``.to(bf16)``;
+    the bound counts the codes and the bf16 output."""
+    from fpqvar_tpu_torch.ops import probe_gemm as PG
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    cases = [(name, m, k, n) for name, m, k, n in D16_SHAPES + PROBE_SHAPES]
+    cases.append(("acc>2^24", 1024, 4096, 1024))
+    rows = []
+    for name, m, k, n in cases:
+        if name == "acc>2^24":
+            def signs(shape):
+                u = torch.rand(shape, generator=gen, device="cuda")
+                return torch.where(u < 0.9, 127, -127).to(torch.int8)
+            a, b = signs((m, k)), signs((n, k))
+            a[:2], b[:2] = 0, 0
+            col = 0
+            for va, vb, count in WITNESS:
+                a[0, col:col + count], b[0, col:col + count] = va, vb
+                col += count
+            a[1], b[1] = -a[0], b[0]
+        else:
+            a = torch.randint(-60, 61, (m, k), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            b = torch.randint(-60, 61, (n, k), generator=gen, device="cuda",
+                              dtype=torch.int8)
+        row = {"shape": name, "M": m, "K": k, "N": n}
+        if name == "acc>2^24":
+            y = PG.int8_probe_gemm(a, b).float()
+            exact = a.double() @ b.double().T
+            row["share_acc_ge_2^24"] = float(
+                (exact.abs() >= 2.0 ** 24).double().mean())
+            if float(y[0, 0]) != 2.0 ** 24 or float(y[1, 0]) != -2.0 ** 24:
+                fail(f"K6 {name}: the witness sum converts to "
+                     f"{float(y[0, 0])}, {float(y[1, 0])}, not +-2^24")
+        rows.append(check_and_time(
+            "K6", row, lambda: PG.int8_probe_gemm(a, b),
+            lambda: PG.int8_probe_gemm_ref(a, b), None,
+            lambda: torch._int_mm(a, b.t()),
+            m * k + n * k + m * n * 2, H100_INT8_OPS, "",
+            "int8 torch._int_mm",
+            extras=(("int_mm_bf16",
+                     lambda: torch._int_mm(a, b.t()).to(torch.bfloat16)),)))
+    return rows
+
+
+def phase_k7():
+    """K7 against ``bf16_probe_gemm_ref`` within its tolerance on standard
+    normal bf16 values at the d16 and probe shapes.  The library yardstick
+    is ``torch.matmul`` of the same operands: one PyTorch call computing
+    the same function (bf16 in, f32 sums, bf16 out)."""
+    from fpqvar_tpu_torch.ops import probe_gemm as PG
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    rows = []
+    for name, m, k, n in D16_SHAPES + PROBE_SHAPES:
+        a = torch.randn((m, k), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        b = torch.randn((n, k), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        rows.append(check_and_time(
+            "K7", {"shape": name, "M": m, "K": k, "N": n},
+            lambda: PG.bf16_probe_gemm(a, b),
+            lambda: PG.bf16_probe_gemm_ref(a, b),
+            lambda: PG.bf16_probe_gemm_tolerance(a, b),
+            lambda: torch.matmul(a, b.t()),
+            2 * (m * k + n * k + m * n), H100_BF16_FLOPS,
+            f"{PG.K7_TOL_PER_K:.3g}*K*sum_k|a*b| + 1 bf16 gap",
+            "bf16 torch.matmul"))
+    return rows
+
+
 def _small_recipes():
     """The small-reference recipes: ``bench_recipes`` entries and W6A6 on
     the packed backend."""
@@ -391,15 +548,19 @@ def _to(tree, dev):
 COUNTERS = {"K1": ("int8_matmul", "launches"),
             "K2": ("quant_matmul", "launches"),
             "K3": ("int8_matmul", "ch_launches"),
-            "K4": ("int8_matmul", "fused_launches")}
+            "K4": ("int8_matmul", "fused_launches"),
+            "K5": ("int8_matmul", "nd_launches"),
+            "K6": ("probe_gemm", "int8_launches"),
+            "K7": ("probe_gemm", "bf16_launches")}
 #: the recipes profiled after the main path (phase 6)
 PROFILED = ("int8", "bf16", "packed", "int8chs")
 
 
 def _counter_modules():
-    from fpqvar_tpu_torch.ops import int8_matmul, quant_matmul
+    from fpqvar_tpu_torch.ops import int8_matmul, probe_gemm, quant_matmul
 
-    return {"int8_matmul": int8_matmul, "quant_matmul": quant_matmul}
+    return {"int8_matmul": int8_matmul, "quant_matmul": quant_matmul,
+            "probe_gemm": probe_gemm}
 
 
 def reset_counts():
@@ -415,9 +576,10 @@ def read_counts() -> dict:
 
 def phase_main_path(card: str):
     """Each recipe's generations with every launch count set to 0 just
-    before them and read just after: K1 runs exactly under ``int8``, K2
-    exactly under ``packed`` and ``w4a16p``, K3 and K4 exactly under the
-    per-channel recipes."""
+    before them and read just after: K1 and K5 run exactly under ``int8``,
+    K2 exactly under ``packed`` and ``w4a16p``, K3 and K4 exactly under the
+    per-channel recipes, K6 and K7 under none.  Returns the launch totals,
+    the profiled recipes' (gen, params, generator) and the VQVAE params."""
     from fpqvar_tpu_torch.config import GenerateConfig, bench_recipes, var_d16
     from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                          init_vqvae_params)
@@ -437,12 +599,13 @@ def phase_main_path(card: str):
     batch, n_batches = 8, 2
     blocks = cfg.depth * cfg.num_scales
     # launches per generation (160 block forwards, CFG's doubled batch in
-    # one call): int8 runs fc2 as two K1 GEMMs (dual grid); packed fake-
-    # quantizes fc2's dual grid first and runs one K2 GEMM; int8ch runs K4
-    # on qkv, proj and fc1 and fc2's dual grid as two K3 GEMMs; int8chs and
-    # int8chsnr run K4 on all four; w4a16 runs no kernel (wonly_dot)
-    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
-    per_gen = {"int8": {**none, "K1": blocks * 5},
+    # one call): int8 runs qkv, proj and fc1 through K5 and fc2 as two K1
+    # GEMMs (dual grid); packed fake-quantizes fc2's dual grid first and
+    # runs one K2 GEMM; int8ch runs K4 on qkv, proj and fc1 and fc2's dual
+    # grid as two K3 GEMMs; int8chs and int8chsnr run K4 on all four; w4a16
+    # runs no kernel (wonly_dot)
+    none = {k: 0 for k in COUNTERS}
+    per_gen = {"int8": {**none, "K1": blocks * 2, "K5": blocks * 3},
                "bf16": none,
                "packed": {**none, "K2": blocks * 4},
                "w4a16p": {**none, "K2": blocks * 4},
@@ -461,13 +624,16 @@ def phase_main_path(card: str):
         gen = VARGenerator(cfg, q, GenerateConfig())
         rng_gen = torch.Generator(device="cuda")
         rng_gen.manual_seed(3)
-        times = []
+        times, host_cpu = [], []
         reset_counts()
         for i in range(n_batches):
             labels = torch.arange(i * batch, (i + 1) * batch, device="cuda")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            c0 = time.thread_time()
             imgs = gen.generate(qp, vae, labels, rng_gen)
+            # the host thread's own work in the call (generate only queues)
+            host_cpu.append(time.thread_time() - c0)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             if tuple(imgs.shape) != (batch, 3, 256, 256):
@@ -490,7 +656,9 @@ def phase_main_path(card: str):
         print(f"main path: {mode}: quantize_var_params {t_quant:.2f} s; "
               f"generation ms/batch-of-{batch} = "
               f"{', '.join(f'{t * 1e3:.1f}' for t in times)} (first includes "
-              f"warm-up); steady {batch / steady:.2f} img/s; launches per "
+              f"warm-up), host CPU ms in generate "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in host_cpu)}; steady "
+              f"{batch / steady:.2f} img/s; launches per "
               f"generation {per}; images [{batch}, 3, 256, 256] finite in "
               f"[0, 1]; on {card}")
         if mode in PROFILED:
@@ -504,7 +672,7 @@ def phase_main_path(card: str):
         gen, qp, rng_gen = setups[mode]
         phase_profile(mode, lambda: gen.generate(qp, vae, labels, rng_gen),
                       card)
-    return totals
+    return totals, setups, vae
 
 
 def phase_profile(mode: str, run, card: str):
@@ -536,7 +704,7 @@ def phase_profile(mode: str, run, card: str):
     ours = []
     for label, key in (("K1", "int8_group_gemm"),
                        ("K2", "packed_dequant_gemm"), ("K3", "int8ch_gemm"),
-                       ("K4", "fused_ch_gemm")):
+                       ("K4", "fused_ch_gemm"), ("K5", "int8_nd_gemm")):
         hits = [e for e in kernels if key in e.key]
         ours.append(f"{label} {sum(dev_ms(e) for e in hits):.2f} ms in "
                     f"{sum(e.count for e in hits)} launches")
@@ -548,6 +716,149 @@ def phase_profile(mode: str, run, card: str):
     for e in top:
         print(f"profile: {mode}   {dev_ms(e):8.2f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+
+
+def _images_ok(label: str, img, shape) -> None:
+    if tuple(img.shape) != shape:
+        fail(f"{label}: image of shape {tuple(img.shape)}, expected {shape}")
+    if not bool(torch.isfinite(img).all()):
+        fail(f"{label}: non-finite image values")
+    lo, hi = float(img.min()), float(img.max())
+    if lo < 0.0 or hi > 1.0:
+        fail(f"{label}: image values outside [0, 1]: {lo}, {hi}")
+
+
+def phase_serving(setups, vae, card: str):
+    """The d16 ``int8`` and ``bf16`` generators of the main path behind a
+    ``GenerationServer`` with max_batch 8, with the launch counts set to 0
+    just before each recipe and read just after.  Beside it, direct batch-8
+    generations on the main thread, timed in the same phase: with one
+    generator and with one per row (the server's call)."""
+    from fpqvar_tpu_torch.config import bench_recipes
+    from fpqvar_tpu_torch.serving import GenerationServer, row_seed
+    from fpqvar_tpu_torch.tools import serving_bench
+
+    max_batch, n_burst, repeat_at = 8, 20, 11
+    for mode in ("int8", "bf16"):
+        gen, qp, _ = setups[mode]
+        blocks = gen.cfg.depth * gen.cfg.num_scales
+        # generate only queues work: with CUDA's sync debug mode set to
+        # raise, one direct call with per-row generators must not wait
+        labels = torch.arange(max_batch, device="cuda")
+
+        def row_gens():
+            gens = []
+            for i in range(max_batch):
+                g = torch.Generator(device="cuda")
+                g.manual_seed(row_seed(0, i))
+                gens.append(g)
+            return gens
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gen.generate(qp, vae, labels, row_gens())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+        def direct(gens):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen.generate(qp, vae, labels, gens)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        one = torch.Generator(device="cuda")
+        one.manual_seed(3)
+        t_one = min(direct(one) for _ in range(2))
+        t_rows = min(direct(row_gens()) for _ in range(2))
+
+        server = GenerationServer(gen, qp, vae, max_batch=max_batch,
+                                  max_wait_ms=30.0)
+        try:
+            reset_counts()
+            lone = server.submit(207, 5).result()
+            st0 = server.stats()
+            t0 = time.perf_counter()
+            subs = []
+            for i in range(n_burst):
+                req = (207, 5) if i == repeat_at else (i * 37 % 1000, 100 + i)
+                subs.append((time.perf_counter(), server.submit(*req)))
+            imgs, lat = [], []
+            for ts, fut in subs:
+                imgs.append(fut.result())
+                lat.append(time.perf_counter() - ts)
+            wall = time.perf_counter() - t0
+            st = server.stats()
+            counts = read_counts()
+        finally:
+            server.stop()
+        for i, img in enumerate([lone] + imgs):
+            _images_ok(f"serving {mode} request {i}", img, (3, 256, 256))
+        if not torch.equal(imgs[repeat_at], lone):
+            diff = float((imgs[repeat_at] - lone).abs().max())
+            fail(f"serving {mode}: the repeated request differs from its "
+                 f"lone twin (max diff {diff})")
+        burst_batches = st["batches"] - st0["batches"]
+        pipelined = st["pipelined"] - st0["pipelined"]
+        if pipelined < 1:
+            fail(f"serving {mode}: the burst was never pipelined ({st})")
+        batches = st["batches"]
+        want = {k: 0 for k in COUNTERS}
+        if mode == "int8":
+            want.update(K1=blocks * 2 * batches, K5=blocks * 3 * batches)
+        if counts != want:
+            fail(f"serving {mode}: launches {counts} over {batches} batches, "
+                 f"expected {want}")
+        lat_ms = np.asarray(lat) * 1e3
+        rate = n_burst / wall
+        print(f"serving: {mode}: direct batch-{max_batch} generate, best of "
+              f"2: {t_one * 1e3:.1f} ms with one generator, "
+              f"{t_rows * 1e3:.1f} ms with one per row "
+              f"({max_batch / t_rows:.3f} img/s)")
+        print(f"serving: {mode}: lone request and a burst of {n_burst} "
+              f"(max_batch {max_batch}): saturated {rate:.3f} img/s "
+              f"({rate * t_rows / max_batch:.3f}x direct per-row generate; "
+              f"{n_burst}/{burst_batches * max_batch} rows are requests), "
+              f"burst wall {wall * 1e3:.1f} ms, latency p50 "
+              f"{np.percentile(lat_ms, 50):.1f} ms p99 "
+              f"{np.percentile(lat_ms, 99):.1f} ms, {burst_batches} burst "
+              f"batches, pipelined {pipelined}; repeat equal to its lone "
+              f"twin; launches per batch "
+              + ", ".join(f"{k} {n // batches}" for k, n in counts.items()
+                          if n)
+              + f"; generate queued without a host sync; on {card}")
+    res = serving_bench.run_recipe(gen.cfg, bench_recipes()["int8"], vae,
+                                   salt=12345, n=16, unloaded=2, poisson=0,
+                                   max_batch=max_batch)
+    brief = {k: ({kk: vv for kk, vv in v.items() if kk != "samples_ms"}
+                 if isinstance(v, dict) else v) for k, v in res.items()}
+    print(f"serving: tools/serving_bench.run_recipe int8 d16 (n 16, "
+          f"unloaded 2, max_batch {max_batch}) on {card}: "
+          f"{json.dumps(brief)}")
+
+
+def phase_probe(card: str):
+    """``tools/int8_rate_probe.run`` at its default shapes, with the launch
+    counts set to 0 just before and read just after: every leg of K6 and
+    K7 is one warm-up call and 5 windows of 100 calls a shape."""
+    from fpqvar_tpu_torch.tools import int8_rate_probe
+
+    iters, windows = 100, int8_rate_probe.WINDOWS
+    reset_counts()
+    rows = int8_rate_probe.run(int8_rate_probe.DEFAULT_SHAPES, iters=iters)
+    counts = read_counts()
+    n_shapes = len(PROBE_SHAPES)
+    want = {k: 0 for k in COUNTERS}
+    want.update(K6=n_shapes * (1 + iters * windows),
+                K7=n_shapes * (1 + iters * windows))
+    if counts != want:
+        fail(f"probe: launches {counts}, expected {want}")
+    print("probe: " + "; ".join(
+        f"{r['shape']} {r['leg']} "
+        + (f"{r['rate']:.1f} T(FL)OP/s" if "rate" in r else "did not run")
+        for r in rows) + f"; on {card}")
+    return counts
 
 
 def _kernel_row(name, source, replaces, launches, rows, timed="fc1"):
@@ -571,8 +882,14 @@ def main():
     k2_rows = phase_k2()
     k3_rows = phase_k3()
     k4_rows = phase_k4()
+    k5_rows = phase_k5()
+    k6_rows = phase_k6()
+    k7_rows = phase_k7()
     phase_small_reference()
-    launches = phase_main_path(card)
+    launches, setups, vae = phase_main_path(card)
+    phase_serving(setups, vae, card)
+    del setups
+    probe_launches = phase_probe(card)
     src = "fpqvar_tpu_torch/csrc/"
     kernels = {"kernels": [
         _kernel_row("int8_group_gemm", src + "int8_group_gemm.cu",
@@ -588,6 +905,16 @@ def main():
         _kernel_row("fused_ch_gemm", src + "fused_ch_gemm.cu",
                     "fpqvar_tpu/ops/pallas/int8_matmul.py:381",
                     launches["K4"], k4_rows),
+        _kernel_row("int8_nd_gemm", src + "int8_nd_gemm.cu",
+                    "fpqvar_tpu/ops/pallas/int8_matmul.py:117",
+                    launches["K5"], k5_rows),
+        # K6 and K7 run on the rate probe's path (phase 8)
+        _kernel_row("int8_probe_gemm", src + "int8_probe_gemm.cu",
+                    "scripts/int8_rate_probe.py:106",
+                    probe_launches["K6"], k6_rows, timed="probe-4096"),
+        _kernel_row("bf16_probe_gemm", src + "bf16_probe_gemm.cu",
+                    "scripts/int8_rate_probe.py:148",
+                    probe_launches["K7"], k7_rows, timed="probe-4096"),
     ]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

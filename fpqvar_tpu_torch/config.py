@@ -173,8 +173,10 @@ def bench_recipes() -> dict:
       bf16      unquantized baseline
       fake      the paper's W4A4 recipe as exact fp4 values: activations
                 fake-quantized, weights dequantized, dense matmuls
-      int8      the W4A4 recipe with grouped-128 int8 codes on both sides,
-                every block linear through the grouped int8 GEMM (K1)
+      int8      the W4A4 recipe with grouped-128 int8 codes on both sides:
+                qkv, proj and fc1 through the grouped int8 GEMM over
+                [B, T, K] that writes the activation's dtype (K5), the
+                dual-grid fc2 as two f32 grouped GEMMs (K1)
       int8ch    the W4A4 recipe with per-channel weight and per-token
                 activation scales: qkv, proj and fc1 through the
                 quantize-in-kernel full-K GEMM (K4), the dual-grid fc2 as

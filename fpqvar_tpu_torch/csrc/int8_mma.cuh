@@ -1,14 +1,21 @@
-// The s8 x s8 -> s32 tile loop shared by the int8 GEMMs for Hopper (sm_90a):
-// K1 (int8_group_gemm.cu), K3 (int8ch_gemm.cu) and K4 (fused_ch_gemm.cu).
+// The tile loop shared by the GEMMs for Hopper (sm_90a) that stage 128-byte
+// K chunks: the s8 x s8 -> s32 ones, K1 (int8_group_gemm.cu), K5
+// (int8_nd_gemm.cu, with K1 through int8_group.cuh), K3 (int8ch_gemm.cu),
+// K4 (fused_ch_gemm.cu) and K6 (int8_probe_gemm.cu), and the bf16 x bf16 ->
+// f32 one, K7 (bf16_probe_gemm.cu).
 //
-// One thread block owns one 128x128 output tile and walks K in 128-wide
-// chunks.  A chunk of A codes (128 rows of the block's M tile) and of W
-// codes (128 rows of its N tile, the weight's own [N, K] layout: mma.sync
-// wants the B operand K-contiguous) sits in shared memory, rows padded to
-// 144 bytes so the 32-bit fragment loads hit 32 distinct banks.  Eight
-// warps (2 x 4) each own a 64x32 sub-tile and run mma.sync m16n8k32 on it
-// into int32 registers.  K3 and K4 also share the full-K epilogue
-// (store_rescaled).
+// One thread block owns one 128x128 output tile and walks K in chunks of
+// 128 bytes (128 int8 codes or 64 bf16 values).  A chunk of A (128 rows of
+// the block's M tile) and of B (128 rows of its N tile, in the [N, K]
+// layout: mma.sync wants the B operand K-contiguous) sits in shared memory,
+// rows padded to 144 bytes so the 32-bit fragment loads hit 32 distinct
+// banks.  Eight warps (2 x 4) each own a 64x32 sub-tile and run mma.sync on
+// it: m16n8k32 s8 into int32 registers, or m16n8k16 bf16 into f32 ones.
+// The two instructions read the same bytes of a 32-byte K step into the
+// same fragment registers, so one fragment loop serves both.  All but K4
+// (which quantizes its A chunks in shared memory) run the block's K loop
+// (k_loop); K3 and K4 share the full-K rescaling epilogue
+// (store_rescaled), the others store through store_tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,8 +62,31 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Stage rows [r0, r0 + 128) x K chunk [k0, k0 + 128) of a [rows, K] int8
-// matrix into smem with cp.async; rows at or past `rows` are zero-filled.
+// One 32-byte K step of bf16 (16 values): f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The MMA of one 32-byte K step, chosen by the accumulator: int32 -> s8
+// codes (k32), f32 -> bf16 values (k16).
+__device__ __forceinline__ void mma_step(int (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  mma_s8(c, a, b);
+}
+__device__ __forceinline__ void mma_step(float (&c)[4],
+                                         const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  mma_bf16(c, a, b);
+}
+
+// Stage rows [r0, r0 + 128) x byte chunk [k0, k0 + 128) of a [rows, K]
+// matrix of K bytes a row into smem with cp.async; rows at or past `rows`
+// are zero-filled.
 __device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* src,
                                           int rows, int K, int r0, int k0,
                                           int tid) {
@@ -72,19 +102,22 @@ __device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* src,
   }
 }
 
-__device__ __forceinline__ void zero(int (&part)[MI][NI][4]) {
+template <typename T>
+__device__ __forceinline__ void zero(T (&part)[MI][NI][4]) {
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0;
+      for (int e = 0; e < 4; ++e) part[mi][ni][e] = T(0);
 }
 
-// part += the warp's 64x32 sub-tile of sA (128 x BK codes) . sB^T (128 x BK)
-// for one staged chunk.  Warp (wm, wn); g = lane / 4, t = lane % 4.
+// part += the warp's 64x32 sub-tile of sA (128 rows x BK bytes) . sB^T
+// (128 x BK bytes) for one staged chunk: s8 codes into int32 `part`, bf16
+// values into f32 `part`.  Warp (wm, wn); g = lane / 4, t = lane % 4.
+template <typename T>
 __device__ __forceinline__ void mma_chunk(const int8_t* sA, const int8_t* sB,
-                                          int (&part)[MI][NI][4], int wm,
+                                          T (&part)[MI][NI][4], int wm,
                                           int wn, int g, int t) {
 #pragma unroll
   for (int ks = 0; ks < BK; ks += 32) {
@@ -107,7 +140,46 @@ __device__ __forceinline__ void mma_chunk(const int8_t* sA, const int8_t* sB,
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) mma_s8(part[mi][ni], af[mi], bf[ni]);
+      for (int ni = 0; ni < NI; ++ni) mma_step(part[mi][ni], af[mi], bf[ni]);
+  }
+}
+
+// Shared memory of k_loop: two stages of an A chunk and a B chunk.
+constexpr int KLOOP_STAGE_BYTES = 2 * TILE_BYTES;
+constexpr int KLOOP_SMEM_BYTES = 2 * KLOOP_STAGE_BYTES;
+
+// The K loop of one block: part += A[m0, m0 + 128) . B[n0, n0 + 128)^T over
+// rows of `row_bytes` bytes (a multiple of BK; rows of A and B at or past M
+// and N read as zeros), each BK-byte chunk staged by cp.async two stages
+// deep into `smem` (KLOOP_SMEM_BYTES), then after_chunk(kc) once every warp
+// has finished chunk kc (the grouped GEMMs fold a scale group there).
+template <typename T, typename AfterChunk>
+__device__ __forceinline__ void k_loop(const int8_t* __restrict__ a,
+                                       const int8_t* __restrict__ b, int M,
+                                       int N, int row_bytes, int m0, int n0,
+                                       T (&part)[MI][NI][4], int8_t* smem,
+                                       AfterChunk after_chunk) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nchunks = row_bytes / BK;
+  load_tile(smem, a, M, row_bytes, m0, 0, tid);
+  load_tile(smem + TILE_BYTES, b, N, row_bytes, n0, 0, tid);
+  cp_async_commit();
+  for (int kc = 0; kc < nchunks; ++kc) {
+    if (kc + 1 < nchunks) {
+      int8_t* nxt = smem + ((kc + 1) & 1) * KLOOP_STAGE_BYTES;
+      load_tile(nxt, a, M, row_bytes, m0, (kc + 1) * BK, tid);
+      load_tile(nxt + TILE_BYTES, b, N, row_bytes, n0, (kc + 1) * BK, tid);
+    }
+    cp_async_commit();         // possibly empty: keeps the wait count uniform
+    cp_async_wait_prev();      // chunk kc has landed
+    __syncthreads();
+    const int8_t* sA = smem + (kc & 1) * KLOOP_STAGE_BYTES;
+    mma_chunk(sA, sA + TILE_BYTES, part, warp / WARPS_N, warp % WARPS_N,
+              lane >> 2, lane & 3);
+    __syncthreads();           // the next iteration refills this stage
+    after_chunk(kc);
   }
 }
 
@@ -130,6 +202,40 @@ __device__ __forceinline__ void store2(__nv_bfloat16* o, float v0, float v1) {
 __device__ __forceinline__ void store1(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* o, float v) {
   *o = __float2bfloat16(v);
+}
+
+// Store the warp's fragments of the block's output tile (at m0, n0) as
+// OutT, element e of tile (mi, ni) being value(mi, ni, e): rows masked at
+// M, columns at N, column pairs stored together (a bf16 pair rounded to
+// nearest even as one __nv_bfloat162) where N is even.
+template <typename OutT, typename Value>
+__device__ __forceinline__ void store_tile(OutT* __restrict__ out, int M,
+                                           int N, int m0, int n0,
+                                           Value value) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm = warp / WARPS_N;
+  const int wn = warp % WARPS_N;
+  const bool pairs = (N % 2) == 0;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + frag_row(wm, mi, lane >> 2, 2 * h);
+        const int c = n0 + frag_col(wn, ni, lane & 3, 0);
+        if (r >= M) continue;
+        OutT* o = out + static_cast<size_t>(r) * N + c;
+        const float v0 = value(mi, ni, 2 * h);
+        const float v1 = value(mi, ni, 2 * h + 1);
+        if (pairs && c + 1 < N) {
+          store2(o, v0, v1);
+        } else {
+          if (c < N) store1(o, v0);
+          if (c + 1 < N) store1(o + 1, v1);
+        }
+      }
 }
 
 // The full-K epilogue of K3 and K4, on the registers:

@@ -10,7 +10,7 @@
 // ac [M,K] int8 row-major, asc [M,1] f32, wc [N,K] int8 (K-contiguous, as
 // mma.sync wants its B operand), wsc [1,N] f32.  K a multiple of 128.
 //
-// Design.  The tile loop of int8_mma.cuh: one 128x128 output tile per
+// Design.  The K loop of int8_mma.cuh (k_loop): one 128x128 output tile per
 // block, K walked in 128-wide chunks, cp.async two stages deep, mma.sync
 // m16n8k32 s8 x s8 -> s32.  Unlike K1 the int32 sum runs over the whole K
 // (one scale per row and per column), so the f32 epilogue happens once, on
@@ -35,9 +35,6 @@ using namespace int8mma;
 
 namespace {
 
-constexpr int STAGE_BYTES = 2 * TILE_BYTES;   // A and W chunks
-constexpr int SMEM_BYTES = 2 * STAGE_BYTES;
-
 template <typename OutT>
 __global__ void __launch_bounds__(THREADS)
 int8ch_gemm_kernel(const int8_t* __restrict__ ac,
@@ -46,48 +43,26 @@ int8ch_gemm_kernel(const int8_t* __restrict__ ac,
                    const float* __restrict__ wsc,
                    OutT* __restrict__ out, int M, int N, int K) {
   extern __shared__ __align__(16) int8_t smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const int nchunks = K / BK;
 
   int part[MI][NI][4];
   zero(part);
-
-  load_tile(smem, ac, M, K, m0, 0, tid);
-  load_tile(smem + TILE_BYTES, wc, N, K, n0, 0, tid);
-  cp_async_commit();
-  for (int kc = 0; kc < nchunks; ++kc) {
-    if (kc + 1 < nchunks) {
-      int8_t* nxt = smem + ((kc + 1) & 1) * STAGE_BYTES;
-      load_tile(nxt, ac, M, K, m0, (kc + 1) * BK, tid);
-      load_tile(nxt + TILE_BYTES, wc, N, K, n0, (kc + 1) * BK, tid);
-    }
-    cp_async_commit();         // possibly empty: keeps the wait count uniform
-    cp_async_wait_prev();      // chunk kc has landed
-    __syncthreads();
-    const int8_t* sA = smem + (kc & 1) * STAGE_BYTES;
-    mma_chunk(sA, sA + TILE_BYTES, part, wm, wn, g, t);
-    __syncthreads();           // the next iteration refills this stage
-  }
-
-  store_rescaled(out, part, wsc, M, N, m0, n0, wm, wn, g, t,
+  k_loop(ac, wc, M, N, K, m0, n0, part, smem, [](int) {});
+  store_rescaled(out, part, wsc, M, N, m0, n0, warp / WARPS_N,
+                 warp % WARPS_N, lane >> 2, lane & 3,
                  [&](int rl) { return __ldg(asc + m0 + rl); });
 }
 
 template <typename OutT>
 int launch(const void* ac, const void* asc, const void* wc, const void* wsc,
            void* out, int M, int N, int K, cudaStream_t stream) {
-  cudaError_t e = opt_in_smem<int8ch_gemm_kernel<OutT>>(SMEM_BYTES);
+  cudaError_t e = opt_in_smem<int8ch_gemm_kernel<OutT>>(KLOOP_SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8ch_gemm_kernel<OutT><<<grid, THREADS, SMEM_BYTES, stream>>>(
+  int8ch_gemm_kernel<OutT><<<grid, THREADS, KLOOP_SMEM_BYTES, stream>>>(
       static_cast<const int8_t*>(ac), static_cast<const float*>(asc),
       static_cast<const int8_t*>(wc), static_cast<const float*>(wsc),
       static_cast<OutT*>(out), M, N, K);

@@ -8,6 +8,7 @@ import torch
 from fpqvar_tpu_torch.config import GenerateConfig, QuantConfig, VARConfig
 from fpqvar_tpu_torch.models import var as V
 from fpqvar_tpu_torch.models import vqvae as vq
+from fpqvar_tpu_torch.models.sampling import Generators
 from fpqvar_tpu_torch.quantize.runtime import build_runtime
 
 
@@ -34,16 +35,25 @@ class VARGenerator:
 
     @torch.inference_mode()
     def generate(self, params, vae_params, label_B,
-                 generator: Optional[torch.Generator] = None,
+                 generator: Optional[Generators] = None,
                  return_fhat: bool = False) -> torch.Tensor:
         """Class-conditional generation -> images [B, 3, H, W] in [0, 1]
         (or the f32 ``f_hat`` [B, Cvae, pn, pn] with ``return_fhat``).
-        Sampling noise comes from ``generator``, which must live on the
-        generator's device."""
+        Sampling noise comes from ``generator``: one ``torch.Generator`` for
+        the batch, or a sequence of B, one per label row (JAX's ``[B, 2]``
+        keys), so that a row's image depends only on its own generator.
+        Generators live on the generator's device.
+
+        Given labels already on the device, the call does not wait for the
+        device: it only queues work (the first call on a device copies a
+        few constants there once)."""
         cfg = self.cfg
         label_B = torch.as_tensor(label_B, dtype=torch.long,
                                   device=self.device)
         b = label_B.shape[0]
+        if not (generator is None or isinstance(generator, torch.Generator)
+                or len(generator) == b):
+            raise ValueError(f"{len(generator)} generators for {b} labels")
         cond_BD, mod, lvl_pos, x = V.prepare_generation(params, cfg, label_B)
         x = x.to(self.compute_dtype)
         mod = mod.to(self.compute_dtype)

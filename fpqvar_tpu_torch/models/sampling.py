@@ -1,9 +1,17 @@
-"""Top-k / top-p sampling with an explicit ``torch.Generator``."""
+"""Top-k / top-p sampling and the Gumbel-softmax blend with explicit
+``torch.Generator``s: one for the whole batch, or one per row (the serving
+path, so that a row's draws do not depend on what it is batched with).
+
+Nothing here synchronises the host with the device: the masks use Python
+scalars, not tensors copied from the host."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
+
+#: one generator for the whole batch, or one per row of the batch
+Generators = Union[torch.Generator, Sequence[torch.Generator]]
 
 
 def top_k_top_p_filter(logits: torch.Tensor, top_k: int = 0,
@@ -14,10 +22,7 @@ def top_k_top_p_filter(logits: torch.Tensor, top_k: int = 0,
     k-th value are kept.  The same operations as the JAX package's
     ``models/sampling.py`` (one ascending sort serves both filters)."""
     v = logits.shape[-1]
-    neg_inf = torch.tensor(float("-inf"), dtype=logits.dtype,
-                           device=logits.device)
-    pos_inf = torch.tensor(float("inf"), dtype=logits.dtype,
-                           device=logits.device)
+    neg_inf, pos_inf = float("-inf"), float("inf")
 
     def _nucleus_floor(sorted_logits):
         probs = torch.softmax(sorted_logits, dim=-1)
@@ -43,23 +48,46 @@ def top_k_top_p_filter(logits: torch.Tensor, top_k: int = 0,
     return logits
 
 
-def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel noise ``-log(-log(U))``, U uniform in (0, 1)."""
-    u = torch.rand(shape, generator=generator, device=device)
+def gumbel_noise(shape, generator: Generators, device) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(U))``, U uniform in (0, 1), of
+    ``shape``.  With a sequence of generators, one per row (``shape[0]`` of
+    them), row ``i`` is drawn from ``generator[i]`` alone."""
+    if isinstance(generator, torch.Generator) or generator is None:
+        u = torch.rand(shape, generator=generator, device=device)
+    else:
+        gens = list(generator)
+        if len(gens) != shape[0]:
+            raise ValueError(f"{len(gens)} generators for {shape[0]} rows")
+        u = torch.stack([torch.rand(tuple(shape[1:]), generator=g,
+                                    device=device) for g in gens])
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 
 
 def sample_with_top_k_top_p(logits: torch.Tensor, top_k: int = 0,
                             top_p: float = 0.0,
-                            generator: Optional[torch.Generator] = None,
+                            generator: Optional[Generators] = None,
                             gumbel: Optional[torch.Tensor] = None):
     """Categorical sample after top-k/top-p filtering, as
     ``argmax(filtered + gumbel)`` (the construction of
-    ``jax.random.categorical``).  The noise comes from ``generator``
-    unless ``gumbel`` is given, so that tests can feed the same noise to
-    both packages.  Returns int64 indices of shape ``logits.shape[:-1]``."""
+    ``jax.random.categorical``).  The noise comes from ``generator`` (one,
+    or one per row of ``logits``) unless ``gumbel`` is given, so that tests
+    can feed the same noise to both packages.  Returns int64 indices of
+    shape ``logits.shape[:-1]``."""
     filtered = top_k_top_p_filter(logits.to(torch.float32), top_k, top_p)
     if gumbel is None:
         gumbel = gumbel_noise(filtered.shape, generator, filtered.device)
     return torch.argmax(filtered + gumbel, dim=-1)
+
+
+def gumbel_softmax(logits: torch.Tensor, tau: float,
+                   generator: Optional[Generators] = None,
+                   gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``softmax((logits + gumbel) / tau)`` over the last axis in float32:
+    the soft form (``hard=False``, as the generation calls it) of JAX's
+    ``gumbel_softmax``.  The noise comes from ``generator`` (one, or one
+    per row) unless ``gumbel`` is given."""
+    lf = logits.to(torch.float32)
+    if gumbel is None:
+        gumbel = gumbel_noise(lf.shape, generator, lf.device)
+    return torch.softmax((lf + gumbel) / tau, dim=-1)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Dict, Optional
 
 import numpy as np
@@ -17,7 +18,8 @@ import torch.nn.functional as F
 
 from fpqvar_tpu_torch.config import GenerateConfig, VARConfig
 from fpqvar_tpu_torch.models import vqvae as vq
-from fpqvar_tpu_torch.models.sampling import sample_with_top_k_top_p
+from fpqvar_tpu_torch.models.sampling import (Generators, gumbel_softmax,
+                                              sample_with_top_k_top_p)
 from fpqvar_tpu_torch.ops.hadamard import apply_block_hadamard
 from fpqvar_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_dual
 from fpqvar_tpu_torch.ops.packing import DUAL_CODE_MULT, IntPack, PackedTensor
@@ -71,12 +73,13 @@ def _attention(q, k, v, attn_bias: Optional[torch.Tensor]):
 def _q_then_lin(qrt, kind: str, xv, w, b=None):
     """Linear of one layer kind.  An :class:`IntPack` weight takes the int8
     linears of ``ops/int8_matmul.py``, which quantize the activation to int
-    codes inside the GEMM call: the grouped GEMM (K1) per group, the
-    quantize-in-kernel full-K GEMM (K4) per channel, two GEMMs for fc2's
-    dual-grid format (K1, or K3 per channel), and the weights-only product
-    for the ``bf16`` activation format.  Otherwise the kind's activation
-    quantizer (if any) runs first, then the linear on the float or packed
-    weight."""
+    codes inside the GEMM call: the grouped GEMM over ``[B, T, K]`` with
+    its output in the activation's dtype (K5) per group, the
+    quantize-in-kernel full-K GEMM (K4) per channel, two f32 GEMMs for
+    fc2's dual-grid format (K1 per group, K3 per channel), and the
+    weights-only product for the ``bf16`` activation format.  Otherwise the
+    kind's activation quantizer (if any) runs first, then the linear on the
+    float or packed weight."""
     if isinstance(w, IntPack):
         fmt_a = qrt.act_fmts.get(kind) or w.fmt
         if fmt_a in DUAL_CODE_MULT:
@@ -233,20 +236,31 @@ def init_kv_cache(cfg: VARConfig, batch: int, dtype=torch.bfloat16,
 
 def scale_step(params, vae_qparams, cfg: VARConfig, qrt, gen: GenerateConfig,
                st: GenStatics, x, cond_BD, mod, lvl_pos, cache, f_hat,
-               generator: Optional[torch.Generator]):
+               generator: Optional[Generators]):
     """One scale: transformer -> logits -> CFG -> sample -> residual
     pyramid -> the next scale's token map.  Returns (next x or None at the
-    last scale, f_hat)."""
-    if gen.more_smooth:
-        raise NotImplementedError(
-            "more_smooth (gumbel-softmax blending) is not ported yet")
+    last scale, f_hat).
+
+    ``generator`` is one ``torch.Generator`` for the whole batch or one per
+    row (JAX's single key or ``[B, 2]`` per-row keys); each draws the
+    sample's noise first, then, under ``more_smooth``, the soft blend's, in
+    the order JAX splits its keys."""
     b = x.shape[0] // 2
     x = run_blocks(params, cfg, qrt, x, mod, cache, st.cur)
     logits = head_logits(params, cfg, x.to(torch.float32), cond_BD)
     t = gen.cfg * (st.si / (cfg.num_scales - 1))
     logits = (1.0 + t) * logits[:b] - t * logits[b:]
     idx_Bl = sample_with_top_k_top_p(logits, gen.top_k, gen.top_p, generator)
-    h_BChw = vq.embed_idx(vae_qparams, idx_Bl)           # [B, l, Cvae]
+    if gen.more_smooth:
+        # the Gumbel-softmax blend of the codebook; the index above is still
+        # drawn (and dropped) so that the noise stream matches the default
+        # mode's
+        ratio = st.si / (cfg.num_scales - 1)
+        gum_t = max(0.27 * (1.0 - ratio * 0.95), 0.005)
+        soft = gumbel_softmax(logits * (1.0 + ratio), gum_t, generator)
+        h_BChw = soft @ vae_qparams["embedding"].to(soft.dtype)
+    else:
+        h_BChw = vq.embed_idx(vae_qparams, idx_Bl)       # [B, l, Cvae]
     h_BChw = h_BChw.transpose(1, 2).reshape(
         b, cfg.vae.z_channels, st.pn, st.pn).to(torch.float32)
     f_hat, next_raw = vq.get_next_autoregressive_input(
@@ -262,11 +276,19 @@ def scale_step(params, vae_qparams, cfg: VARConfig, qrt, gen: GenerateConfig,
     return torch.cat([nxt, nxt], dim=0), f_hat      # CFG batch doubling
 
 
+@lru_cache(maxsize=None)
+def _lvl_index(cfg: VARConfig, device: torch.device) -> torch.Tensor:
+    """``lvl_1L`` on ``device``, copied there once (a copy from the host on
+    every generation would make the host wait for the device)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(lvl_1L(cfg)).to(device)
+
+
 def prepare_generation(params, cfg: VARConfig, label_B: torch.Tensor):
     """Condition embeddings, modulations and the first token map."""
     uncond = torch.full_like(label_B, cfg.num_classes)
     cond_BD = params["class_emb"][torch.cat([label_B, uncond])]
-    lvl = torch.from_numpy(lvl_1L(cfg)).to(label_B.device)
+    lvl = _lvl_index(cfg, label_B.device)
     lvl_pos = params["lvl_embed"][lvl][None] + params["pos_1LC"]
     first = (cond_BD[:, None, :] + params["pos_start"]
              + lvl_pos[:, : cfg.first_l])

@@ -1,10 +1,14 @@
-"""Quantized linears on the int8 GEMM kernels K1, K3 and K4.
+"""Quantized linears on the int8 GEMM kernels K1, K5, K3 and K4.
 
 ``int8_group_gemm`` (K1) computes the grouped-scale product
 
     y[m,n] = sum_g  sa[m,g] * sw[g,n] * sum_{k in g} ac[m,k] * wc[n,k]
 
-with f32 output (the ``int8`` recipe).  The per-channel recipes
+with f32 output; ``int8_group_gemm_nd`` (K5) computes the same sum over
+``[B, T, K]`` activation codes and writes it once in the caller's dtype
+(bfloat16 or float32).  The ``int8`` recipe runs K5 on its single-grid
+linears (qkv, proj, fc1) and K1 on fc2's two dual-grid halves, whose f32
+sums are added before the cast.  The per-channel recipes
 (``int8ch``, ``int8chs``, ``int8chsnr``) keep one scale per activation row
 and one per weight column, so the whole K depth is one exact int32 dot:
 
@@ -14,12 +18,13 @@ and one per weight column, so the whole K depth is one exact int32 dot:
 (fc2's dual grid); ``fused_ch_gemm`` (K4) quantizes each activation row
 inside the kernel and never writes its codes to device memory.  On a CUDA
 tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/int8_group_gemm.cu``, ``csrc/int8ch_gemm.cu``,
-``csrc/fused_ch_gemm.cu``: the ports of the TPU kernels of
-``fpqvar_tpu/ops/pallas/int8_matmul.py`` ``_int8_matmul_2d``,
-``_int8ch_matmul_2d`` and ``_fused_ch_matmul_2d``) or raises; on a CPU
-tensor it runs its plain version.  ``launches``, ``ch_launches`` and
-``fused_launches`` count the launches of K1, K3 and K4.
+(``csrc/int8_group_gemm.cu``, ``csrc/int8_nd_gemm.cu``,
+``csrc/int8ch_gemm.cu``, ``csrc/fused_ch_gemm.cu``: the ports of the TPU
+kernels of ``fpqvar_tpu/ops/pallas/int8_matmul.py`` ``_int8_matmul_2d``,
+``_int8_matmul_3d``, ``_int8ch_matmul_2d`` and ``_fused_ch_matmul_2d``) or
+raises; on a CPU tensor it runs its plain version.  ``launches``,
+``nd_launches``, ``ch_launches`` and ``fused_launches`` count the launches
+of K1, K5, K3 and K4.
 
 ``wonly_dot`` is the weights-only (``w4a16``) product, plain PyTorch as
 JAX's ``_wonly_dot`` is plain XLA.
@@ -36,12 +41,16 @@ from fpqvar_tpu_torch.ops import _build
 from fpqvar_tpu_torch.ops import grids as G
 from fpqvar_tpu_torch.ops import packing as P
 from fpqvar_tpu_torch.ops import quantizers as Q
+from fpqvar_tpu_torch.ops._checks import (bf16_gap, check_cuda_layout,
+                                          check_device)
 
 #: K chunk of the kernels: K and every group are multiples of it
 KERNEL_K = 128
 
 #: number of K1 kernel launches in this process
 launches = 0
+#: number of K5 kernel launches in this process
+nd_launches = 0
 #: number of K3 kernel launches in this process
 ch_launches = 0
 #: number of K4 kernel launches in this process
@@ -113,25 +122,7 @@ def _check(acodes, ascales, wcodes, wscales, group_size: int):
         raise TypeError("codes must be int8")
     if ascales.dtype != torch.float32 or wscales.dtype != torch.float32:
         raise TypeError("scales must be float32")
-    _check_device(acodes, ascales, wcodes, wscales)
-
-
-def _check_device(*ops):
-    devs = {t.device for t in ops}
-    if len(devs) != 1:
-        raise ValueError(f"operands on several devices: {devs}")
-    dev = ops[0].device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-
-
-def _check_cuda_layout(name: str, *ops, aligned=()):
-    """The kernels read contiguous rows in 16-byte chunks."""
-    if not all(t.is_contiguous() for t in ops):
-        raise ValueError(f"{name} operands must be contiguous")
-    if any(t.data_ptr() % 16 for t in aligned):
-        raise ValueError(f"{name} row operands must be 16-byte aligned "
-                         "(the kernel copies them in 16-byte chunks)")
+    check_device(acodes, ascales, wcodes, wscales)
 
 
 def _lib():
@@ -149,8 +140,8 @@ def int8_group_gemm(acodes, ascales, wcodes, wscales, group_size: int = 128):
     if dev.type == "cpu":
         return int8_group_gemm_ref(acodes, ascales, wcodes, wscales,
                                    group_size)
-    _check_cuda_layout("int8_group_gemm", acodes, ascales, wcodes, wscales,
-                       aligned=(acodes, wcodes))
+    check_cuda_layout("int8_group_gemm", acodes, ascales, wcodes, wscales,
+                      aligned=(acodes, wcodes))
     m, k = acodes.shape
     n = wcodes.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
@@ -160,6 +151,84 @@ def int8_group_gemm(acodes, ascales, wcodes, wscales, group_size: int = 128):
                   ascales.data_ptr(), wcodes.data_ptr(), wscales.data_ptr(),
                   out.data_ptr(), m, n, k, group_size)
     launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5: the grouped GEMM over [B, T, K], written once in the output dtype
+# ---------------------------------------------------------------------------
+
+def int8_group_gemm_nd_ref(ac, asc, wc, ws, group_size: int,
+                           out_dtype=torch.bfloat16):
+    """Plain PyTorch version of K5: ``int8_group_gemm_ref`` on the
+    flattened ``[B*T, K]`` rows, cast to ``out_dtype``.
+
+    ac [B, T, K] int8, asc [B, T, G] f32, wc [N, K] int8, ws [G, N] f32 ->
+    [B, T, N] ``out_dtype`` (bfloat16 or float32)."""
+    b, t, k = ac.shape
+    out = int8_group_gemm_ref(ac.reshape(b * t, k),
+                              asc.reshape(b * t, asc.shape[-1]), wc, ws,
+                              group_size)
+    return out.to(out_dtype).reshape(b, t, wc.shape[0])
+
+
+def int8_group_gemm_nd_tolerance(ac, asc, wc, ws, group_size: int,
+                                 out_dtype=torch.bfloat16):
+    """Per-element bound on |kernel - plain| for K5: K1's ``K1_REL_TOL *
+    sum_g |sa*sw*part|`` (the f32 sums differ only in their order), plus,
+    for a bfloat16 output, one bfloat16 gap (:func:`bf16_gap`)."""
+    b, t, k = ac.shape
+    tol = int8_group_gemm_tolerance(ac.reshape(b * t, k),
+                                    asc.reshape(b * t, asc.shape[-1]), wc,
+                                    ws, group_size).reshape(b, t, -1)
+    if out_dtype == torch.bfloat16:
+        plain = int8_group_gemm_nd_ref(ac, asc, wc, ws, group_size, out_dtype)
+        tol = tol + bf16_gap(plain, tol)
+    return tol
+
+
+def _check_nd(ac, asc, wc, ws, group_size: int):
+    if ac.dim() != 3 or asc.dim() != 3:
+        raise ValueError("ac [B, T, K] and asc [B, T, G] must be 3-D")
+    b, t, k = ac.shape
+    if tuple(asc.shape[:2]) != (b, t):
+        raise ValueError(f"asc must be [{b}, {t}, G], got "
+                         f"{tuple(asc.shape)}")
+    _check(ac.reshape(b * t, k), asc.reshape(b * t, asc.shape[-1]), wc, ws,
+           group_size)
+
+
+def _nd_lib():
+    """``csrc/int8_nd_gemm.cu``: codes, scales, out, B, T, N, K, group,
+    out_bf16."""
+    return _build.load("int8_nd_gemm",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6)
+
+
+def int8_group_gemm_nd(ac, asc, wc, ws, group_size: int = 128,
+                       out_dtype=torch.bfloat16):
+    """K5: grouped-scale int8 GEMM over ``[B, T, K]`` codes, the f32 sum
+    written once as ``out_dtype`` -> [B, T, N] (shapes as in
+    ``int8_group_gemm_nd_ref``).  The kernel walks the ``B*T`` rows as one
+    matrix; B and T only shape the output."""
+    global nd_launches
+    _check_nd(ac, asc, wc, ws, group_size)
+    _check_out_dtype(out_dtype)
+    dev = ac.device
+    if dev.type == "cpu":
+        return int8_group_gemm_nd_ref(ac, asc, wc, ws, group_size, out_dtype)
+    check_cuda_layout("int8_group_gemm_nd", ac, asc, wc, ws,
+                      aligned=(ac, wc))
+    b, t, k = ac.shape
+    n = wc.shape[0]
+    out = torch.empty((b, t, n), dtype=out_dtype, device=dev)
+    if b * t == 0:
+        return out
+    _build.launch(_nd_lib(), "int8_nd_gemm", dev, ac.data_ptr(),
+                  asc.data_ptr(), wc.data_ptr(), ws.data_ptr(),
+                  out.data_ptr(), b, t, n, k, group_size,
+                  int(out_dtype == torch.bfloat16))
+    nd_launches += 1
     return out
 
 
@@ -198,7 +267,7 @@ def _check_ch(ac, asc, wc, ws):
         raise TypeError("codes must be int8")
     if asc.dtype != torch.float32 or ws.dtype != torch.float32:
         raise TypeError("scales must be float32")
-    _check_device(ac, asc, wc, ws)
+    check_device(ac, asc, wc, ws)
 
 
 def _check_out_dtype(out_dtype):
@@ -228,7 +297,7 @@ def int8ch_gemm(ac, asc, wc, ws, out_dtype=torch.float32):
     dev = ac.device
     if dev.type == "cpu":
         return int8ch_gemm_ref(ac, asc, wc, ws, out_dtype)
-    _check_cuda_layout("int8ch_gemm", ac, asc, wc, ws, aligned=(ac, wc))
+    check_cuda_layout("int8ch_gemm", ac, asc, wc, ws, aligned=(ac, wc))
     m, k = ac.shape
     n = wc.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
@@ -281,7 +350,7 @@ def _check_fused(x, wc, ws, fmt: str):
         raise TypeError("codes must be int8")
     if ws.dtype != torch.float32:
         raise TypeError("scales must be float32")
-    _check_device(x, wc, ws)
+    check_device(x, wc, ws)
 
 
 def _fused_lib():
@@ -304,7 +373,7 @@ def fused_ch_gemm(x, wc, ws, fmt: str, out_dtype=torch.float32):
     dev = x.device
     if dev.type == "cpu":
         return fused_ch_gemm_ref(x, wc, ws, fmt, out_dtype)
-    _check_cuda_layout("fused_ch_gemm", x, wc, ws, aligned=(x, wc))
+    check_cuda_layout("fused_ch_gemm", x, wc, ws, aligned=(x, wc))
     m, k = x.shape
     n = wc.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
@@ -355,32 +424,37 @@ def int8_linear(x, pw: P.IntPack, act_fmt: str = None):
     - ``act_fmt == "bf16"`` (weights only): ``wonly_dot``;
     - one scale per weight column (``group_size == K``): K4 quantizes each
       row of ``x`` per token and runs the full-K GEMM;
-    - per group: ``quant_int_codes`` per group, then K1.
+    - per group: ``quant_int_codes`` per group of ``x [..., K]``, then K5,
+      which writes its f32 sum once in ``x.dtype`` (JAX runs K1 into f32
+      and casts: the same numbers).
 
-    ``act_fmt`` defaults to the weight format.  The port flattens
-    ``[..., K]`` to ``[M, K]``; the integer dots are exact, so this gives
-    JAX's N-D results bit for bit."""
+    ``act_fmt`` defaults to the weight format.  The kernels walk the rows
+    of ``[..., K]`` as one ``[M, K]`` matrix; the integer dots are exact,
+    so this gives JAX's N-D results bit for bit on the per-channel route
+    and within the order of the f32 group sum on the grouped one."""
     n, k = pw.shape
     lead = x.shape[:-1]
     if act_fmt == "bf16":
         out = wonly_dot(x, pw.codes, pw.scales, pw.group_size)
         return out.to(x.dtype)
     fmt = act_fmt or pw.fmt
-    x2 = x.reshape(-1, k)
     if pw.group_size == k:
-        out = fused_ch_gemm(x2.contiguous(), pw.codes, pw.scales, fmt,
-                            x.dtype)
+        out = fused_ch_gemm(x.reshape(-1, k).contiguous(), pw.codes,
+                            pw.scales, fmt, x.dtype)
         return out.reshape(lead + (n,))
-    ac, asc = P.quant_int_codes(x2, fmt, pw.group_size)
-    out = int8_group_gemm(ac, asc, pw.codes, pw.scales, pw.group_size)
-    return out.reshape(lead + (n,)).to(x.dtype)
+    x3 = x.reshape((-1,) + x.shape[-2:]) if x.dim() > 2 else x.reshape(
+        1, -1, k)
+    ac, asc = P.quant_int_codes(x3, fmt, pw.group_size)
+    out = int8_group_gemm_nd(ac, asc, pw.codes, pw.scales, pw.group_size,
+                             x.dtype)
+    return out.reshape(lead + (n,))
 
 
 def int8_linear_dual(x, pw: P.IntPack, act_fmt: str):
     """fc2: dual-grid activation (separate negative/positive codes and
     scales) against single-grid weight codes.  Two GEMMs whose float32
-    halves are summed before the cast to ``x.dtype``: K3 per channel
-    (``group_size == K``), K1 per group."""
+    halves are summed before the cast to ``x.dtype``, as JAX sums them: K3
+    per channel (``group_size == K``), K1 per group."""
     n, k = pw.shape
     x2 = x.reshape(-1, k)
     cn, sn, cp, sp = P.quant_int_codes_dual(x2, act_fmt, pw.group_size)

@@ -15,7 +15,7 @@ K-contiguous, as the CUDA kernel reads its B operand.  Scales are float32
 them once (in :func:`pack` and in ``utils/bridge.py``) because the kernel
 reads one scale row per K group.
 
-:class:`IntPack` (the ``int8`` backend, kernel K1).  Every fp4/fp6 grid
+:class:`IntPack` (the ``int8`` backend, kernels K1 and K5).  Every fp4/fp6 grid
 becomes a set of small exact integers after multiplying by a fixed power of
 two (e2m1 x2 -> {0, ±1..±4, ±6, ±8, ±12}), so a quantized linear runs as
 int8 x int8 -> int32 group products with the per-group scales applied in

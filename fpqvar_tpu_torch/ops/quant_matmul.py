@@ -27,6 +27,7 @@ import torch
 from fpqvar_tpu_torch.ops import _build
 from fpqvar_tpu_torch.ops import grids as G
 from fpqvar_tpu_torch.ops import packing as P
+from fpqvar_tpu_torch.ops._checks import check_cuda_layout, check_device
 
 #: K chunk of the kernel: every group is a multiple of it
 KERNEL_K = 128
@@ -118,9 +119,7 @@ def _check(x, codes, scales, fmt: str, group_size: int, nibble: bool):
         raise TypeError("codes must be int8")
     if scales.dtype != torch.float32:
         raise TypeError("scales must be float32")
-    devs = {t.device for t in (x, codes, scales)}
-    if len(devs) != 1:
-        raise ValueError(f"operands on several devices: {devs}")
+    check_device(x, codes, scales)
 
 
 def _lib():
@@ -140,17 +139,12 @@ def packed_matmul(x, codes, scales, fmt: str, group_size: int = 128,
     dev = x.device
     if dev.type == "cpu":
         return packed_matmul_ref(x, codes, scales, fmt, group_size, nibble)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     if fmt not in KERNEL_FMTS:
         raise NotImplementedError(
             f"K2 decodes {sorted(KERNEL_FMTS)} in-kernel; {fmt!r} has no "
             "CUDA decoder yet (ROADMAP.md: the rest of the fake backend)")
-    if not all(t.is_contiguous() for t in (x, codes, scales)):
-        raise ValueError("packed_matmul operands must be contiguous")
-    if x.data_ptr() % 16 or codes.data_ptr() % 16:
-        raise ValueError("packed_matmul x and codes must be 16-byte aligned "
-                         "(the kernel copies them in 16-byte chunks)")
+    check_cuda_layout("packed_matmul", x, codes, scales,
+                      aligned=(x, codes))
     m, k = x.shape
     n = scales.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)

@@ -1,4 +1,4 @@
-"""Kernels K1 to K4 on the card: each Hopper kernel against its plain
+"""Kernels K1 to K7 on the card: each Hopper kernel against its plain
 PyTorch version at the VAR-d16 shapes, ragged ones and tiny ones.  K1
 (``int8_group_gemm_ref``) within ``K1_REL_TOL`` of ``sum_g |sa*sw*part|``
 per element (the group parts are exact; only the f32 order over the groups
@@ -8,7 +8,12 @@ nibbles and one-per-byte e2m3 and e2m1 codes, bfloat16 and float32 ``x``;
 K3 (``int8ch_gemm_ref``) and K4 (``fused_ch_gemm_ref``) exactly equal
 (the full-K int32 dot is exact and the epilogue runs the same two
 multiplies), for float32 and bfloat16 outputs, the four K4 formats,
-bfloat16 and float32 ``x`` and an all-zero row.
+bfloat16 and float32 ``x`` and an all-zero row.  K5
+(``int8_group_gemm_nd_ref``) within K1's bound plus one bfloat16 gap for a
+bfloat16 output, on ``[B, T, K]`` codes with ragged T and N, and equal to
+K1 followed by a cast; K6 (``int8_probe_gemm_ref``) exactly equal, sums
+above 2^24 included; K7 (``bf16_probe_gemm_ref``) within
+``K7_TOL_PER_K * K * sum_k |a*b|`` plus one bfloat16 gap.
 
 The tests are marked ``cuda`` and skip without a CUDA device.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -21,6 +26,7 @@ import torch
 
 from fpqvar_tpu_torch.ops import int8_matmul as K
 from fpqvar_tpu_torch.ops import packing as P
+from fpqvar_tpu_torch.ops import probe_gemm as PG
 from fpqvar_tpu_torch.ops import quant_matmul as QM
 
 
@@ -175,3 +181,120 @@ def test_cuda_k2_raises_without_a_decoder(cuda_device):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QM.packed_matmul(x, pw.codes, pw.scales, "fp_e1", 128,
                          pw.nibble_packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,k,n,out_dtype", [
+    (16, 256, 1024, 3072, torch.bfloat16),     # d16 qkv, last scale
+    (16, 256, 1024, 4096, torch.float32),      # d16 fc1, f32 output
+    (16, 9, 1024, 1000, torch.bfloat16),       # ragged T and N
+    (3, 33, 640, 384, torch.float32),
+    (3, 1, 128, 7, torch.bfloat16),            # tiny
+])
+def test_cuda_k5_matches_plain(cuda_device, b, t, k, n, out_dtype):
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((b, t, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
+    ac, asc = P.quant_int_codes(torch.from_numpy(x).to(cuda_device),
+                                "fp_e2", 128)
+    pw = P.pack_int_codes(torch.from_numpy(w).to(cuda_device), "fp_e2", 128)
+    ops = (ac, asc, pw.codes, pw.scales, 128, out_dtype)
+    before = K.nd_launches
+    ours = K.int8_group_gemm_nd(*ops)
+    torch.cuda.synchronize()
+    assert K.nd_launches == before + 1
+    assert ours.shape == (b, t, n) and ours.dtype == out_dtype
+    ref = K.int8_group_gemm_nd_ref(*ops)
+    tol = K.int8_group_gemm_nd_tolerance(*ops)
+    assert bool(((ours.float() - ref.float()).abs() <= tol).all())
+    k1 = K.int8_group_gemm(ac.reshape(b * t, k), asc.reshape(b * t, -1),
+                           pw.codes, pw.scales, 128)
+    assert torch.equal(ours.reshape(b * t, n), k1.to(out_dtype))
+
+
+def _witness_operands(device, m=64, k=4096, n=64):
+    """Codes of +-127 whose signs mostly agree (most sums above 2^24); row
+    0 of both holds a pair whose dot is 2^24 + 2^16 + 1 (2^24 after the
+    conversion's two roundings), row 1 of ``a`` its negation."""
+    rng = np.random.default_rng(9)
+    a = np.where(rng.random((m, k)) < 0.9, 127, -127).astype(np.int8)
+    b = np.where(rng.random((n, k)) < 0.9, 127, -127).astype(np.int8)
+    a[:2], b[:2] = 0, 0
+    a[0, :1044], b[0, :1044] = 127, 127
+    a[0, 1044], b[0, 1044] = 63, 64
+    a[0, 1045], b[0, 1045] = 45, 1
+    a[1], b[1] = -a[0], b[0]
+    return torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4096, 1024, 3072), (4096, 1920, 5760),
+                                   (37, 640, 384), (1, 128, 7),
+                                   ("witness", 4096, 64)])
+def test_cuda_k6_equals_plain(cuda_device, m, k, n):
+    if m == "witness":
+        a, b = _witness_operands(cuda_device, 64, k, n)
+    else:
+        gen = torch.Generator(device=cuda_device).manual_seed(10)
+        a = torch.randint(-128, 128, (m, k), generator=gen,
+                          device=cuda_device, dtype=torch.int8)
+        b = torch.randint(-128, 128, (n, k), generator=gen,
+                          device=cuda_device, dtype=torch.int8)
+    before = PG.int8_launches
+    ours = PG.int8_probe_gemm(a, b)
+    torch.cuda.synchronize()
+    assert PG.int8_launches == before + 1
+    assert ours.dtype == torch.bfloat16
+    assert torch.equal(ours, PG.int8_probe_gemm_ref(a, b))
+    if m == "witness":
+        assert float(ours[0, 0]) == 2.0 ** 24
+        assert float(ours[1, 0]) == -2.0 ** 24
+        exact = a.double() @ b.double().T
+        assert bool((exact.abs() >= 2.0 ** 24).float().mean() > 0.9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4096, 1024, 3072), (4096, 4096, 1024),
+                                   (4096, 1920, 5760), (37, 640, 384),
+                                   (1, 64, 7)])
+def test_cuda_k7_matches_plain(cuda_device, m, k, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    a = torch.randn((m, k), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    b = torch.randn((n, k), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    before = PG.bf16_launches
+    ours = PG.bf16_probe_gemm(a, b)
+    torch.cuda.synchronize()
+    assert PG.bf16_launches == before + 1
+    assert ours.shape == (m, n) and ours.dtype == torch.bfloat16
+    ref = PG.bf16_probe_gemm_ref(a, b)
+    tol = PG.bf16_probe_gemm_tolerance(a, b)
+    assert bool(((ours.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_cuda_k5_k6_k7_raise_on_bad_layout(cuda_device):
+    b, t, k, n = 2, 4, 256, 128
+    ac = torch.zeros((b, t, k), dtype=torch.int8, device=cuda_device)
+    asc = torch.ones((b, t, 2), device=cuda_device)
+    wc = torch.zeros((k, n), dtype=torch.int8, device=cuda_device).t()
+    ws = torch.ones((2, n), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.int8_group_gemm_nd(ac, asc, wc, ws, 128)
+    shifted = torch.zeros(b * t * k + 1, dtype=torch.int8,
+                          device=cuda_device)[1:].view(b, t, k)
+    with pytest.raises(ValueError, match="aligned"):
+        K.int8_group_gemm_nd(shifted, asc, wc.contiguous(), ws, 128)
+    a8 = torch.zeros((8, k), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        PG.int8_probe_gemm(a8, wc)
+    with pytest.raises(ValueError, match="aligned"):
+        PG.int8_probe_gemm(shifted.view(-1, k), wc.contiguous())
+    a16 = torch.zeros((8, k), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        PG.bf16_probe_gemm(a16, a16.t().contiguous().t())
+    odd = torch.zeros(8 * k + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(8, k)
+    with pytest.raises(ValueError, match="aligned"):
+        PG.bf16_probe_gemm(odd, a16)

@@ -190,6 +190,59 @@ def test_generation_matches_jax(monkeypatch, width, mode):
     np.testing.assert_allclose(timg.numpy(), jimg, rtol=0, atol=5e-5)
 
 
+def test_more_smooth_generation_matches_jax(monkeypatch):
+    """``more_smooth``: each scale blends the codebook by a Gumbel-softmax
+    of the CFG logits (the drawn index is dropped).  JAX runs its fused
+    generation from one key; the port gets the blend noise JAX draws,
+    rebuilt from that key's splits (``fold_in(key, 0)``, then per scale one
+    split for the sample and one for the blend).  At width 128 ``bf16``,
+    float32 compute, ``f_hat`` and the images are held to the default
+    mode's bounds (1e-5 and 5e-5): the float32 sums run in another
+    order."""
+    width, mode = 128, "bf16"
+    jcfg, jqp = _jax_params(width, mode)
+    jvae = _jax_vae()
+    cfg = dataclasses.replace(var_tiny(), embed_dim=width,
+                              num_heads=width // 64)
+    key = jax.random.PRNGKey(4)
+    jgen = JaxGenerator(jcfg, _recipe(mode, jax_side=True),
+                        JaxGenerateConfig(more_smooth=True),
+                        cache_dtype=jnp.float32, compute_dtype=jnp.float32)
+    jf = np.asarray(jgen.generate(jqp, jvae, jnp.asarray(LABELS), key,
+                                  return_fhat=True))
+    noise, k = [], jax.random.fold_in(key, 0)
+    for pn in cfg.patch_nums:
+        k, _ = jax.random.split(k)                 # the sample's key
+        k, k2 = jax.random.split(k)                # the blend's key
+        noise.append(np.asarray(jax.random.gumbel(
+            k2, (len(LABELS), pn * pn, cfg.vae.vocab_size), jnp.float32)))
+    port_soft = V.gumbel_softmax
+    taken = []
+
+    def soft_rec(logits, tau, generator=None, gumbel=None):
+        g = torch.from_numpy(noise[len(taken)].copy())
+        taken.append(tau)
+        return port_soft(logits, tau, gumbel=g)
+
+    monkeypatch.setattr(V, "gumbel_softmax", soft_rec)
+    gen = VARGenerator(cfg, _recipe(mode),
+                       GenerateConfig(more_smooth=True),
+                       cache_dtype=torch.float32,
+                       compute_dtype=torch.float32, device="cpu")
+    tf = gen.generate(to_torch(jax.tree_util.tree_map(np.asarray, jqp), "cpu"),
+                      to_torch(jax.tree_util.tree_map(np.asarray, jvae),
+                               "cpu"), LABELS, torch.Generator().manual_seed(0),
+                      return_fhat=True)
+    assert len(taken) == cfg.num_scales
+    np.testing.assert_allclose(taken, [max(0.27 * (1 - r * 0.95), 0.005)
+                                       for r in (0.0, 0.5, 1.0)])
+    np.testing.assert_allclose(tf.numpy(), jf, rtol=0, atol=1e-5)
+    timg = (V.vq.decode(to_torch(jax.tree_util.tree_map(np.asarray, jvae),
+                                 "cpu"), cfg.vae, tf) + 1.0) * 0.5
+    jimg = np.asarray(_jax_decode(jcfg.vae)(jvae, jnp.asarray(jf)))
+    np.testing.assert_allclose(timg.numpy(), jimg, rtol=0, atol=5e-5)
+
+
 def test_bridge_reads_save_params_files(tmp_path):
     """The flat npz of ``utils/checkpoint.save_params`` bridges to the same
     tensors as the nested tree (IntPack leaves and empty lists included)."""

@@ -1,5 +1,5 @@
-"""Kernel K1 (grouped int8 GEMM) and the int8 linears against the JAX
-package.
+"""Kernels K1 and K5 (grouped int8 GEMMs) and the int8 linears against
+the JAX package.
 
 On the CPU the wrapper runs K1's plain PyTorch version; it is held against
 JAX's Pallas kernel in interpret mode and its jnp mirror.  The group dots
@@ -9,8 +9,13 @@ order of the sum over groups: the tolerance is 1e-5 of
 one group (``group_size == K``) the 2-D product is bit-equal to JAX's
 ``_channel_dot``, and so are the linears, which then route through K4
 (K3 for the dual grid).  JAX's functions run under ``jit``, as in its
-generation.  ``tests/test_torch_cuda.py`` holds the Hopper kernel against
-the plain version on the card.
+generation.  K5's plain version (K1's on the flattened ``[B*T, K]`` rows,
+cast to the output dtype) is held against JAX's batch-gridded kernel
+``_int8_matmul_3d`` in interpret mode, which pads T to 32 and slices the
+padding off: within K1's bound for a float32 output, plus one bfloat16 gap
+for a bfloat16 one (the two f32 sums may round to neighbouring bfloat16
+values).  ``tests/test_torch_cuda.py`` holds the Hopper kernels against
+their plain versions on the card.
 """
 import functools
 
@@ -171,6 +176,84 @@ def test_int8_linear_dual_matches_jax(gs):
                    np.asarray(theirs).reshape(-1, 128), tol.numpy())
 
 
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [64, 33, 1])
+def test_plain_k5_matches_jax_kernel3(t, out_dtype):
+    b, k, n = 3, 384, 256
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((b, t, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
+    jac, jasc = jax.jit(functools.partial(
+        JP.quant_int_codes, fmt="fp_e2", group_size=128))(jnp.asarray(x))
+    jpw = JP.pack_int_codes(jnp.asarray(w), "fp_e2", 128)
+    theirs = JK._int8_matmul_3d(jac, jasc, jpw.codes, jpw.scales,
+                                group_size=128, n=n, k_dim=k,
+                                out_dtype=getattr(jnp, out_dtype),
+                                interpret=True)
+    ac, asc = P.quant_int_codes(torch.from_numpy(x), "fp_e2", 128)
+    np.testing.assert_array_equal(ac.numpy(), np.asarray(jac))
+    pw = P.pack_int_codes(torch.from_numpy(w), "fp_e2", 128)
+    dt = getattr(torch, out_dtype)
+    before = K.nd_launches
+    ours = K.int8_group_gemm_nd(ac, asc, pw.codes, pw.scales, 128, dt)
+    assert K.nd_launches == before                 # CPU tensors: plain
+    assert ours.shape == (b, t, n) and ours.dtype == dt
+    tol = K.int8_group_gemm_nd_tolerance(ac, asc, pw.codes, pw.scales, 128,
+                                         dt)
+    _assert_within(ours.float().numpy(),
+                   np.asarray(theirs.astype(jnp.float32)), tol.numpy())
+
+
+def _spy_routes(monkeypatch):
+    """Record which GEMM wrapper each linear reaches (CPU tensors run the
+    plain versions, so the launch counters stay still)."""
+    routes = []
+    for name, tag in (("int8_group_gemm", "K1"),
+                      ("int8_group_gemm_nd", "K5")):
+        real = getattr(K, name)
+        monkeypatch.setattr(K, name, lambda *a, _r=real, _t=tag, **kw:
+                            routes.append(_t) or _r(*a, **kw))
+    return routes
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+def test_int8_linear_bf16_nd_matches_jax(monkeypatch, dual):
+    """bfloat16 ``[B, T, K]`` through the grouped route: the single grid
+    reaches K5 (its output written in bfloat16), fc2's dual grid K1 twice
+    (its float32 halves summed, then cast), each within the bound of JAX's
+    jitted ``int8_linear`` (K1 into float32, then a cast) plus one
+    bfloat16 gap."""
+    rng = np.random.default_rng(11)
+    k, n = 256, 192
+    x = rng.standard_normal((4, 33, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    jpw = JP.pack_int_codes(jnp.asarray(w), "fp_e2", 128)
+    fmt = "fp_e1m2_neg_e2m1_pos" if dual else "fp_e2"
+    jfn = JK.int8_linear_dual if dual else JK.int8_linear
+    theirs = np.asarray(jax.jit(functools.partial(
+        jfn, act_fmt=fmt, force_jnp=True))(xb, jpw).astype(jnp.float32))
+    pw = P.pack_int_codes(torch.from_numpy(w), "fp_e2", 128)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    routes = _spy_routes(monkeypatch)
+    ours = (K.int8_linear_dual if dual else K.int8_linear)(xt, pw, fmt)
+    assert routes == (["K1", "K1"] if dual else ["K5"])
+    assert ours.shape == (4, 33, n) and ours.dtype == torch.bfloat16
+    x2 = xt.reshape(-1, k)
+    if dual:
+        cn, sn, cp, sp = P.quant_int_codes_dual(x2, fmt, 128)
+        tol = (K.int8_group_gemm_tolerance(cn, sn, pw.codes, pw.scales, 128)
+               + K.int8_group_gemm_tolerance(cp, sp, pw.codes, pw.scales,
+                                             128))
+        tol = tol + K.bf16_gap(ours.reshape(-1, n), tol)
+    else:
+        ac, asc = P.quant_int_codes(xt, fmt, 128)
+        tol = K.int8_group_gemm_nd_tolerance(ac, asc, pw.codes, pw.scales,
+                                             128).reshape(-1, n)
+    _assert_within(ours.float().numpy().reshape(-1, n),
+                   theirs.reshape(-1, n), tol.numpy())
+
+
 def test_int8_group_gemm_rejects_bad_operands():
     ac = torch.zeros((4, 256), dtype=torch.int8)
     asc = torch.ones((4, 2))
@@ -196,3 +279,12 @@ def test_int8_group_gemm_rejects_bad_operands():
         K.fused_ch_gemm(x, wc, wsc[:1], "fp_e2", torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         K.fused_ch_gemm(x.half(), wc, wsc[:1], "fp_e2")
+    # K5 takes [B, T, K] codes and [B, T, G] scales
+    with pytest.raises(ValueError, match="3-D"):
+        K.int8_group_gemm_nd(ac, asc, wc, wsc, 128)
+    with pytest.raises(ValueError, match=r"asc must be \[2, 2, G\]"):
+        K.int8_group_gemm_nd(ac.reshape(2, 2, 256), asc.reshape(1, 4, 2),
+                             wc, wsc, 128)
+    with pytest.raises(TypeError, match="out_dtype"):
+        K.int8_group_gemm_nd(ac.reshape(2, 2, 256), asc.reshape(2, 2, 2),
+                             wc, wsc, 128, torch.float16)

@@ -76,6 +76,38 @@ def test_sampler_with_injected_gumbel_noise():
     assert torch.isfinite(filt.gather(1, drawn[:, None])).all()
 
 
+def test_per_row_sampler_and_gumbel_softmax_with_injected_noise():
+    """``gumbel_softmax`` (the soft form generation uses) against JAX's on
+    JAX's own noise for the key, within float32 rounding of the softmax
+    (values in [0, 1]); the per-row sampler draws row i from generator i
+    alone, and injected per-row noise still gives JAX's per-row tokens."""
+    x = _logits(2, rows=4)
+    key = jax.random.PRNGKey(8)
+    for tau in (0.27, 0.0135):
+        theirs = np.asarray(jax.jit(functools.partial(
+            JS.gumbel_softmax, tau=tau))(key, jnp.asarray(x)))
+        noise = np.asarray(jax.random.gumbel(key, x.shape, jnp.float32))
+        ours = S.gumbel_softmax(torch.from_numpy(x), tau,
+                                gumbel=torch.from_numpy(noise.copy()))
+        assert ours.dtype == torch.float32
+        np.testing.assert_allclose(ours.numpy(), theirs, rtol=0, atol=1e-6)
+    keys = jax.random.split(jax.random.PRNGKey(9), 4)
+    theirs = np.asarray(jax.vmap(lambda kk, lg: JS.sample_with_top_k_top_p(
+        kk, lg, 900, 0.96))(keys, jnp.asarray(x)))
+    noise = np.stack([np.asarray(jax.random.gumbel(kk, x.shape[1:],
+                                                   jnp.float32))
+                      for kk in keys])
+    ours = S.sample_with_top_k_top_p(torch.from_numpy(x), 900, 0.96,
+                                     gumbel=torch.from_numpy(noise))
+    np.testing.assert_array_equal(ours.numpy(), theirs)
+    gens = [torch.Generator().manual_seed(s) for s in (1, 2, 3, 4)]
+    rows = S.gumbel_noise((4, 7), gens, "cpu")
+    alone = S.gumbel_noise((1, 7), [torch.Generator().manual_seed(3)], "cpu")
+    assert torch.equal(rows[2], alone[0])
+    with pytest.raises(ValueError, match="generators"):
+        S.gumbel_noise((3, 7), gens, "cpu")
+
+
 @functools.lru_cache(maxsize=None)
 def _float_params(width):
     jcfg = dataclasses.replace(jax_var_tiny(), embed_dim=width,
