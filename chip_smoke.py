@@ -10,7 +10,9 @@ non-zero:
    limit from nvidia-smi and turns TF32 off for float32 matmuls and convs;
 2. build: compiles the port's CUDA kernels K1 to K7 from ``fpqvar_tpu_torch/
    csrc`` with nvcc for sm_90a, one nvcc per source, all started together,
-   and prints each kernel's registers and spills;
+   prints each kernel's build time, registers and spills, and counts the
+   warpgroup MMA instructions (``HGMMA``, ``IGMMA``) in each library's SASS
+   (``cuobjdump -sass``): K7 must hold ``HGMMA`` and K4 ``IGMMA``;
 3. kernels: K1 (the grouped int8 GEMM), K2 (the dequantize-in-register
    GEMM over packed fp4 / fp6 codes), K3 (the full-K int8 GEMM with fused
    rescale), K4 (per-token quantize inside the full-K int8 GEMM), K5 (K1's
@@ -18,8 +20,12 @@ non-zero:
    full-K int8 GEMM with a bf16 output) and K7 (its bf16 GEMM) against
    their plain PyTorch versions at the VAR-d16 shapes of the last scale at
    batch 8 (M = 2*8*256 = 4096), the probe's shapes and extra cases, with
-   times, the card's bound and a library yardstick; K3, K4 and K6 must
-   equal theirs exactly, and K5 must also equal K1 followed by a cast;
+   times (back-to-back calls, and again with every call queued before the
+   first starts: the kernels' device time and the host's time to queue a
+   call, apart), the card's bound and a library yardstick; K3, K4 and K6 must
+   equal theirs exactly, and K5 must also equal K1 followed by a cast; K4's
+   two kernels (the row quantize and the s8 GEMM) are also timed apart
+   under torch.profiler, and K7 is printed as a ratio to torch.matmul;
 4. small reference: small generations (width 256, so every grouped linear
    has more than one scale group) under ``int8``, ``bf16``, ``packed``,
    ``w4a16p``, W6A6 on the packed backend, ``fake``, ``int8ch``,
@@ -32,10 +38,10 @@ non-zero:
    recipe's kernel launch counts and prints img/s and the host thread's
    CPU time inside each ``generate`` call;
 6. profile: one more batch-8 generation under ``int8``, ``bf16``,
-   ``packed`` and ``int8chs`` under torch.profiler, after the launch counts
-   were read: device busy time, idle share, the port kernels' shares and
-   the kernels that take the most device time (the source of PERF.md's
-   "Where the time goes");
+   ``packed``, ``int8ch`` and ``int8chs`` under torch.profiler, after the
+   launch counts were read: device busy time, idle share, the port
+   kernels' shares (K4's two kernels apart) and the kernels that take the
+   most device time (the source of PERF.md's "Where the time goes");
 7. serving: the d16 ``int8`` and ``bf16`` generators of phase 5 behind a
    ``GenerationServer`` (max_batch 8): one request alone, then a burst of
    20 with that request again inside it; images finite in [0, 1], the
@@ -58,6 +64,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -71,6 +78,9 @@ KERNEL_SOURCES = ("int8_group_gemm", "packed_dequant_gemm", "int8ch_gemm",
 #: the last scale's block linears of VAR-d16 at batch 8: (name, M, K, N)
 D16_SHAPES = (("qkv", 4096, 1024, 3072), ("proj", 4096, 1024, 1024),
               ("fc1", 4096, 1024, 4096), ("fc2", 4096, 4096, 1024))
+#: K4's two kernels, (a) the row quantize and (b) the s8 GEMM, by a part
+#: of their names (the GEMM by its epilogue)
+K4_KERNELS = {"a": "fused_ch_quantize_kernel", "b": "FusedChRescale"}
 #: the int8 rate probe's default shapes: (name, M, K, N)
 PROBE_SHAPES = (("probe-1920", 4096, 1920, 5760),
                 ("probe-4096", 4096, 4096, 4096))
@@ -93,6 +103,57 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int = 20) -> tuple:
+    """``(device_ms, host_ms)`` per call of ``fn()`` over ``reps`` runs
+    after warm-up.  The device first sleeps for twice the host time of the
+    warm-up call times ``reps`` (at 2 GHz or less), so that all runs are
+    queued before the first starts: ``device_ms`` (CUDA events) is the
+    kernels' time alone, where ``cuda_ms`` also holds the gaps of a call
+    whose host work outlasts its kernels, and ``host_ms`` is the host's
+    time to queue one call (its Python, allocations and launches)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * reps * host_s, 1.0) * 2e9))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_ms
+
+
+def profiled_ms(fn, keys: dict, reps: int = 20) -> dict:
+    """Device ms per call of ``fn()`` of the kernels whose names hold each
+    of ``keys``' values, from torch.profiler over ``reps`` calls after a
+    warm-up; None where the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for label, key in keys.items():
+        total = sum(_self_device_us(e) for e in events if key in e.key)
+        out[label] = total / 1e3 / reps if total > 0 else None
+    return out
+
+
+def _self_device_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
 
 
 def phase_device() -> str:
@@ -121,16 +182,30 @@ def phase_build():
         _build.build(name)
         return time.perf_counter() - t0
 
+    def gmma(name):
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.build(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        return {op: sass.count(op) for op in ("HGMMA", "IGMMA")}
+
+    cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         secs = list(pool.map(timed, KERNEL_SOURCES))
+        counts = dict(zip(KERNEL_SOURCES, pool.map(gmma, KERNEL_SOURCES)))
     for name, sec in zip(KERNEL_SOURCES, secs):
         regs = [ln.strip() for ln in
                 _build.build_logs.get(name, "").splitlines()
                 if "registers" in ln or "spill" in ln]
-        print(f"build: {name} for sm_90a in {sec:.2f} s: {'; '.join(regs)}")
+        ops = ", ".join(f"{op} {n}" for op, n in counts[name].items())
+        print(f"build: {name} for sm_90a in {sec:.2f} s, SASS {ops}: "
+              f"{'; '.join(regs)}")
     print(f"build: {len(KERNEL_SOURCES)} sources in "
           f"{time.perf_counter() - t0:.2f} s")
+    for name, op in (("bf16_probe_gemm", "HGMMA"), ("fused_ch_gemm", "IGMMA")):
+        if counts[name][op] == 0:
+            fail(f"build: {name} holds no {op} instruction: its GEMM does "
+                 "not run on wgmma")
 
 
 def _k1_operands(m, k, n, gen):
@@ -174,6 +249,7 @@ def check_and_time(label: str, row: dict, run, plain, tol, lib, nbytes: int,
             fail(f"{label} {row['shape']} {desc}: max err {float(err.max())} "
                  f"exceeds the tolerance (worst err/tol {worst:.3g})")
     ms = cuda_ms(run)
+    device_ms, host_ms = queued_ms(run)
     plain_ms = cuda_ms(plain, reps=5)
     lib_ms = None if lib is None else cuda_ms(lib)
     for key, fn in extras:
@@ -190,7 +266,8 @@ def check_and_time(label: str, row: dict, run, plain, tol, lib, nbytes: int,
     t_bytes = nbytes / H100_BYTES * 1e3
     t_ops = 2 * row["M"] * row["N"] * row["K"] / peak * 1e3
     row.update(max_abs_err=float(err.max()), worst_err_over_tol=worst,
-               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               ms=ms, device_ms=device_ms, host_ms=host_ms,
+               plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     if int_mm is not None:
@@ -203,8 +280,9 @@ def check_and_time(label: str, row: dict, run, plain, tol, lib, nbytes: int,
                      for key, _ in extras)
     lib_part = "" if lib is None else f", {lib_text} {lib_ms:.4f} ms"
     print(f"kernels: {label} {row['shape']:8s} {desc}: max err "
-          f"{row['max_abs_err']:.3e} ({check}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms{lib_part}{extra}, bound "
+          f"{row['max_abs_err']:.3e} ({check}); kernel {ms:.4f} ms "
+          f"(queued: device {device_ms:.4f} ms, host {host_ms:.4f} ms a "
+          f"call), plain {plain_ms:.4f} ms{lib_part}{extra}, bound "
           f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
     return row
 
@@ -348,7 +426,7 @@ def phase_k4():
         ops = (x, pw.codes, pw.scales, fmt, dtype)
         b_lib = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
         x_name = str(dtype).replace("torch.", "")
-        rows.append(check_and_time(
+        row = check_and_time(
             "K4", {"shape": name, "M": m, "K": k, "N": n, "fmt": fmt,
                    "x": x_name},
             lambda: K.fused_ch_gemm(*ops), lambda: K.fused_ch_gemm_ref(*ops),
@@ -356,7 +434,15 @@ def phase_k4():
             (x.numel() * x.element_size() + pw.codes.numel()
              + pw.scales.numel() * 4 + m * n * x.element_size()),
             H100_INT8_OPS, "", f"{x_name} torch.matmul",
-            int_mm=_int_mm(m, k, n, gen)))
+            int_mm=_int_mm(m, k, n, gen))
+        phases = profiled_ms(lambda: K.fused_ch_gemm(*ops), K4_KERNELS)
+        row.update({f"{p}_ms": v for p, v in phases.items()})
+        print(f"kernels: K4 {name:8s} phases under torch.profiler: "
+              + ", ".join(f"({p}) " + ("not measured" if v is None else
+                                       f"{v:.4f} ms")
+                          for p, v in phases.items())
+              + f"; whole call {row['ms']:.4f} ms")
+        rows.append(row)
     return rows
 
 
@@ -468,7 +554,8 @@ def phase_k6():
 
 def phase_k7():
     """K7 against ``bf16_probe_gemm_ref`` within its tolerance on standard
-    normal bf16 values at the d16 and probe shapes.  The library yardstick
+    normal bf16 values at the d16 and probe shapes and at a ragged M = 16,
+    N = 1000.  The library yardstick
     is ``torch.matmul`` of the same operands: one PyTorch call computing
     the same function (bf16 in, f32 sums, bf16 out)."""
     from fpqvar_tpu_torch.ops import probe_gemm as PG
@@ -476,12 +563,13 @@ def phase_k7():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     rows = []
-    for name, m, k, n in D16_SHAPES + PROBE_SHAPES:
+    for name, m, k, n in (D16_SHAPES + PROBE_SHAPES
+                          + (("ragged", 16, 1024, 1000),)):
         a = torch.randn((m, k), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         b = torch.randn((n, k), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
-        rows.append(check_and_time(
+        row = check_and_time(
             "K7", {"shape": name, "M": m, "K": k, "N": n},
             lambda: PG.bf16_probe_gemm(a, b),
             lambda: PG.bf16_probe_gemm_ref(a, b),
@@ -489,7 +577,13 @@ def phase_k7():
             lambda: torch.matmul(a, b.t()),
             2 * (m * k + n * k + m * n), H100_BF16_FLOPS,
             f"{PG.K7_TOL_PER_K:.3g}*K*sum_k|a*b| + 1 bf16 gap",
-            "bf16 torch.matmul"))
+            "bf16 torch.matmul")
+        row["over_library"] = row["ms"] / row["library_ms"]
+        print(f"kernels: K7 {name:8s} / torch.matmul "
+              f"{row['over_library']:.3f}, "
+              f"{2 * m * n * k / row['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{row['bound_ms'] / row['ms']:.3f} of the bound")
+        rows.append(row)
     return rows
 
 
@@ -553,7 +647,7 @@ COUNTERS = {"K1": ("int8_matmul", "launches"),
             "K6": ("probe_gemm", "int8_launches"),
             "K7": ("probe_gemm", "bf16_launches")}
 #: the recipes profiled after the main path (phase 6)
-PROFILED = ("int8", "bf16", "packed", "int8chs")
+PROFILED = ("int8", "bf16", "packed", "int8ch", "int8chs")
 
 
 def _counter_modules():
@@ -692,8 +786,7 @@ def phase_profile(mode: str, run, card: str):
                if e.device_type == torch.autograd.DeviceType.CUDA]
 
     def dev_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        return _self_device_us(e) / 1e3
 
     busy = sum(dev_ms(e) for e in kernels)
     n_kernels = sum(e.count for e in kernels)
@@ -704,10 +797,14 @@ def phase_profile(mode: str, run, card: str):
     ours = []
     for label, key in (("K1", "int8_group_gemm"),
                        ("K2", "packed_dequant_gemm"), ("K3", "int8ch_gemm"),
-                       ("K4", "fused_ch_gemm"), ("K5", "int8_nd_gemm")):
+                       ("K4 (a)", K4_KERNELS["a"]),
+                       ("K4 (b)", K4_KERNELS["b"]),
+                       ("K5", "int8_nd_gemm")):
         hits = [e for e in kernels if key in e.key]
-        ours.append(f"{label} {sum(dev_ms(e) for e in hits):.2f} ms in "
-                    f"{sum(e.count for e in hits)} launches")
+        ms = sum(dev_ms(e) for e in hits)
+        ours.append(f"{label} {ms:.2f} ms in "
+                    f"{sum(e.count for e in hits)} launches "
+                    f"({ms / busy:.3f} of busy)")
     top = sorted(kernels, key=dev_ms, reverse=True)[:6]
     print(f"profile: {mode} batch-8 generation under the profiler: wall "
           f"{wall_ms:.1f} ms, device busy {busy:.1f} ms in {n_kernels} "
@@ -868,7 +965,8 @@ def _kernel_row(name, source, replaces, launches, rows, timed="fc1"):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "host_ms": head["host_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "timed_shape": f"{timed} M={head['M']} K={head['K']} "

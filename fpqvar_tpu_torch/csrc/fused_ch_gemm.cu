@@ -1,4 +1,4 @@
-// Per-token quantize inside a full-K int8 GEMM, for Hopper (sm_90a):
+// Per-token quantize, then a full-K int8 GEMM, for Hopper (sm_90a):
 //
 //   scale[m] = amax_m > 0 ? amax_m * inv : 1       amax_m = max_k |x[m,k]|
 //   code[m,k] = codes[#{i : x[m,k] / scale[m] >= mids[i]}]
@@ -9,10 +9,11 @@
 // _fused_ch_matmul_2d).  The port runs it on every block linear of the
 // per-channel recipes (int8ch: qkv, proj, fc1; int8chs and int8chsnr: all
 // four), so no block linear there runs the eager activation quantizer.
-// Operands: x [M,K] bf16 or f32 row-major, wc [N,K] int8 (K-contiguous,
-// as mma.sync wants its B operand), wsc [1,N] f32; the format's midpoints
-// (grid units), integer codes, f32(1 / max|grid|) and code multiplier come
-// in the kernel's arguments.  K a multiple of 128.
+// Operands: x [M,K] bf16 or f32 row-major, wc [N,K] int8 (K-major), wsc
+// [1,N] f32; scratch for the codes [M,K] int8 and the row scales rs [M] f32
+// (the wrapper allocates both); the format's midpoints (grid units), integer
+// codes, f32(1 / max|grid|) and code multiplier come in the kernel's
+// arguments.  K a multiple of 128.
 //
 // Exactness.  The arithmetic is that of the port's quant_int_codes, which
 // is bit-equal to the JAX package's jitted one: the scale is the reciprocal
@@ -27,30 +28,35 @@
 //
 // Design.  On the TPU the grid runs in order, and the kernel quantizes its
 // [bm, K] block once (at j == kk == 0) into VMEM for every N tile.  Blocks
-// on the card run in parallel and share nothing, so each 128x128 output
-// tile's block first reduces |x| over its 128 rows' whole K (into shared
-// memory), then, for every 128-wide K chunk, quantizes the chunk of x into
-// a shared-memory int8 tile just before its MMAs (mma.sync m16n8k32, the
-// tile loop of int8_mma.cuh) while cp.async brings the next weight chunk.
-// The codes never reach device memory, which is the point of the kernel;
-// the price is that every row is quantized N / 128 times (24 at d16's qkv)
-// and read from L2 twice per N tile.
+// on the card run in parallel and share nothing, so one call runs two
+// kernels on one stream, and each row is quantized exactly once:
+//   (a) fused_ch_quantize_kernel: one warp per row takes the absmax over
+//       the whole K, then re-reads the row (from L1 / L2) and writes its
+//       int8 codes and rs = scale / mult;
+//   (b) the s8 instantiation of wgmma_gemm.cuh over the codes and wc
+//       (TMA ring, wgmma m64n256k32 s8 x s8 -> s32 on 128 x 256 tiles),
+//       whose epilogue (FusedChRescale) computes (float(acc) * rs[m]) *
+//       wsc[n]: two multiplies in JAX's order, no add to contract.
+// The TPU kernel kept the codes out of HBM because a dot-only kernel lost
+// there; here the codes of a whole call (4 MB at d16's qkv, 16 MB at fc2)
+// fit in the 50 MB L2 between the two kernels.
 //
 // Bound on an H100 SXM.  At VAR-d16's last scale at batch 8 (M = 4096,
 // K = 1024) qkv is 2*4096*1024*3072 = 25.8 GOP, 13.0 us at the 1,979 TOP/s
-// int8 peak, against 36 MB moved (8 MB of bf16 x, 3 MB of codes, 25 MB of
-// bf16 output), 10.8 us at 3.35 TB/s: operations bound it (also at fc1 and
-// fc2); proj (N = 1024) is bound by its 18 MB, 5.3 us.  This first version
-// does the division and the search per element on the CUDA cores for every
-// N tile, and uses mma.sync without wgmma or TMA (PERF.md has its times).
-#include "int8_mma.cuh"
-
-using namespace int8mma;
+// int8 peak, against 36 MB moved (8 MB of bf16 x, 3 MB of weight codes,
+// 25 MB of bf16 output), 10.8 us at 3.35 TB/s: operations bound it (also
+// at fc1 and fc2); proj (N = 1024) is bound by its 18 MB, 5.3 us.  PERF.md
+// keeps that bound, which counts no activation codes.  The codes' round
+// trip adds 8 MB at qkv, proj and fc1 (4 MB written, 4 MB read) and 32 MB
+// at fc2, +2.4 us and +9.6 us at 3.35 TB/s if it went to HBM, less where
+// L2 holds the codes.  PERF.md has the times of (a), (b) and the whole
+// call.
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-constexpr int kMaxGrid = 64;                  // grid values (fp6_e2m3: 63)
-constexpr int SMEM_BYTES = 3 * TILE_BYTES;    // A codes + two W stages
+constexpr int kMaxGrid = 64;             // grid values (fp6_e2m3: 63)
+constexpr int QUANT_WARPS = 8;           // rows per block of (a)
 
 struct Grid {
   float mid[kMaxGrid];    // sorted midpoints in grid units
@@ -91,171 +97,162 @@ struct XVec<false> {
 };
 
 // The integer code of q: the count of midpoints <= q (a prefix of the
-// sorted midpoints), found by binary lifting over at most 63 entries.
+// sorted midpoints), found by binary lifting from the step FIRST over at
+// most 2 * FIRST - 1 entries (FIRST 8: the 4-bit grids' 14 midpoints;
+// FIRST 32: fp6_e2m3's 62).
+template <int FIRST>
 __device__ __forceinline__ int encode(float q, const float* mid, int n_mids,
                                       const int* code) {
   int pos = 0;
 #pragma unroll
-  for (int step = 32; step > 0; step >>= 1) {
+  for (int step = FIRST; step > 0; step >>= 1) {
     if (pos + step <= n_mids && q >= mid[pos + step - 1]) pos += step;
   }
   return code[pos];
 }
 
-template <bool XBF16, typename OutT>
-__global__ void __launch_bounds__(THREADS)
-fused_ch_gemm_kernel(const void* __restrict__ xv,
-                     const int8_t* __restrict__ wc,
-                     const float* __restrict__ wsc,
-                     OutT* __restrict__ out, int M, int N, int K,
-                     const __grid_constant__ Grid grid) {
+// (a) One warp per row: the absmax over the whole K, then the codes of the
+// row (16 bytes of x a lane per step) and its output scale scale / mult.
+template <bool XBF16, int FIRST>
+__global__ void __launch_bounds__(32 * QUANT_WARPS)
+fused_ch_quantize_kernel(const void* __restrict__ xv,
+                         int8_t* __restrict__ codes, float* __restrict__ rs,
+                         int M, int K, const __grid_constant__ Grid grid) {
   using V = XVec<XBF16>;
   constexpr int XBYTES = XBF16 ? 2 : 4;
-  extern __shared__ __align__(16) int8_t smem[];
-  __shared__ float s_scale[BM];   // the quantization scale of each row
-  __shared__ float s_rs[BM];      // scale / mult: the row's output scale
   __shared__ float s_mid[kMaxGrid];
   __shared__ int s_code[kMaxGrid];
-  int8_t* sA = smem;
-  int8_t* sW = smem + TILE_BYTES;
-  const char* x = static_cast<const char*>(xv);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int nchunks = K / BK;
-  const size_t row_bytes = static_cast<size_t>(K) * XBYTES;
-
-  // The first weight chunk is in flight while the rows' absmax is taken.
-  load_tile(sW, wc, N, K, n0, 0, tid);
-  cp_async_commit();
-  if (tid < kMaxGrid) {
-    s_mid[tid] = grid.mid[tid];
-    s_code[tid] = grid.code[tid];
-  }
-
-  // Phase 1: every row's absmax over the whole K; each warp takes 16 rows.
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int gr = m0 + r;
-    float amax = 0.f;
-    if (gr < M) {
-      const char* row = x + gr * row_bytes;
-      for (int c = lane * 16; c < static_cast<int>(row_bytes); c += 32 * 16) {
-        float v[V::N];
-        V::load(row + c, v);
-#pragma unroll
-        for (int j = 0; j < V::N; ++j) amax = fmaxf(amax, fabsf(v[j]));
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    if (lane == 0) {
-      const float scale = amax > 0.f ? amax * grid.inv : 1.f;
-      s_scale[r] = scale;
-      s_rs[r] = scale / grid.mult;
-    }
+  if (threadIdx.x < kMaxGrid) {
+    s_mid[threadIdx.x] = grid.mid[threadIdx.x];
+    s_code[threadIdx.x] = grid.code[threadIdx.x];
   }
   __syncthreads();
-
-  int part[MI][NI][4];
-  zero(part);
-  const int n_mids = grid.n_mids;
-  constexpr int VEC_PER_ROW = BK / V::N;      // 16-byte vectors per chunk row
-  for (int kc = 0; kc < nchunks; ++kc) {
-    if (kc + 1 < nchunks) {
-      load_tile(sW + ((kc + 1) & 1) * TILE_BYTES, wc, N, K, n0,
-                (kc + 1) * BK, tid);
-    }
-    cp_async_commit();         // possibly empty: keeps the wait count uniform
-
-    // Phase 2: quantize x[m0:m0+128, chunk kc] into the int8 tile sA.
+  const int lane = threadIdx.x % 32;
+  const int r = blockIdx.x * QUANT_WARPS + threadIdx.x / 32;
+  if (r >= M) return;
+  const int row_bytes = K * XBYTES;
+  const char* row = static_cast<const char*>(xv) + static_cast<size_t>(r) *
+                                                       row_bytes;
+  float amax = 0.f;
 #pragma unroll 4
-    for (int i = 0; i < BM * VEC_PER_ROW / THREADS; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / VEC_PER_ROW;
-      const int col = (c % VEC_PER_ROW) * V::N;
-      const int gr = m0 + r;
-      unsigned packed[V::N / 4];
+  for (int c = lane * 16; c < row_bytes; c += 32 * 16) {
+    float v[V::N];
+    V::load(row + c, v);
 #pragma unroll
-      for (int j = 0; j < V::N / 4; ++j) packed[j] = 0u;
-      if (gr < M) {
-        float v[V::N];
-        V::load(x + gr * row_bytes + (kc * BK + col) * XBYTES, v);
-        const float scale = s_scale[r];
-#pragma unroll
-        for (int j = 0; j < V::N; ++j) {
-          const int q = encode(v[j] / scale, s_mid, n_mids, s_code);
-          packed[j >> 2] |= (static_cast<unsigned>(q) & 0xffu)
-                            << (8 * (j & 3));
-        }
-      }
-      int8_t* dst = sA + r * PITCH + col;
-      if constexpr (V::N == 8) {
-        *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
-      } else {
-        *reinterpret_cast<unsigned*>(dst) = packed[0];
-      }
-    }
-    cp_async_wait_prev();      // weight chunk kc has landed
-    __syncthreads();
-    mma_chunk(sA, sW + (kc & 1) * TILE_BYTES, part, wm, wn, g, t);
-    __syncthreads();           // sA and this weight stage are refilled next
+    for (int j = 0; j < V::N; ++j) amax = fmaxf(amax, fabsf(v[j]));
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float scale = amax > 0.f ? amax * grid.inv : 1.f;
+  if (lane == 0) rs[r] = scale / grid.mult;
 
-  // Epilogue on the registers, with the row's output scale scale / mult.
-  store_rescaled(out, part, wsc, M, N, m0, n0, wm, wn, g, t,
-                 [&](int rl) { return s_rs[rl]; });
+  int8_t* out = codes + static_cast<size_t>(r) * K;
+  const int n_mids = grid.n_mids;
+  for (int c = lane * 16; c < row_bytes; c += 32 * 16) {
+    float v[V::N];
+    V::load(row + c, v);
+    unsigned packed[V::N / 4] = {};
+#pragma unroll
+    for (int j = 0; j < V::N; ++j) {
+      const int q = encode<FIRST>(v[j] / scale, s_mid, n_mids, s_code);
+      packed[j / 4] |= (static_cast<unsigned>(q) & 0xffu) << (8 * (j % 4));
+    }
+    int8_t* dst = out + c / XBYTES;
+    if constexpr (V::N == 8) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
+    } else {
+      *reinterpret_cast<unsigned*>(dst) = packed[0];
+    }
+  }
 }
 
+// (b)'s epilogue, in place on the f32 sums of column blocks [j0, j1):
+// v = (v * rs[row]) * wsc[col], stored as OutT by the pipeline.  The scales
+// are read with plain loads at fixed offsets from one pointer: the
+// compiler moves read-only (__ldg) loads, and the addresses of the 64
+// column scales, above the K loop and keeps them live through it, which
+// spills the consumer's registers.
+template <typename OutT>
+struct FusedChRescale {
+  using Out = OutT;
+  Out* out;
+  const float* rs;
+  const float* wsc;
+  __device__ __forceinline__ void operator()(float (&v)[wgmma_gemm::ACC],
+                                             int j0, int j1, int row,
+                                             int col, int M, int N) const {
+    const float* w = wsc + col;
+    const int cols = N - col;              // column 8j + e is inside N
+    const float s[2] = {row < M ? rs[row] : 0.f,
+                        row + 8 < M ? rs[row + 8] : 0.f};
+#pragma unroll
+    for (int j = j0; j < j1; ++j) {
+      const float wj[2] = {8 * j < cols ? w[8 * j] : 0.f,
+                           8 * j + 1 < cols ? w[8 * j + 1] : 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = v[4 * j + 2 * h + e];
+          x = x * s[h] * wj[e];
+        }
+    }
+  }
+};
+
 template <bool XBF16, typename OutT>
-int launch(const void* x, const void* wc, const void* wsc, void* out, int M,
-           int N, int K, const Grid& grid, cudaStream_t stream) {
-  cudaError_t e = opt_in_smem<fused_ch_gemm_kernel<XBF16, OutT>>(SMEM_BYTES);
+int launch(const void* x, const void* wc, const void* wsc, void* codes,
+           void* rs, void* out, int M, int N, int K, const Grid& grid,
+           cudaStream_t stream) {
+  const int blocks = (M + QUANT_WARPS - 1) / QUANT_WARPS;
+  auto quantize = grid.n_mids < 16 ? fused_ch_quantize_kernel<XBF16, 8>
+                                   : fused_ch_quantize_kernel<XBF16, 32>;
+  quantize<<<blocks, 32 * QUANT_WARPS, 0, stream>>>(
+      x, static_cast<int8_t*>(codes), static_cast<float*>(rs), M, K, grid);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 blocks((N + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_ch_gemm_kernel<XBF16, OutT><<<blocks, THREADS, SMEM_BYTES, stream>>>(
-      x, static_cast<const int8_t*>(wc), static_cast<const float*>(wsc),
-      static_cast<OutT*>(out), M, N, K, grid);
-  return static_cast<int>(cudaGetLastError());
+  const FusedChRescale<OutT> epi{static_cast<OutT*>(out),
+                                 static_cast<const float*>(rs),
+                                 static_cast<const float*>(wsc)};
+  return static_cast<int>(wgmma_gemm::launch<wgmma_gemm::S8>(
+      codes, wc, M, N, K, epi, stream));
 }
 
 }  // namespace
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// x and wc must be 16-byte aligned and K % 128 == 0.  x_bf16 / out_bf16:
-// 1 for bf16, 0 for f32.  mids (n_mids floats) and codes (n_mids + 1 ints)
+// Launch (a) then (b) on `stream`; returns the cudaError_t of the launches
+// (0 = success).  x, wc and codes must be 16-byte aligned and K % 128 == 0;
+// codes [M, K] int8 and rs [M] f32 are scratch.  x_bf16 / out_bf16: 1 for
+// bf16, 0 for f32.  mids (n_mids floats) and codes_table (n_mids + 1 ints)
 // are host pointers, copied into the kernel's arguments.
 extern "C" int fused_ch_gemm(const void* x, const void* wc, const void* wsc,
-                             void* out, int M, int N, int K, int x_bf16,
-                             int out_bf16, const float* mids,
-                             const int* codes, int n_mids, float inv,
-                             float mult, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % BK != 0 || n_mids < 1 ||
+                             void* codes, void* rs, void* out, int M, int N,
+                             int K, int x_bf16, int out_bf16,
+                             const float* mids, const int* codes_table,
+                             int n_mids, float inv, float mult,
+                             void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 128 != 0 || n_mids < 1 ||
       n_mids >= kMaxGrid) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Grid grid = {};
   for (int i = 0; i < n_mids; ++i) grid.mid[i] = mids[i];
-  for (int i = 0; i <= n_mids; ++i) grid.code[i] = codes[i];
+  for (int i = 0; i <= n_mids; ++i) grid.code[i] = codes_table[i];
   grid.n_mids = n_mids;
   grid.inv = inv;
   grid.mult = mult;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
-    return out_bf16
-               ? launch<true, __nv_bfloat16>(x, wc, wsc, out, M, N, K, grid, s)
-               : launch<true, float>(x, wc, wsc, out, M, N, K, grid, s);
+    return out_bf16 ? launch<true, __nv_bfloat16>(x, wc, wsc, codes, rs, out,
+                                                  M, N, K, grid, s)
+                    : launch<true, float>(x, wc, wsc, codes, rs, out, M, N,
+                                          K, grid, s);
   }
-  return out_bf16
-             ? launch<false, __nv_bfloat16>(x, wc, wsc, out, M, N, K, grid, s)
-             : launch<false, float>(x, wc, wsc, out, M, N, K, grid, s);
+  return out_bf16 ? launch<false, __nv_bfloat16>(x, wc, wsc, codes, rs, out,
+                                                 M, N, K, grid, s)
+                  : launch<false, float>(x, wc, wsc, codes, rs, out, M, N, K,
+                                         grid, s);
 }
 
 extern "C" const char* fused_ch_gemm_error_string(int code) {

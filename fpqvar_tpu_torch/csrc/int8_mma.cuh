@@ -1,28 +1,31 @@
-// The tile loop shared by the GEMMs for Hopper (sm_90a) that stage 128-byte
-// K chunks: the s8 x s8 -> s32 ones, K1 (int8_group_gemm.cu), K5
-// (int8_nd_gemm.cu, with K1 through int8_group.cuh), K3 (int8ch_gemm.cu),
-// K4 (fused_ch_gemm.cu) and K6 (int8_probe_gemm.cu), and the bf16 x bf16 ->
-// f32 one, K7 (bf16_probe_gemm.cu).
+// The tile loop shared by the s8 x s8 -> s32 GEMMs for Hopper (sm_90a) that
+// stage 128-byte K chunks with cp.async: K1 (int8_group_gemm.cu), K5
+// (int8_nd_gemm.cu, with K1 through int8_group.cuh), K3 (int8ch_gemm.cu)
+// and K6 (int8_probe_gemm.cu).  (K4 and K7 run the TMA + wgmma pipeline of
+// wgmma_gemm.cuh.)
 //
 // One thread block owns one 128x128 output tile and walks K in chunks of
-// 128 bytes (128 int8 codes or 64 bf16 values).  A chunk of A (128 rows of
-// the block's M tile) and of B (128 rows of its N tile, in the [N, K]
-// layout: mma.sync wants the B operand K-contiguous) sits in shared memory,
-// rows padded to 144 bytes so the 32-bit fragment loads hit 32 distinct
-// banks.  Eight warps (2 x 4) each own a 64x32 sub-tile and run mma.sync on
-// it: m16n8k32 s8 into int32 registers, or m16n8k16 bf16 into f32 ones.
-// The two instructions read the same bytes of a 32-byte K step into the
-// same fragment registers, so one fragment loop serves both.  All but K4
-// (which quantizes its A chunks in shared memory) run the block's K loop
-// (k_loop); K3 and K4 share the full-K rescaling epilogue
-// (store_rescaled), the others store through store_tile.
+// 128 int8 codes.  A chunk of A (128 rows of the block's M tile) and of B
+// (128 rows of its N tile, in the [N, K] layout: mma.sync wants the B
+// operand K-contiguous) sits in shared memory, rows padded to 144 bytes so
+// the 32-bit fragment loads hit 32 distinct banks.  Eight warps (2 x 4)
+// each own a 64x32 sub-tile and run mma.sync m16n8k32 s8 into int32
+// registers on it.  Every kernel runs the block's K loop (k_loop); K3 has
+// the full-K rescaling epilogue (store_rescaled), the others store through
+// store_tile.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cuda_common.cuh"
+
 namespace int8mma {
+
+using cuda_common::opt_in_smem;
+using cuda_common::store1;
+using cuda_common::store2;
 
 constexpr int BM = 128;
 constexpr int BN = 128;
@@ -36,7 +39,6 @@ constexpr int WN = BN / WARPS_N;        // 32 cols per warp
 constexpr int MI = WM / 16;             // m16 tiles per warp
 constexpr int NI = WN / 8;              // n8 tiles per warp
 constexpr int TILE_BYTES = 128 * PITCH; // one staged 128-row chunk
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int src_bytes) {
@@ -62,26 +64,10 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One 32-byte K step of bf16 (16 values): f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The MMA of one 32-byte K step, chosen by the accumulator: int32 -> s8
-// codes (k32), f32 -> bf16 values (k16).
+// The MMA of one 32-byte K step into int32 accumulators.
 __device__ __forceinline__ void mma_step(int (&c)[4], const unsigned (&a)[4],
                                          const unsigned (&b)[2]) {
   mma_s8(c, a, b);
-}
-__device__ __forceinline__ void mma_step(float (&c)[4],
-                                         const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  mma_bf16(c, a, b);
 }
 
 // Stage rows [r0, r0 + 128) x byte chunk [k0, k0 + 128) of a [rows, K]
@@ -113,8 +99,8 @@ __device__ __forceinline__ void zero(T (&part)[MI][NI][4]) {
 }
 
 // part += the warp's 64x32 sub-tile of sA (128 rows x BK bytes) . sB^T
-// (128 x BK bytes) for one staged chunk: s8 codes into int32 `part`, bf16
-// values into f32 `part`.  Warp (wm, wn); g = lane / 4, t = lane % 4.
+// (128 x BK bytes) for one staged chunk of s8 codes into int32 `part`.
+// Warp (wm, wn); g = lane / 4, t = lane % 4.
 template <typename T>
 __device__ __forceinline__ void mma_chunk(const int8_t* sA, const int8_t* sB,
                                           T (&part)[MI][NI][4], int wm,
@@ -192,18 +178,6 @@ __device__ __forceinline__ int frag_col(int wn, int ni, int t, int e) {
   return wn * WN + ni * 8 + t * 2 + (e & 1);
 }
 
-__device__ __forceinline__ void store2(float* o, float v0, float v1) {
-  *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* o, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(o) =
-      __halves2bfloat162(__float2bfloat16(v0), __float2bfloat16(v1));
-}
-__device__ __forceinline__ void store1(float* o, float v) { *o = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* o, float v) {
-  *o = __float2bfloat16(v);
-}
-
 // Store the warp's fragments of the block's output tile (at m0, n0) as
 // OutT, element e of tile (mi, ni) being value(mi, ni, e): rows masked at
 // M, columns at N, column pairs stored together (a bf16 pair rounded to
@@ -238,7 +212,7 @@ __device__ __forceinline__ void store_tile(OutT* __restrict__ out, int M,
       }
 }
 
-// The full-K epilogue of K3 and K4, on the registers:
+// The full-K epilogue of K3, on the registers:
 //   out[m0 + rl, c] = (float(part) * row_scale(rl)) * wsc[c]
 // as OutT (f32 or bf16) for the warp's fragments, rows masked at M and
 // columns at N.  The two multiplies keep JAX's order; there is no add to
@@ -276,26 +250,6 @@ __device__ __forceinline__ void store_rescaled(
         }
       }
     }
-}
-
-// Opt `Kernel` in to `bytes` of dynamic shared memory on the current
-// device.  The attribute is per device: set it on the first launch on
-// each device only (setting it twice is harmless).
-template <auto Kernel>
-cudaError_t opt_in_smem(int bytes) {
-  static bool done[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    e = cudaFuncSetAttribute(Kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-    if (e != cudaSuccess) return e;
-    done[dev] = true;
-  }
-  return cudaSuccess;
 }
 
 }  // namespace int8mma

@@ -45,6 +45,8 @@
 
 #include <type_traits>
 
+#include "cuda_common.cuh"
+
 namespace {
 
 constexpr int BM = 128;
@@ -60,7 +62,6 @@ constexpr int WM = BM / WARPS_M;        // 64 rows per warp
 constexpr int WN = BN / WARPS_N;        // 32 cols per warp
 constexpr int MI = WM / 16;             // m16 tiles per warp
 constexpr int NI = WN / 8;              // n8 tiles per warp
-constexpr int kMaxDevices = 64;
 
 enum { FMT_E2M1 = 0, FMT_E2M3 = 1 };
 
@@ -371,21 +372,11 @@ template <typename T, int FMT, bool NIBBLE>
 cudaError_t launch(const void* x, const void* codes, const void* scales,
                    void* out, int M, int N, int K, int group,
                    cudaStream_t stream) {
-  // The shared-memory opt-in is a per-device function attribute: set it on
-  // the first launch of this instantiation on each device only.
-  static bool smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   auto kernel = packed_dequant_gemm_kernel<T, FMT, NIBBLE>;
-  if (!smem_set[dev]) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes<T>());
-    if (e != cudaSuccess) return e;
-    smem_set[dev] = true;
-  }
+  cudaError_t e =
+      cuda_common::opt_in_smem<packed_dequant_gemm_kernel<T, FMT, NIBBLE>>(
+          smem_bytes<T>());
+  if (e != cudaSuccess) return e;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   kernel<<<grid, THREADS, smem_bytes<T>(), stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(codes),

@@ -16,7 +16,9 @@ and one per weight column, so the whole K depth is one exact int32 dot:
 
 ``int8ch_gemm`` (K3) takes activation codes that are already quantized
 (fc2's dual grid); ``fused_ch_gemm`` (K4) quantizes each activation row
-inside the kernel and never writes its codes to device memory.  On a CUDA
+once in its first kernel (phase (a), whose plain version is
+``fused_ch_quantize_ref``) into scratch codes that its second kernel, the
+s8 GEMM (phase (b)), reads.  On a CUDA
 tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/int8_group_gemm.cu``, ``csrc/int8_nd_gemm.cu``,
 ``csrc/int8ch_gemm.cu``, ``csrc/fused_ch_gemm.cu``: the ports of the TPU
@@ -310,11 +312,18 @@ def int8ch_gemm(ac, asc, wc, ws, out_dtype=torch.float32):
     return out
 
 
+def fused_ch_quantize_ref(x, fmt: str):
+    """Plain version of K4's phase (a): each row of ``x [M, K]`` quantized
+    once over its whole K, ``quant_int_codes(x, fmt, K)`` -> (codes int8
+    ``[M, K]``, output scales ``scale / mult`` f32 ``[M, 1]``)."""
+    return P.quant_int_codes(x, fmt, x.shape[-1])
+
+
 def fused_ch_gemm_ref(x, wc, ws, fmt: str, out_dtype=torch.float32):
-    """Plain version of K4: ``channel_dot_ref(*quant_int_codes(x, fmt, K),
-    wc, ws)`` cast to ``out_dtype``."""
-    ac, asc = P.quant_int_codes(x, fmt, x.shape[-1])
-    return channel_dot_ref(ac, asc, wc, ws).to(out_dtype)
+    """Plain version of K4: phase (a) (``fused_ch_quantize_ref``), then
+    phase (b), K3's function (``int8ch_gemm_ref``) on those codes."""
+    ac, asc = fused_ch_quantize_ref(x, fmt)
+    return int8ch_gemm_ref(ac, asc, wc, ws, out_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -354,19 +363,22 @@ def _check_fused(x, wc, ws, fmt: str):
 
 
 def _fused_lib():
-    """``csrc/fused_ch_gemm.cu``: x, codes, scales, out, M, N, K, x_bf16,
-    out_bf16, then the grid tables (host pointers, copied into the
-    kernel's arguments), their length, 1/gmax and the multiplier."""
+    """``csrc/fused_ch_gemm.cu``: x, weight codes, weight scales, scratch
+    codes, scratch row scales, out, M, N, K, x_bf16, out_bf16, then the
+    grid tables (host pointers, copied into the kernel's arguments), their
+    length, 1/gmax and the multiplier."""
     return _build.load("fused_ch_gemm",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float])
 
 
 def fused_ch_gemm(x, wc, ws, fmt: str, out_dtype=torch.float32):
     """K4: per-row quantize ``x [M, K]`` (bfloat16 or float32) to ``fmt``
-    codes inside the kernel, then the full-K int8 GEMM against ``wc
-    [N, K]`` with the rescale fused -> [M, N] ``out_dtype``."""
+    codes, each row once (phase (a)), then the full-K int8 GEMM against
+    ``wc [N, K]`` with the rescale fused (phase (b)) -> [M, N]
+    ``out_dtype``.  The codes and row scales go through scratch that this
+    wrapper allocates; one call is one launch of the pair."""
     global fused_launches
     _check_fused(x, wc, ws, fmt)
     _check_out_dtype(out_dtype)
@@ -379,9 +391,12 @@ def fused_ch_gemm(x, wc, ws, fmt: str, out_dtype=torch.float32):
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out
+    codes_scratch = torch.empty((m, k), dtype=torch.int8, device=dev)
+    rs_scratch = torch.empty((m,), dtype=torch.float32, device=dev)
     mids, codes, inv, mult = _grid_table(fmt)
     _build.launch(_fused_lib(), "fused_ch_gemm", dev, x.data_ptr(),
-                  wc.data_ptr(), ws.data_ptr(), out.data_ptr(), m, n, k,
+                  wc.data_ptr(), ws.data_ptr(), codes_scratch.data_ptr(),
+                  rs_scratch.data_ptr(), out.data_ptr(), m, n, k,
                   int(x.dtype == torch.bfloat16),
                   int(out_dtype == torch.bfloat16), mids.ctypes.data,
                   codes.ctypes.data, len(mids), inv, mult)

@@ -10,10 +10,11 @@ and a bfloat16 output.  They are the ports of the Pallas kernels
 ``pallas_int8`` and ``pallas_bf16`` of ``scripts/int8_rate_probe.py``
 (``csrc/int8_probe_gemm.cu``, ``csrc/bf16_probe_gemm.cu``), and
 ``tools/int8_rate_probe.py`` times them beside the library GEMMs.  Both
-take ``b`` as ``[N, K]`` (mma.sync's B operand is K-contiguous); the TPU
-kernels took ``[K, N]``.  On a CUDA tensor each wrapper launches its kernel
-or raises; on a CPU tensor it runs its plain version.  ``int8_launches``
-and ``bf16_launches`` count the launches.
+take ``b`` as ``[N, K]`` (K-contiguous, the B operand of their tile
+loops; K7 runs the TMA + wgmma pipeline of ``csrc/wgmma_gemm.cuh``); the
+TPU kernels took ``[K, N]``.  On a CUDA tensor each wrapper launches its
+kernel or raises; on a CPU tensor it runs its plain version.
+``int8_launches`` and ``bf16_launches`` count the launches.
 """
 from __future__ import annotations
 

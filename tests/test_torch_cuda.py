@@ -8,17 +8,21 @@ nibbles and one-per-byte e2m3 and e2m1 codes, bfloat16 and float32 ``x``;
 K3 (``int8ch_gemm_ref``) and K4 (``fused_ch_gemm_ref``) exactly equal
 (the full-K int32 dot is exact and the epilogue runs the same two
 multiplies), for float32 and bfloat16 outputs, the four K4 formats,
-bfloat16 and float32 ``x`` and an all-zero row.  K5
+bfloat16 and float32 ``x``, an all-zero row, one K chunk (K = 128) and
+K = 4096.  K5
 (``int8_group_gemm_nd_ref``) within K1's bound plus one bfloat16 gap for a
 bfloat16 output, on ``[B, T, K]`` codes with ragged T and N, and equal to
 K1 followed by a cast; K6 (``int8_probe_gemm_ref``) exactly equal, sums
 above 2^24 included; K7 (``bf16_probe_gemm_ref``) within
-``K7_TOL_PER_K * K * sum_k |a*b|`` plus one bfloat16 gap.
+``K7_TOL_PER_K * K * sum_k |a*b|`` plus one bfloat16 gap, at one K chunk
+(K = 64), K = 4096, ragged M and N and 4096^3.  K4 and K7 run the TMA +
+wgmma pipeline, whose barriers hang the card if their phases are wrong (a
+wait longer than 4 s traps instead); run the file under ``timeout``.
 
 The tests are marked ``cuda`` and skip without a CUDA device.  The file
 imports no JAX, so it also runs where JAX is not installed:
 
-    python -m pytest --noconftest -q tests/test_torch_cuda.py
+    timeout 600 python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 import numpy as np
 import pytest
@@ -129,7 +133,9 @@ def test_cuda_k3_equals_plain(cuda_device, m, k, n, out_dtype):
     ("fp6_e2m3", 4096, 1024, 4096, torch.bfloat16),   # d16 fc1, 63 values
     ("fp_e2", 4096, 1024, 1024, torch.float32),       # d16 proj, f32 x
     ("fp_e3", 16, 1024, 1000, torch.bfloat16),        # ragged M and N
+    ("fp6_e2m3", 16, 4096, 1000, torch.float32),      # ragged, K = 4096
     ("fp_e1", 37, 640, 384, torch.float32),
+    ("fp_e2", 300, 128, 700, torch.bfloat16),         # one K chunk
     ("fp_e2", 1, 128, 7, torch.bfloat16),
 ])
 def test_cuda_k4_equals_plain(cuda_device, fmt, m, k, n, dtype):
@@ -255,7 +261,9 @@ def test_cuda_k6_equals_plain(cuda_device, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(4096, 1024, 3072), (4096, 4096, 1024),
-                                   (4096, 1920, 5760), (37, 640, 384),
+                                   (4096, 1920, 5760), (4096, 4096, 4096),
+                                   (16, 1024, 1000), (16, 4096, 1000),
+                                   (300, 64, 700), (37, 640, 384),
                                    (1, 64, 7)])
 def test_cuda_k7_matches_plain(cuda_device, m, k, n):
     gen = torch.Generator(device=cuda_device).manual_seed(11)

@@ -140,6 +140,49 @@ def test_plain_k4_bit_equal_to_jax(fmt, dtype):
     assert (ours[m // 3] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_k4_quantize_step_bit_equal_to_jax(fmt, dtype):
+    """K4's phase (a), ``fused_ch_quantize_ref``, quantizes each row once
+    over its whole K: bit-equal to JAX's jitted ``quant_int_codes`` with
+    one group per row, at float32 and bfloat16 input, with an all-zero row
+    (scale 1, codes 0), a row of tiny values and a ragged M."""
+    tdt, jdt = DTYPES[dtype]
+    m, k = 37, 384
+    x = torch.from_numpy(_rows(10, m, k)).to(tdt)
+    xj = jnp.asarray(x.float().numpy()).astype(jdt)
+    codes, rs = K.fused_ch_quantize_ref(x, fmt)
+    jc, js = jax.jit(functools.partial(JP.quant_int_codes, fmt=fmt,
+                                       group_size=k))(xj)
+    assert codes.shape == (m, k) and codes.dtype == torch.int8
+    assert tuple(rs.shape) == (m, 1) and rs.dtype == torch.float32
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(_bits(rs), _bits(js))
+    assert (codes[m // 3] == 0).all()
+    assert float(rs[m // 3, 0]) == 1.0 / P.CODE_MULT[fmt]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_k4_plain_is_quantize_then_k3(fmt, dtype):
+    """The composition the kernel runs: ``fused_ch_gemm_ref`` equals phase
+    (a) (``fused_ch_quantize_ref``) followed by K3's plain version
+    (``int8ch_gemm_ref``) exactly, at both output dtypes, and the CPU
+    wrappers of K4 and K3 give the same numbers."""
+    tdt, _ = DTYPES[dtype]
+    m, k, n = 37, 384, 256
+    x = torch.from_numpy(_rows(11, m, k)).to(tdt)
+    pw = P.pack_int_codes(torch.from_numpy(_weights(12, n, k)), fmt, k)
+    ac, asc = K.fused_ch_quantize_ref(x, fmt)
+    for out_dtype in (tdt, torch.float32):
+        want = K.int8ch_gemm_ref(ac, asc, pw.codes, pw.scales, out_dtype)
+        got = K.fused_ch_gemm_ref(x, pw.codes, pw.scales, fmt, out_dtype)
+        assert got.dtype == out_dtype and torch.equal(got, want)
+        assert torch.equal(
+            K.fused_ch_gemm(x, pw.codes, pw.scales, fmt, out_dtype),
+            K.int8ch_gemm(ac, asc, pw.codes, pw.scales, out_dtype))
+
+
 def test_jax_eager_chain_differs_from_k4():
     """JAX's eager chain (``absmax / gmax``, a true division) gives other
     row scales than the jitted chain and K4 (``absmax * f32(1/gmax)``):
