@@ -1,8 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 A ``csrc/<name>.cu`` with a plain C interface is compiled at first use with
-``nvcc`` for ``sm_90a`` into ``fpqvar_tpu_torch/_build/`` (listed in
-``.gitignore``) and loaded with ctypes.  Every source exports
+``nvcc`` for ``sm_90a`` and loaded with ctypes.  The libraries go to
+``fpqvar_tpu_torch/_build/`` (listed in ``.gitignore``) where the package
+directory is writable, as in a checkout, and otherwise (an installed
+package) to ``$XDG_CACHE_HOME/fpqvar_tpu_torch/`` or
+``~/.cache/fpqvar_tpu_torch/``.  Every source exports
 ``int <name>(..., void* stream)``, which launches its kernel on ``stream``
 and returns the launch's ``cudaError_t``, and ``const char*
 <name>_error_string(int)``.  Only sources in the repository are built.
@@ -21,7 +24,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+PKG_BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +44,26 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _writable(path: Path) -> bool:
+    """``path`` can be written, or created in its nearest existing
+    ancestor."""
+    while not path.exists():
+        if path.parent == path:
+            return False
+        path = path.parent
+    return os.access(path, os.W_OK | os.X_OK)
+
+
+def build_dir() -> Path:
+    """Where the libraries are built: the package's ``_build/`` if it is
+    writable, else the user cache directory."""
+    if _writable(PKG_BUILD_DIR):
+        return PKG_BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "fpqvar_tpu_torch"
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless this exact source (with the
     shared headers ``csrc/*.cuh``) was built already; returns the shared
@@ -49,10 +72,11 @@ def build(name: str) -> Path:
     text = src.read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    where = build_dir()
+    out = where / f"lib{name}-{digest[:12]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    where.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -159,9 +159,20 @@ def packed_matmul(x, codes, scales, fmt: str, group_size: int = 128,
 
 
 def packed_linear(x, pw: P.PackedTensor):
-    """``x [..., K]`` times the packed ``[N, K]`` weight through K2 (f32
-    out), returned in ``x.dtype`` as ``[..., N]``."""
+    """``x [..., K]`` times the packed ``[N, K]`` weight, returned in
+    ``x.dtype`` as ``[..., N]``.
+
+    Formats that K2 decodes (:data:`KERNEL_FMTS`) go through K2 (f32 out).
+    Every other format takes the JAX package's own route for it
+    (``_packed_call``), on every device: the weight dequantized to
+    ``x.dtype`` (``grid * scale`` in float32, rounded once), then one
+    float32 product."""
     n, k = pw.shape
-    out = packed_matmul(x.reshape(-1, k).contiguous(), pw.codes, pw.scales,
-                        pw.fmt, pw.group_size, pw.nibble_packed)
+    x2 = x.reshape(-1, k)
+    if pw.fmt in KERNEL_FMTS:
+        out = packed_matmul(x2.contiguous(), pw.codes, pw.scales, pw.fmt,
+                            pw.group_size, pw.nibble_packed)
+    else:
+        w = P.dequantize(pw, x.dtype)
+        out = x2.to(torch.float32) @ w.to(torch.float32).T
     return out.reshape(x.shape[:-1] + (n,)).to(x.dtype)

@@ -20,8 +20,10 @@ K3's plain versions and ``wonly_dot``.  The
 ``packed`` recipe (fp4 nibble codes through K2's plain version) runs at
 both widths, so that every linear also has more than one scale group;
 ``w4a16p`` (packed weights, unquantized activations), ``fake`` (dequantized
-weights, fake-quantized activations) and W6A6 on the packed backend
-(``w6a6p`` here: fp6 byte codes) at width 128.
+weights, fake-quantized activations), W6A6 on the packed backend
+(``w6a6p`` here: fp6 byte codes) and W4A4 on the packed backend with fp_e1
+weight nibbles (``w4a4p_e1``: no in-kernel decoder, JAX's dequantize
+route) at width 128.
 """
 import dataclasses
 import functools
@@ -34,6 +36,7 @@ import torch
 
 from fpqvar_tpu.config import GenerateConfig as JaxGenerateConfig
 from fpqvar_tpu.config import bench_recipes as jax_recipes
+from fpqvar_tpu.config import fpqvar_w4a4 as jax_w4a4
 from fpqvar_tpu.config import fpqvar_w6a6 as jax_w6a6
 from fpqvar_tpu.config import var_tiny as jax_var_tiny
 from fpqvar_tpu.models import var as JV
@@ -43,7 +46,7 @@ from fpqvar_tpu.quantize import quantize_var_params as jax_quantize
 from fpqvar_tpu.utils.checkpoint import save_params
 
 from fpqvar_tpu_torch.config import (GenerateConfig, bench_recipes,
-                                     fpqvar_w6a6, var_tiny)
+                                     fpqvar_w4a4, fpqvar_w6a6, var_tiny)
 from fpqvar_tpu_torch.models import VARGenerator
 from fpqvar_tpu_torch.models import var as V
 from fpqvar_tpu_torch.ops.packing import IntPack, PackedTensor
@@ -54,16 +57,21 @@ from test_torch_vqvae import _params as vqvae_params
 LABELS = np.array([3, 5, 998])
 #: quantized weight leaf of each recipe's block linears (None: floats)
 LEAF = {"bf16": None, "fake": None, "int8": IntPack, "packed": PackedTensor,
-        "w4a16p": PackedTensor, "w6a6p": PackedTensor, "int8ch": IntPack,
+        "w4a16p": PackedTensor, "w6a6p": PackedTensor,
+        "w4a4p_e1": PackedTensor, "int8ch": IntPack,
         "int8chs": IntPack, "int8chsnr": IntPack, "w4a16": IntPack}
 
 
 def _recipe(mode, jax_side=False):
-    """A recipe of ``bench_recipes`` or ``w6a6p``: W6A6 on the packed
-    backend, as the JAX package's tests write it."""
+    """A recipe of ``bench_recipes``, ``w6a6p`` (W6A6 on the packed
+    backend, as the JAX package's tests write it) or ``w4a4p_e1`` (W4A4 on
+    the packed backend with fp_e1 weights, a format K2 does not decode)."""
     if mode == "w6a6p":
         return (jax_w6a6() if jax_side else fpqvar_w6a6()).replace(
             backend="packed")
+    if mode == "w4a4p_e1":
+        return (jax_w4a4() if jax_side else fpqvar_w4a4()).replace(
+            backend="packed", weight_format="fp_e1")
     return (jax_recipes() if jax_side else bench_recipes())[mode]
 
 
@@ -124,6 +132,7 @@ def _assert_same_weights(ours, theirs):
 @pytest.mark.parametrize("width,mode", [
     (128, "bf16"), (128, "int8"), (256, "int8"), (128, "packed"),
     (256, "packed"), (128, "w4a16p"), (128, "fake"), (128, "w6a6p"),
+    (128, "w4a4p_e1"),
     (128, "int8ch"), (256, "int8chs"), (128, "int8chsnr"), (128, "w4a16")])
 def test_generation_matches_jax(monkeypatch, width, mode):
     jcfg, jqp = _jax_params(width, mode)

@@ -34,6 +34,7 @@ from fpqvar_tpu.ops.pallas import quant_matmul as JK
 from fpqvar_tpu_torch.ops import packing as P
 from fpqvar_tpu_torch.ops import quant_matmul as QM
 from fpqvar_tpu_torch.ops import quantizers as Q
+from fpqvar_tpu_torch.ops._checks import bf16_gap
 from test_torch_quant import _act, _bits
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -193,3 +194,41 @@ def test_plain_k2_takes_formats_without_a_decoder():
         out = QM.packed_matmul(x, pw.codes, pw.scales, fmt, 128, True)
         np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ["fp_e1", "fp_e3", "fp6_e3m2"])
+def test_packed_linear_without_decoder_matches_jax(monkeypatch, fmt, dtype):
+    """Formats outside ``KERNEL_FMTS`` take JAX's own route on every
+    device (``_packed_call``: dequantize to ``x.dtype``, one product) and
+    never reach K2, whose wrapper raises for them on the card.  The
+    dequantized weights are bit-equal, so the products differ only in
+    their float32 sums: within ``2 K 2^-24 * (|x| @ |w|^T)`` at float32,
+    and one bfloat16 gap at that size at bfloat16 (each side rounds its
+    float32 sum to bfloat16 once)."""
+    tdt, jdt = DTYPES[dtype]
+    rng = np.random.default_rng(16)
+    k, n = 384, 256
+    x = rng.standard_normal((3, 7, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
+    jpw = jax.jit(lambda a: JP.pack(a, fmt, 128))(jnp.asarray(w))
+    theirs = _as_np(jax.jit(functools.partial(JK.packed_linear,
+                                              force_jnp=True))(
+        jnp.asarray(x).astype(jdt), jpw))
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("packed_linear reached K2")
+
+    monkeypatch.setattr(QM, "packed_matmul", no_kernel)
+    pw = P.pack(torch.from_numpy(w), fmt, 128)
+    assert pw.nibble_packed == (fmt != "fp6_e3m2")
+    xt = torch.from_numpy(x).to(tdt)
+    ours = QM.packed_linear(xt, pw)
+    assert ours.shape == (3, 7, n) and ours.dtype == tdt
+    wd = P.dequantize(pw, tdt).float()
+    size = xt.float().abs().reshape(-1, k) @ wd.abs().T
+    tol = (2 * k * 2.0 ** -24 * size).reshape(3, 7, n)
+    if tdt == torch.bfloat16:
+        tol = bf16_gap(ours.float(), tol)
+    err = (ours.float() - torch.from_numpy(theirs.copy())).abs()
+    assert (err <= tol).all(), f"max err/tol {(err / tol).max()}"
