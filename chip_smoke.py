@@ -12,7 +12,9 @@ non-zero:
    csrc`` with nvcc for sm_90a, one nvcc per source, all started together,
    prints each kernel's build time, registers and spills, and counts the
    warpgroup MMA instructions (``HGMMA``, ``IGMMA``) in each library's SASS
-   (``cuobjdump -sass``): K7 must hold ``HGMMA`` and K4 ``IGMMA``;
+   (``cuobjdump -sass``): K2 and K7 must hold ``HGMMA``, K1 and K4
+   ``IGMMA``, and ptxas must not have serialized the wgmmas of any of them
+   (its "wgmma ... serialized" warning);
 3. kernels: K1 (the grouped int8 GEMM), K2 (the dequantize-in-register
    GEMM over packed fp4 / fp6 codes), K3 (the full-K int8 GEMM with fused
    rescale), K4 (per-token quantize inside the full-K int8 GEMM), K5 (K1's
@@ -75,6 +77,9 @@ H100_BYTES = 3.35e12         # HBM3 bandwidth, H100 SXM
 KERNEL_SOURCES = ("int8_group_gemm", "packed_dequant_gemm", "int8ch_gemm",
                   "fused_ch_gemm", "int8_nd_gemm", "int8_probe_gemm",
                   "bf16_probe_gemm")
+#: the sources whose GEMMs run on wgmma, and the SASS instruction of it
+WGMMA_SOURCES = {"int8_group_gemm": "IGMMA", "packed_dequant_gemm": "HGMMA",
+                 "fused_ch_gemm": "IGMMA", "bf16_probe_gemm": "HGMMA"}
 #: the last scale's block linears of VAR-d16 at batch 8: (name, M, K, N)
 D16_SHAPES = (("qkv", 4096, 1024, 3072), ("proj", 4096, 1024, 1024),
               ("fc1", 4096, 1024, 4096), ("fc2", 4096, 4096, 1024))
@@ -202,21 +207,29 @@ def phase_build():
               f"{'; '.join(regs)}")
     print(f"build: {len(KERNEL_SOURCES)} sources in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name, op in (("bf16_probe_gemm", "HGMMA"), ("fused_ch_gemm", "IGMMA")):
+    for name, op in WGMMA_SOURCES.items():
         if counts[name][op] == 0:
             fail(f"build: {name} holds no {op} instruction: its GEMM does "
                  "not run on wgmma")
+        log = _build.build_logs.get(name)
+        if log is None:
+            fail(f"build: no ptxas report for {name}")
+        serial = [ln.strip() for ln in log.splitlines()
+                  if "wgmma" in ln and "serialized" in ln]
+        if serial:
+            fail(f"build: ptxas serialized the wgmmas of {name}: "
+                 f"{serial[0]}")
 
 
-def _k1_operands(m, k, n, gen):
+def _k1_operands(m, k, n, gen, group=128):
     """Realistic K1 operands: fp_e2 codes of a Gaussian activation and of a
-    0.02-std weight, both per group of 128."""
+    0.02-std weight, both per group of ``group``."""
     from fpqvar_tpu_torch.ops import packing as P
 
     x = torch.randn((m, k), generator=gen, device="cuda")
     w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
-    ac, asc = P.quant_int_codes(x, "fp_e2", 128)
-    pw = P.pack_int_codes(w, "fp_e2", 128)
+    ac, asc = P.quant_int_codes(x, "fp_e2", group)
+    pw = P.pack_int_codes(w, "fp_e2", group)
     return ac, asc, pw.codes, pw.scales
 
 
@@ -292,17 +305,20 @@ def phase_kernels():
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    shapes = list(D16_SHAPES) + [("ragged", 16, 1024, 1000)]
+    shapes = [(name, m, k, n, 128) for name, m, k, n in D16_SHAPES]
+    shapes += [("ragged", 16, 1024, 1000, 128),
+               ("ragged-g256", 16, 1024, 1000, 256),
+               ("fc2-g256", 4096, 4096, 1024, 256)]
     rows = []
-    for name, m, k, n in shapes:
-        ops = _k1_operands(m, k, n, gen) + (128,)
+    for name, m, k, n, group in shapes:
+        ops = _k1_operands(m, k, n, gen, group) + (group,)
         a_bf = torch.randn((m, k), generator=gen, device="cuda",
                            dtype=torch.bfloat16)
         b_bf = torch.randn((k, n), generator=gen, device="cuda",
                            dtype=torch.bfloat16)
-        g = k // 128
+        g = k // group
         rows.append(check_and_time(
-            "K1", {"shape": name, "M": m, "K": k, "N": n},
+            "K1", {"shape": name, "M": m, "K": k, "N": n, "group": group},
             lambda: K.int8_group_gemm(*ops),
             lambda: K.int8_group_gemm_ref(*ops),
             lambda: K.int8_group_gemm_tolerance(*ops),
@@ -314,31 +330,38 @@ def phase_kernels():
 
 def phase_k2():
     """K2 against ``packed_matmul_ref`` at the d16 shapes with bfloat16 x
-    and e2m1 nibbles, then e2m3 bytes at the fc1 shape, float32 x at the
-    proj shape and a ragged M.  The bound counts the operations at the
-    bf16 tensor-core peak for float32 x too: the kernel runs its product
-    there (x split into three exact bf16 parts)."""
+    and e2m1 nibbles, then with e2m3 bytes, float32 x at the proj shape, a
+    ragged M (16 and 144 rows: the 16-row tile, and two 128-row tiles, the
+    second nearly empty), a ragged N of bytes and groups of 256.  The
+    bound counts the operations at the bf16 tensor-core peak for float32 x
+    too: the kernel runs its product there (x split into three exact bf16
+    parts)."""
     from fpqvar_tpu_torch.ops import packing as P
     from fpqvar_tpu_torch.ops import quant_matmul as QM
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(name, m, k, n, "fp_e2", bf16) for name, m, k, n in D16_SHAPES]
-    cases += [("fc1-e2m3", 4096, 1024, 4096, "fp6_e2m3", bf16),
-              ("proj-f32", 4096, 1024, 1024, "fp_e2", f32),
-              ("ragged", 16, 1024, 1024, "fp_e2", bf16)]
+    cases = [(name, m, k, n, "fp_e2", bf16, 128)
+             for name, m, k, n in D16_SHAPES]
+    cases += [(name + "-e2m3", m, k, n, "fp6_e2m3", bf16, 128)
+              for name, m, k, n in D16_SHAPES]
+    cases += [("proj-f32", 4096, 1024, 1024, "fp_e2", f32, 128),
+              ("ragged", 16, 1024, 1024, "fp_e2", bf16, 128),
+              ("m144", 144, 1024, 3072, "fp_e2", bf16, 128),
+              ("ragged-e2m3", 16, 1024, 1000, "fp6_e2m3", bf16, 128),
+              ("fc2-g256", 4096, 4096, 1024, "fp_e2", bf16, 256)]
     rows = []
-    for name, m, k, n, fmt, dtype in cases:
+    for name, m, k, n, fmt, dtype, group in cases:
         x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
         w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
-        pw = P.pack(w, fmt, 128)
-        ops = (x, pw.codes, pw.scales, fmt, 128, pw.nibble_packed)
+        pw = P.pack(w, fmt, group)
+        ops = (x, pw.codes, pw.scales, fmt, group, pw.nibble_packed)
         b_lib = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
         x_name = str(dtype).replace("torch.", "")
         rows.append(check_and_time(
             "K2", {"shape": name, "M": m, "K": k, "N": n, "fmt": fmt,
-                   "x": x_name, "nibble": pw.nibble_packed},
+                   "x": x_name, "nibble": pw.nibble_packed, "group": group},
             lambda: QM.packed_matmul(*ops),
             lambda: QM.packed_matmul_ref(*ops),
             lambda: QM.packed_matmul_tolerance(*ops),
@@ -990,9 +1013,10 @@ def main():
     probe_launches = phase_probe(card)
     src = "fpqvar_tpu_torch/csrc/"
     kernels = {"kernels": [
+        # K1 runs on the main path only at fc2 (int8's dual grid)
         _kernel_row("int8_group_gemm", src + "int8_group_gemm.cu",
                     "fpqvar_tpu/ops/pallas/int8_matmul.py:185",
-                    launches["K1"], k1_rows),
+                    launches["K1"], k1_rows, timed="fc2"),
         _kernel_row("packed_dequant_gemm", src + "packed_dequant_gemm.cu",
                     "fpqvar_tpu/ops/pallas/quant_matmul.py:87",
                     launches["K2"], k2_rows),

@@ -1,7 +1,7 @@
 // Host and device helpers shared by the port's CUDA sources: the
-// per-device shared-memory opt-in (int8_mma.cuh's kernels K1, K3, K5 and
-// K6, packed_dequant_gemm.cu's K2, wgmma_gemm.cuh's K4 and K7) and the
-// f32 / bf16 output stores of the epilogues.
+// per-device shared-memory opt-in (int8_mma.cuh's kernels K3, K5 and K6,
+// packed_dequant_gemm.cu's f32 K2, wgmma_gemm.cuh's K1, K2, K4 and K7) and
+// the f32 / bf16 output stores of the epilogues.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,5 +1,6 @@
-// The grouped-scale int8 GEMM tile shared by K1 (int8_group_gemm.cu, f32
-// output) and K5 (int8_nd_gemm.cu, bf16 or f32 output):
+// The grouped-scale int8 GEMM tile of K5 (int8_nd_gemm.cu, bf16 or f32
+// output; K1, int8_group_gemm.cu, computes the same sum in f32 on
+// wgmma_gemm.cuh):
 //
 //   out[m,n] = OutT(sum_g asc[m,g] * wsc[g,n] * sum_{k in g} ac[m,k] * wc[n,k])
 //

@@ -1,8 +1,8 @@
 // The tile loop shared by the s8 x s8 -> s32 GEMMs for Hopper (sm_90a) that
-// stage 128-byte K chunks with cp.async: K1 (int8_group_gemm.cu), K5
-// (int8_nd_gemm.cu, with K1 through int8_group.cuh), K3 (int8ch_gemm.cu)
-// and K6 (int8_probe_gemm.cu).  (K4 and K7 run the TMA + wgmma pipeline of
-// wgmma_gemm.cuh.)
+// stage 128-byte K chunks with cp.async: K5 (int8_nd_gemm.cu, through
+// int8_group.cuh), K3 (int8ch_gemm.cu) and K6 (int8_probe_gemm.cu).  (K1,
+// K4 and K7 run the TMA + wgmma pipeline of wgmma_gemm.cuh, K2 its
+// register-A sibling.)
 //
 // One thread block owns one 128x128 output tile and walks K in chunks of
 // 128 int8 codes.  A chunk of A (128 rows of the block's M tile) and of B

@@ -15,13 +15,13 @@
 // [B, T, K] tensor already form one row-major [B*T, K] matrix, so the
 // kernel walks the B*T rows as M and takes B and T only to shape the
 // output: no padding, and ragged T (9, 1 at the first scales) costs no
-// per-batch tile.  The tile is K1's (int8_group.cuh): 128x128 output tiles,
-// K in 128-wide cp.async chunks, mma.sync m16n8k32 s8, the exact int32
-// group parts accumulated in f32 registers; the f32 sum is written once as
-// out_dtype (a bf16 pair rounded to nearest even as one __nv_bfloat162), so
-// no f32 [M, N] pass and no separate cast reach device memory.  With f32
-// output it computes K1's function bit for bit; with bf16 output it equals
-// K1 followed by a cast to bf16.
+// per-batch tile.  The tile (int8_group.cuh, K1's until K1 moved to
+// wgmma): 128x128 output tiles, K in 128-wide cp.async chunks, mma.sync
+// m16n8k32 s8, the exact int32 group parts accumulated in f32 registers;
+// the f32 sum is written once as out_dtype (a bf16 pair rounded to nearest
+// even as one __nv_bfloat162), so no f32 [M, N] pass and no separate cast
+// reach device memory.  With f32 output it computes K1's function within
+// K1's tolerance; with bf16 output, that f32 value rounded once.
 //
 // Bound on an H100 SXM.  At fc1 of VAR-d16's last scale at batch 8 (CFG
 // doubles it: B = 16, T = 256, so M = 4096, K = 1024, N = 4096) the GEMM is

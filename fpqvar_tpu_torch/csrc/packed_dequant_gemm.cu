@@ -10,44 +10,138 @@
 // (e2m1 or e2m3); s [G,N] f32; out [M,N] f32.  G = K / group, group a
 // multiple of 128.
 //
-// Design.  One thread block owns one 128x128 output tile and walks K in
-// 128-wide chunks (the TPU kernel's sequential K grid axis becomes this
-// loop).  Each chunk's x tile and raw code bytes are staged in shared memory
-// by cp.async, two stages deep.  The block then decodes the chunk's codes
-// (a select tree on the magnitude rank, as packing.decode_fp4_e2m1 /
-// decode_fp6_e2m3) into a 128x128 bf16 weight tile in shared memory: every
-// e2m1 and e2m3 grid value is exact in bf16.  Eight warps (2 x 4) each own
-// a 64x32 sub-tile and run mma.sync m16n8k16 bf16 x bf16 -> f32 on it.  At
-// the end of every scale group the f32 partial is scaled per output column
-// and added to the f32 accumulator (acc += part * s[g,n]), as the TPU
-// kernel applies the scale to each group's partial product.  The decode is
-// repeated for every M tile (a later version decodes once per N tile).
+// Design (bf16 x, the main path).  wgmma_gemm.cuh's register-A sibling,
+// rs_gemm_kernel: only wgmma's A operand may come from registers, so the
+// operands are swapped, out^T = W . x^T.  TMA loads each 128-value K chunk of
+// x (the K-major B operand, BX = 16, 64 or 128 rows of x a tile, the narrowest
+// that holds M where M <= 64) and of the raw code bytes (64 byte rows of a
+// 128-row tile of nibbles, or 128 rows of bytes) into a shared ring.  Consumer
+// warpgroup c owns weight rows [64c, 64c + 64) of the tile: with nibbles both
+// read the same byte rows, c = 0 the low and c = 1 the high nibbles.  Each
+// thread decodes its m16n8k16 A fragment (8 codes a 16-value K step) straight
+// into bf16 registers and issues wgmma m64nBXk16 bf16 (RS); the next step is
+// decoded while this one runs.  The decode is exact bit assembly, no table and
+// no select tree: for the code c of a format with zero code Z, i = c - Z, and
+// |i| is the magnitude's exponent and mantissa bits, which placed SH bits up
+// in a float32 (with the sign of i) give grid[c] * 2^-126 (the e = 0 codes
+// land on float32 subnormals, the rest on normals, all exact), so one multiply
+// by 2^126 gives grid[c]: a shift or mask, a multiply-add, an absolute value,
+// an or and a multiply per code, and one convert per pair.  e2m1 is Z = 7,
+// SH = 22 (magnitudes 0, .5, 1, 1.5, 2, 3, 4, 6), e2m3 Z = 31, SH = 20 (0.125 k
+// below 1, then 1 + m/8 times 1, 2, 4); all are exact in bf16.  Each scale
+// group (128 values, or a multiple) sums into a fresh f32 part that is then
+// folded as acc += part * s[g, n], as the TPU kernel applies the scale to each
+// group's partial product.  The sum leaves transposed, through a swizzled
+// staging area and TMA stores.  Every block decodes its own weight tile once
+// for every M tile it runs.
 //
-// f32 x.  The kernel does not round x to bf16: each f32 value is split into
-// three bf16 parts, x = hi + mid + lo exactly (each residual of a bf16
-// rounding is exact in f32 and the last one fits in bf16's 8 significant
-// bits), and each part runs its own mma.  Every product of a part and a
-// grid value is exact, so only the f32 sums differ from the plain version.
+// f32 x (not on the main path, whose compute dtype is bf16).  An f32 x has to
+// stay exact to within K2_REL_TOL, which one bf16 rounding of x breaks.  It
+// runs this file's mma.sync kernel: one 128 x 128 output tile a block,
+// mma.sync m16n8k16 bf16 over a decoded weight tile in shared memory, and each
+// f32 value split into three bf16 parts, x = hi + mid + lo exactly (each
+// residual of a bf16 rounding is exact in f32 and the last one fits in bf16's
+// 8 significant bits), each part its own mma.  Every product of a part and a
+// grid value is exact, so only the f32 sums differ from the plain version; the
+// part is folded into the sum every 128 values of K.  (Three B boxes a code
+// box in the wgmma kernel would need three times its x bytes in the ring and
+// its registers for a path no recipe runs.)
 //
-// Ragged M is zero-filled on load (cp.async with src-size 0) and masked on
-// store.  Nibble codes need N % 128 == 0 (the layout requires it); byte
-// codes take any N >= 1 (rows past N are zero-filled and masked).
+// Ragged M is zero-filled on load and clipped or masked on store.  Nibble
+// codes need N % 128 == 0 (the layout requires it); byte codes take any
+// N >= 1 (rows past N are zero-filled and masked).
 //
 // Bound on an H100 SXM.  At the d16 fc1 shape of the last scale
 // (M = 4096, K = 1024, N = 4096) the work is 2*M*N*K = 34 GFLOP, 34.7 us at
 // the 989 TFLOP/s dense bf16 peak, while it moves 8 MB of x, 2 MB of codes
 // and 64 MB of f32 output, 22 us at 3.35 TB/s: the operations bound it.
-// This first version is mma.sync without wgmma or TMA and decodes in every
-// block; PERF.md has its times.
+// PERF.md has its times.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "cuda_common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// bf16 x: the formats of wgmma_gemm::rs_gemm_kernel
+// ---------------------------------------------------------------------------
+
+// grid[c] of the code c of a format with zero code Z, its magnitude's
+// exponent and mantissa SH bits up in a float32: exact (see above).  Four
+// instructions from c: u = (c - Z) << SH as one multiply-add, |u|, the
+// sign of u or'ed in, the multiply (abs.s32 keeps ptxas from expanding
+// |c - Z| into a compare, an add and a select).
+template <int Z, int SH>
+__device__ __forceinline__ float decode_bits(uint32_t c) {
+  const int u = static_cast<int>(c << SH) - (Z << SH);
+  int a;
+  asm("abs.s32 %0, %1;" : "=r"(a) : "r"(u));
+  const uint32_t bits = (static_cast<uint32_t>(u) & 0x80000000u) |
+                        static_cast<uint32_t>(a);
+  return __uint_as_float(bits) * 0x1p126f;
+}
+
+// Two decoded codes as a bf16 pair, c0 in the low half (the lower K index).
+template <int Z, int SH>
+__device__ __forceinline__ uint32_t decode_pair(uint32_t c0, uint32_t c1) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(decode_bits<Z, SH>(c0),
+                                                 decode_bits<Z, SH>(c1));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// e2m1 in row-split nibbles: 64 byte rows a 128-row tile, consumer c takes
+// nibble c of each byte.
+struct NibbleE2m1 {
+  static constexpr int CODE_ROWS = 64;
+  static int code_rows(int N) { return N / 2; }
+  __device__ static int code_row(int n0) { return n0 / 2; }
+  __device__ static int box_row(int) { return 0; }
+  __device__ static uint32_t pair(uint32_t piece, int c) {
+    const uint32_t p = piece >> (4 * c);
+    return decode_pair<7, 22>(p & 0xF, (p >> 8) & 0xF);
+  }
+};
+
+// One code a byte (Z, SH as decode_bits): consumer c takes rows
+// [64c, 64c + 64) of the tile's 128.
+template <int Z, int SH>
+struct ByteCodes {
+  static constexpr int CODE_ROWS = 128;
+  static int code_rows(int N) { return N; }
+  __device__ static int code_row(int n0) { return n0; }
+  __device__ static int box_row(int c) { return 64 * c; }
+  __device__ static uint32_t pair(uint32_t piece, int) {
+    return decode_pair<Z, SH>(piece & 0xFF, piece >> 8);
+  }
+};
+using ByteE2m1 = ByteCodes<7, 22>;
+using ByteE2m3 = ByteCodes<31, 20>;
+
+// x rows a tile: the narrowest of wgmma's N = 16, 64, 128 that holds M
+// where M <= 64.
+template <typename Dec>
+cudaError_t launch_bf16(const void* x, const void* codes, const void* scales,
+                        void* out, int M, int N, int K, int group,
+                        cudaStream_t stream) {
+  const float* s = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  if (M <= 16) {
+    return wgmma_gemm::launch_rs<Dec, 16>(x, codes, s, o, M, N, K, group,
+                                          stream);
+  }
+  if (M <= 64) {
+    return wgmma_gemm::launch_rs<Dec, 64>(x, codes, s, o, M, N, K, group,
+                                          stream);
+  }
+  return wgmma_gemm::launch_rs<Dec, 128>(x, codes, s, o, M, N, K, group,
+                                         stream);
+}
+
+// ---------------------------------------------------------------------------
+// f32 x: mma.sync over a decoded weight tile in shared memory
+// ---------------------------------------------------------------------------
 
 constexpr int BM = 128;
 constexpr int BN = 128;
@@ -65,15 +159,8 @@ constexpr int NI = WN / 8;              // n8 tiles per warp
 
 enum { FMT_E2M1 = 0, FMT_E2M3 = 1 };
 
-template <typename T>
-__host__ __device__ constexpr int stage_bytes() {
-  return BM * XPITCH * static_cast<int>(sizeof(T)) + CODE_STAGE;
-}
-
-template <typename T>
-__host__ __device__ constexpr int smem_bytes() {
-  return 2 * stage_bytes<T>() + BN * WPITCH * 2;
-}
+constexpr int STAGE_BYTES = BM * XPITCH * 4 + CODE_STAGE;
+constexpr int SMEM_BYTES = 2 * STAGE_BYTES + BN * WPITCH * 2;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int src_bytes) {
@@ -133,10 +220,9 @@ __device__ __forceinline__ float decode(int c) {
 
 // Stage rows [m0, m0 + 128) x K chunk [k0, k0 + 128) of x into smem; rows at
 // or past M are zero-filled.
-template <typename T>
-__device__ __forceinline__ void load_x(T* dst, const T* x, int M, int K,
-                                       int m0, int k0, int tid) {
-  constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte chunk
+__device__ __forceinline__ void load_x(float* dst, const float* x, int M,
+                                       int K, int m0, int k0, int tid) {
+  constexpr int EPC = 4;                // elements per 16-byte chunk
   constexpr int CPR = BK / EPC;         // chunks per row
 #pragma unroll
   for (int i = 0; i < BM * CPR / THREADS; ++i) {
@@ -145,7 +231,7 @@ __device__ __forceinline__ void load_x(T* dst, const T* x, int M, int K,
     const int col = (c % CPR) * EPC;
     const int gr = m0 + r;
     const bool ok = gr < M;
-    const T* p = x + static_cast<size_t>(ok ? gr : 0) * K + k0 + col;
+    const float* p = x + static_cast<size_t>(ok ? gr : 0) * K + k0 + col;
     cp_async16(dst + r * XPITCH + col, p, ok ? 16 : 0);
   }
 }
@@ -226,16 +312,16 @@ __device__ __forceinline__ void split3(float2 v, unsigned& hi, unsigned& mid,
   lo = pack_bf16(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
 }
 
-template <typename T, int FMT, bool NIBBLE>
+template <int FMT, bool NIBBLE>
 __global__ void __launch_bounds__(THREADS)
-packed_dequant_gemm_kernel(const T* __restrict__ x,
+packed_dequant_gemm_kernel(const float* __restrict__ x,
                            const int8_t* __restrict__ codes,
                            const float* __restrict__ scales,
                            float* __restrict__ out,
                            int M, int N, int K, int group) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(
-      smem + 2 * stage_bytes<T>());
+      smem + 2 * STAGE_BYTES);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -261,21 +347,21 @@ packed_dequant_gemm_kernel(const T* __restrict__ x,
       }
 
   auto stage_x = [&](int s) {
-    return reinterpret_cast<T*>(smem + s * stage_bytes<T>());
+    return reinterpret_cast<float*>(smem + s * STAGE_BYTES);
   };
   auto stage_codes = [&](int s) {
-    return reinterpret_cast<int8_t*>(smem + s * stage_bytes<T>() +
-                                     BM * XPITCH * sizeof(T));
+    return reinterpret_cast<int8_t*>(smem + s * STAGE_BYTES +
+                                     BM * XPITCH * sizeof(float));
   };
 
-  load_x<T>(stage_x(0), x, M, K, m0, 0, tid);
+  load_x(stage_x(0), x, M, K, m0, 0, tid);
   load_codes<NIBBLE>(stage_codes(0), codes, N, K, n0, 0, tid);
   cp_async_commit();
 
   for (int kc = 0; kc < nchunks; ++kc) {
     if (kc + 1 < nchunks) {
       const int s = (kc + 1) & 1;
-      load_x<T>(stage_x(s), x, M, K, m0, (kc + 1) * BK, tid);
+      load_x(stage_x(s), x, M, K, m0, (kc + 1) * BK, tid);
       load_codes<NIBBLE>(stage_codes(s), codes, N, K, n0, (kc + 1) * BK, tid);
     }
     cp_async_commit();         // possibly empty: keeps the wait count uniform
@@ -284,7 +370,7 @@ packed_dequant_gemm_kernel(const T* __restrict__ x,
     decode_tile<FMT, NIBBLE>(stage_codes(kc & 1), sw, tid);
     __syncthreads();
 
-    const T* sx = stage_x(kc & 1);
+    const float* sx = stage_x(kc & 1);
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 16) {
       unsigned bfr[NI][2];
@@ -297,33 +383,26 @@ packed_dequant_gemm_kernel(const T* __restrict__ x,
       }
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi) {
-        const T* p = sx + (wm * WM + mi * 16 + g) * XPITCH + ks + 2 * t;
-        if constexpr (std::is_same<T, float>::value) {
-          unsigned ah[4], am[4], al[4];
-          const float2 v[4] = {
-              *reinterpret_cast<const float2*>(p),
-              *reinterpret_cast<const float2*>(p + 8 * XPITCH),
-              *reinterpret_cast<const float2*>(p + 8),
-              *reinterpret_cast<const float2*>(p + 8 * XPITCH + 8)};
+        const float* p = sx + (wm * WM + mi * 16 + g) * XPITCH + ks + 2 * t;
+        unsigned ah[4], am[4], al[4];
+        const float2 v[4] = {
+            *reinterpret_cast<const float2*>(p),
+            *reinterpret_cast<const float2*>(p + 8 * XPITCH),
+            *reinterpret_cast<const float2*>(p + 8),
+            *reinterpret_cast<const float2*>(p + 8 * XPITCH + 8)};
 #pragma unroll
-          for (int e = 0; e < 4; ++e) split3(v[e], ah[e], am[e], al[e]);
+        for (int e = 0; e < 4; ++e) split3(v[e], ah[e], am[e], al[e]);
 #pragma unroll
-          for (int ni = 0; ni < NI; ++ni) {
-            mma_bf16(part[mi][ni], ah, bfr[ni]);
-            mma_bf16(part[mi][ni], am, bfr[ni]);
-            mma_bf16(part[mi][ni], al, bfr[ni]);
-          }
-        } else {
-          const unsigned a[4] = {ld32(p), ld32(p + 8 * XPITCH), ld32(p + 8),
-                                 ld32(p + 8 * XPITCH + 8)};
-#pragma unroll
-          for (int ni = 0; ni < NI; ++ni) mma_bf16(part[mi][ni], a, bfr[ni]);
+        for (int ni = 0; ni < NI; ++ni) {
+          mma_bf16(part[mi][ni], ah, bfr[ni]);
+          mma_bf16(part[mi][ni], am, bfr[ni]);
+          mma_bf16(part[mi][ni], al, bfr[ni]);
         }
       }
     }
     __syncthreads();           // the next iteration refills this stage and sw
 
-    if ((kc + 1) % chunks_per_group == 0) {
+    {   // every chunk: 3 * 128 terms a part (quant_matmul.K2_REL_TOL)
       const int gi = kc / chunks_per_group;
       float s[NI][2];
 #pragma unroll
@@ -368,37 +447,48 @@ packed_dequant_gemm_kernel(const T* __restrict__ x,
       }
 }
 
-template <typename T, int FMT, bool NIBBLE>
-cudaError_t launch(const void* x, const void* codes, const void* scales,
-                   void* out, int M, int N, int K, int group,
-                   cudaStream_t stream) {
-  auto kernel = packed_dequant_gemm_kernel<T, FMT, NIBBLE>;
+template <int FMT, bool NIBBLE>
+cudaError_t launch_f32(const void* x, const void* codes, const void* scales,
+                       void* out, int M, int N, int K, int group,
+                       cudaStream_t stream) {
+  auto kernel = packed_dequant_gemm_kernel<FMT, NIBBLE>;
   cudaError_t e =
-      cuda_common::opt_in_smem<packed_dequant_gemm_kernel<T, FMT, NIBBLE>>(
-          smem_bytes<T>());
+      cuda_common::opt_in_smem<packed_dequant_gemm_kernel<FMT, NIBBLE>>(
+          SMEM_BYTES);
   if (e != cudaSuccess) return e;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, THREADS, smem_bytes<T>(), stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(codes),
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(codes),
       static_cast<const float*>(scales), static_cast<float*>(out), M, N, K,
       group);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const void* x, const void* codes, const void* scales,
-                     void* out, int M, int N, int K, int group, int fmt,
-                     int nibble, cudaStream_t stream) {
+                     void* out, int M, int N, int K, int group, int x_f32,
+                     int fmt, int nibble, cudaStream_t stream) {
+  if (x_f32) {
+    if (nibble) {
+      return launch_f32<FMT_E2M1, true>(x, codes, scales, out, M, N, K,
+                                        group, stream);
+    }
+    if (fmt == FMT_E2M1) {
+      return launch_f32<FMT_E2M1, false>(x, codes, scales, out, M, N, K,
+                                         group, stream);
+    }
+    return launch_f32<FMT_E2M3, false>(x, codes, scales, out, M, N, K, group,
+                                       stream);
+  }
   if (nibble) {
-    return launch<T, FMT_E2M1, true>(x, codes, scales, out, M, N, K, group,
-                                     stream);
+    return launch_bf16<NibbleE2m1>(x, codes, scales, out, M, N, K, group,
+                                   stream);
   }
   if (fmt == FMT_E2M1) {
-    return launch<T, FMT_E2M1, false>(x, codes, scales, out, M, N, K, group,
-                                      stream);
+    return launch_bf16<ByteE2m1>(x, codes, scales, out, M, N, K, group,
+                                 stream);
   }
-  return launch<T, FMT_E2M3, false>(x, codes, scales, out, M, N, K, group,
-                                    stream);
+  return launch_bf16<ByteE2m3>(x, codes, scales, out, M, N, K, group,
+                               stream);
 }
 
 }  // namespace
@@ -416,13 +506,19 @@ extern "C" int packed_dequant_gemm(const void* x, const void* codes,
       (nibble && (fmt != FMT_E2M1 || N % BN != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      x_f32 ? dispatch<float>(x, codes, scales, out, M, N, K, group, fmt,
-                              nibble, s)
-            : dispatch<__nv_bfloat16>(x, codes, scales, out, M, N, K, group,
-                                      fmt, nibble, s);
-  return static_cast<int>(e);
+  return static_cast<int>(dispatch(x, codes, scales, out, M, N, K, group,
+                                   x_f32, fmt, nibble,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+// The weight tensor-map cache of this library: lookups that found a map
+// and maps encoded.
+extern "C" void packed_dequant_gemm_map_cache(long long* hits,
+                                              long long* misses) {
+  wgmma_gemm::MapCache& cache = wgmma_gemm::map_cache();
+  std::lock_guard<std::mutex> lock(cache.mu);
+  *hits = cache.hits;
+  *misses = cache.misses;
 }
 
 extern "C" const char* packed_dequant_gemm_error_string(int code) {

@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict = {}
 _lock = threading.Lock()
-#: source name -> nvcc's output (ptxas register / shared-memory report)
+#: source name -> nvcc's output (ptxas register / shared-memory report,
+#: and its warnings), kept beside each library and read back with it
 build_logs: dict = {}
 
 
@@ -74,7 +75,10 @@ def build(name: str) -> Path:
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     where = build_dir()
     out = where / f"lib{name}-{digest[:12]}.so"
+    log = out.with_suffix(".log")
     if out.exists():
+        if name not in build_logs and log.exists():
+            build_logs[name] = log.read_text()
         return out
     where.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -85,6 +89,7 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
                            f"{proc.returncode}\n{proc.stdout}")
+    log.write_text(proc.stdout)
     os.replace(tmp, out)
     return out
 

@@ -10,8 +10,11 @@ with float32 output, for ``x [M, K]`` in bf16 or float32, the codes of a
 ``[G, N]``.  On a CUDA tensor it launches the hand-written Hopper kernel
 ``csrc/packed_dequant_gemm.cu`` (the port of the TPU kernel
 ``fpqvar_tpu/ops/pallas/quant_matmul.py`` ``_kernel`` /
-``_packed_matmul_2d``) or raises; on a CPU tensor it runs the plain version
-``packed_matmul_ref``.  ``launches`` counts kernel launches.
+``_packed_matmul_2d``: for bf16 ``x`` a TMA + ``wgmma`` kernel that decodes
+the weight into its register operand, for float32 ``x`` an ``mma.sync``
+kernel over an exact three-way bf16 split of ``x``) or raises; on a CPU
+tensor it runs the plain version ``packed_matmul_ref``.  ``launches``
+counts kernel launches.
 
 The plain version follows the kernel's arithmetic: exact grid values in
 each group's dot, the float32 scale applied to each group's partial
@@ -42,13 +45,16 @@ launches = 0
 #: ``sum_g |s[g,n]| * sum_{k in g} |x[m,k] * grid[code[n,k]]|``.  Every
 #: product is exact on the kernel's side (bf16 x or its three-way bf16
 #: split times grid values of <= 4 significant bits) and rounded once
-#: (u = 2^-24) on the plain side.  The plain version sums each 128-term
-#: group in float32 in some order: <= 127 u of the sum of the terms' sizes.
-#: The kernel sums on tensor cores, which align and truncate (<= 2 u per
-#: addition), over 128 terms a group for bf16 x and 3 * 128 for float32 x:
-#: <= 768 u.  The scale products and the sum over G <= 32 groups add
-#: <= (G + 2) * 2 u on each side.  In all <= (1 + 127 + 768 + 136) u
-#: = 1032 u = 6.2e-5, which this covers.
+#: (u = 2^-24) on the plain side.  The plain version sums each group (128
+#: or 256 terms) in float32 in some order: <= 255 u of the sum of the
+#: terms' sizes.  The kernels sum on tensor cores, which align and
+#: truncate (<= 2 u per addition): the wgmma kernel (bf16 x) adds a
+#: group's terms into a fresh part, <= 512 u; the mma.sync kernel (float32
+#: x) folds every 128 values of K, 3 * 128 terms a part, <= 768 u.  The
+#: folds (at most K / 128 <= 32; the wgmma kernel fuses the scale product
+#: into its multiply-add) and the sum over the groups add <= (32 + 2) * 2 u
+#: on each side.  In all <= (1 + 255 + 768 + 136) u = 1160 u = 6.9e-5 for
+#: groups of up to 256, which this covers.
 K2_REL_TOL = 1e-4
 
 
@@ -142,7 +148,8 @@ def packed_matmul(x, codes, scales, fmt: str, group_size: int = 128,
     if fmt not in KERNEL_FMTS:
         raise NotImplementedError(
             f"K2 decodes {sorted(KERNEL_FMTS)} in-kernel; {fmt!r} has no "
-            "CUDA decoder yet (ROADMAP.md: the rest of the fake backend)")
+            "decoder (packed_linear takes JAX's dequantize route for it, "
+            "ROADMAP.md section 3)")
     check_cuda_layout("packed_matmul", x, codes, scales,
                       aligned=(x, codes))
     m, k = x.shape

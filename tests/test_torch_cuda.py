@@ -2,9 +2,12 @@
 PyTorch version at the VAR-d16 shapes, ragged ones and tiny ones.  K1
 (``int8_group_gemm_ref``) within ``K1_REL_TOL`` of ``sum_g |sa*sw*part|``
 per element (the group parts are exact; only the f32 order over the groups
-differs); K2 (``packed_matmul_ref``) within ``K2_REL_TOL`` of
-``sum_g |s| * sum_k |x * grid[code]|`` per element, for row-split e2m1
-nibbles and one-per-byte e2m3 and e2m1 codes, bfloat16 and float32 ``x``;
+differs), groups of 128 and 256; K2 (``packed_matmul_ref``) within
+``K2_REL_TOL`` of ``sum_g |s| * sum_k |x * grid[code]|`` per element, for
+row-split e2m1 nibbles and one-per-byte e2m3 and e2m1 codes, bfloat16 and
+float32 ``x``, each x-tile width of the wgmma kernel, groups of 128 and
+256, and its weight tensor-map cache across calls; the formats K2 does
+not decode through ``packed_linear``'s dequantize route, against the CPU;
 K3 (``int8ch_gemm_ref``) and K4 (``fused_ch_gemm_ref``) exactly equal
 (the full-K int32 dot is exact and the epilogue runs the same two
 multiplies), for float32 and bfloat16 outputs, the four K4 formats,
@@ -15,9 +18,10 @@ bfloat16 output, on ``[B, T, K]`` codes with ragged T and N, and equal to
 K1 followed by a cast; K6 (``int8_probe_gemm_ref``) exactly equal, sums
 above 2^24 included; K7 (``bf16_probe_gemm_ref``) within
 ``K7_TOL_PER_K * K * sum_k |a*b|`` plus one bfloat16 gap, at one K chunk
-(K = 64), K = 4096, ragged M and N and 4096^3.  K4 and K7 run the TMA +
-wgmma pipeline, whose barriers hang the card if their phases are wrong (a
-wait longer than 4 s traps instead); run the file under ``timeout``.
+(K = 64), K = 4096, ragged M and N and 4096^3.  K1, K2, K4 and K7 run the
+TMA + wgmma pipeline, whose barriers hang the card if their phases are
+wrong (a wait longer than 4 s traps instead); run the file under
+``timeout``.
 
 The tests are marked ``cuda`` and skip without a CUDA device.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -32,6 +36,7 @@ from fpqvar_tpu_torch.ops import int8_matmul as K
 from fpqvar_tpu_torch.ops import packing as P
 from fpqvar_tpu_torch.ops import probe_gemm as PG
 from fpqvar_tpu_torch.ops import quant_matmul as QM
+from fpqvar_tpu_torch.ops._checks import bf16_gap
 
 
 @pytest.fixture
@@ -43,22 +48,25 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(4096, 1024, 3072), (4096, 4096, 1024),
-                                   (16, 1024, 1000), (37, 640, 384),
-                                   (1, 128, 7)])
-def test_cuda_kernel_matches_plain(cuda_device, m, k, n):
+@pytest.mark.parametrize("m,k,n,group", [
+    (4096, 1024, 3072, 128), (4096, 4096, 1024, 128),   # d16 qkv, fc2
+    (16, 1024, 1000, 128), (37, 640, 384, 128), (1, 128, 7, 128),
+    (16, 1024, 1000, 256),                              # two chunks a group
+    (4096, 4096, 1024, 256), (200, 768, 130, 256)])     # N % 4 != 0
+def test_cuda_kernel_matches_plain(cuda_device, m, k, n, group):
     rng = np.random.default_rng(4)
     x = rng.standard_normal((m, k)).astype(np.float32)
     w = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
     ac, asc = P.quant_int_codes(torch.from_numpy(x).to(cuda_device),
-                                "fp_e2", 128)
-    pw = P.pack_int_codes(torch.from_numpy(w).to(cuda_device), "fp_e2", 128)
+                                "fp_e2", group)
+    pw = P.pack_int_codes(torch.from_numpy(w).to(cuda_device), "fp_e2",
+                          group)
     before = K.launches
-    ours = K.int8_group_gemm(ac, asc, pw.codes, pw.scales, 128)
+    ours = K.int8_group_gemm(ac, asc, pw.codes, pw.scales, group)
     torch.cuda.synchronize()
     assert K.launches == before + 1
-    ref = K.int8_group_gemm_ref(ac, asc, pw.codes, pw.scales, 128)
-    tol = K.int8_group_gemm_tolerance(ac, asc, pw.codes, pw.scales, 128)
+    ref = K.int8_group_gemm_ref(ac, asc, pw.codes, pw.scales, group)
+    tol = K.int8_group_gemm_tolerance(ac, asc, pw.codes, pw.scales, group)
     assert bool(((ours - ref).abs() <= tol).all())
 
 
@@ -74,23 +82,39 @@ def test_cuda_wrapper_raises_on_bad_layout(cuda_device):
         K.int8_group_gemm(ac, asc.cpu(), wc.contiguous(), wsc, 128)
 
 
+BF16 = torch.bfloat16
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("fmt,m,k,n,dtype", [
-    ("fp_e2", 4096, 1024, 3072, torch.bfloat16),      # d16 qkv, nibbles
-    ("fp_e2", 4096, 4096, 1024, torch.bfloat16),      # d16 fc2, G = 32
-    ("fp6_e2m3", 4096, 1024, 4096, torch.bfloat16),   # d16 fc1, bytes
-    ("fp_e2", 4096, 1024, 1024, torch.float32),       # d16 proj, f32 x
-    ("fp_e2", 16, 1024, 1024, torch.bfloat16),        # ragged M
-    ("fp6_e2m3", 37, 384, 200, torch.float32),        # ragged M and N
-    ("fp_e2", 1, 128, 7, torch.bfloat16),             # e2m1 bytes
+@pytest.mark.parametrize("fmt,m,k,n,dtype,group", [
+    ("fp_e2", 4096, 1024, 3072, BF16, 128),           # d16 qkv, nibbles
+    ("fp_e2", 4096, 1024, 1024, BF16, 128),           # d16 proj
+    ("fp_e2", 4096, 1024, 4096, BF16, 128),           # d16 fc1
+    ("fp_e2", 4096, 4096, 1024, BF16, 128),           # d16 fc2, G = 32
+    ("fp6_e2m3", 4096, 1024, 3072, BF16, 128),        # the same, bytes
+    ("fp6_e2m3", 4096, 1024, 1024, BF16, 128),
+    ("fp6_e2m3", 4096, 1024, 4096, BF16, 128),
+    ("fp6_e2m3", 4096, 4096, 1024, BF16, 128),
+    ("fp_e2", 4096, 1024, 1024, torch.float32, 128),  # d16 proj, f32 x
+    ("fp_e2", 16, 1024, 1024, BF16, 128),             # ragged M, 16-row tile
+    ("fp_e2", 144, 1024, 3072, BF16, 128),            # 2 tiles, 16 rows
+    ("fp_e2", 64, 128, 256, BF16, 128),               # one K chunk
+    ("fp6_e2m3", 16, 1024, 1000, BF16, 128),          # ragged N, bytes
+    ("fp6_e2m3", 37, 384, 200, BF16, 128),            # ragged M and N
+    ("fp6_e2m3", 37, 384, 200, torch.float32, 128),
+    ("fp_e2", 37, 384, 130, BF16, 128),               # N % 4 != 0
+    ("fp_e2", 1, 128, 7, BF16, 128),                  # e2m1 bytes
+    ("fp_e2", 16, 1024, 3072, BF16, 256),             # two chunks a group
+    ("fp6_e2m3", 600, 2048, 1000, BF16, 256),
+    ("fp_e2", 40, 512, 256, torch.float32, 256),
 ])
-def test_cuda_k2_matches_plain(cuda_device, fmt, m, k, n, dtype):
+def test_cuda_k2_matches_plain(cuda_device, fmt, m, k, n, dtype, group):
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
     w = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
-    pw = P.pack(torch.from_numpy(w).to(cuda_device), fmt, 128)
+    pw = P.pack(torch.from_numpy(w).to(cuda_device), fmt, group)
     assert pw.nibble_packed == (fmt == "fp_e2" and n % 128 == 0)
-    ops = (x.to(cuda_device, dtype), pw.codes, pw.scales, fmt, 128,
+    ops = (x.to(cuda_device, dtype), pw.codes, pw.scales, fmt, group,
            pw.nibble_packed)
     before = QM.launches
     ours = QM.packed_matmul(*ops)
@@ -187,6 +211,77 @@ def test_cuda_k2_raises_without_a_decoder(cuda_device):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QM.packed_matmul(x, pw.codes, pw.scales, "fp_e1", 128,
                          pw.nibble_packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["fp_e1", "fp_e3", "fp6_e3m2"])
+def test_cuda_packed_linear_without_a_decoder(cuda_device, fmt):
+    """Formats K2 does not decode run JAX's dequantize route on the card,
+    launch no K2, and give the CPU's numbers within float32 sum order
+    (``2 K 2^-24 * (|x| @ |w|^T)``, then one bfloat16 gap)."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 256)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((256, 256)) * 0.02)
+                         .astype(np.float32))
+    pw = P.pack(w, fmt, 128)
+    cpu = QM.packed_linear(x.to(BF16), pw).float()
+    pwc = P.PackedTensor(pw.codes.to(cuda_device), pw.scales.to(cuda_device),
+                         pw.fmt, pw.shape, pw.group_size, pw.nibble_packed)
+    before = QM.launches
+    ours = QM.packed_linear(x.to(cuda_device, BF16), pwc)
+    torch.cuda.synchronize()
+    assert QM.launches == before and ours.dtype == BF16
+    size = x.to(BF16).float().abs().reshape(-1, 256) @ \
+        P.dequantize(pw, BF16).float().abs().T
+    tol = bf16_gap(cpu, (2 * 256 * 2.0 ** -24 * size).reshape(cpu.shape))
+    assert bool(((ours.float().cpu() - cpu).abs() <= tol).all())
+
+
+def _map_cache():
+    """(hits, misses) of K2's weight tensor-map cache."""
+    import ctypes
+    fn = QM._lib().packed_dequant_gemm_map_cache
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = None
+    hits, misses = ctypes.c_longlong(), ctypes.c_longlong()
+    fn(ctypes.byref(hits), ctypes.byref(misses))
+    return hits.value, misses.value
+
+
+@pytest.mark.cuda
+def test_cuda_k2_reuses_the_weight_tensor_map(cuda_device):
+    """A weight's tensor map is encoded once and found again for a call
+    with another x; a freed weight whose memory a weight of another shape
+    takes over gets a map of its own (the key is everything the encoder
+    reads)."""
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(13)
+
+    def check(pw, m):
+        x = torch.randn((m, pw.shape[1]), generator=gen, device=cuda_device,
+                        dtype=BF16)
+        ops = (x, pw.codes, pw.scales, pw.fmt, 128, pw.nibble_packed)
+        out = QM.packed_matmul(*ops)
+        tol = QM.packed_matmul_tolerance(*ops)
+        assert bool(((out - QM.packed_matmul_ref(*ops)).abs() <= tol).all())
+
+    w = (rng.standard_normal((1024, 1024)) * 0.02).astype(np.float32)
+    pw = P.pack(torch.from_numpy(w).to(cuda_device), "fp_e2", 128)
+    h0, m0 = _map_cache()
+    check(pw, 256)
+    h1, m1 = _map_cache()
+    assert h1 + m1 == h0 + m0 + 1          # a hit where a freed weight of
+    check(pw, 16)                          # this shape had this address
+    check(pw, 4096)
+    h2, m2 = _map_cache()
+    assert (h2, m2) == (h1 + 2, m1)
+    del pw
+    w2 = (rng.standard_normal((512, 2048)) * 0.02).astype(np.float32)
+    pw2 = P.pack(torch.from_numpy(w2).to(cuda_device), "fp_e2", 128)
+    check(pw2, 100)
+    h3, m3 = _map_cache()
+    assert h3 + m3 == h2 + m2 + 1
 
 
 @pytest.mark.cuda
