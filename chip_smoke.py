@@ -86,6 +86,13 @@ D16_SHAPES = (("qkv", 4096, 1024, 3072), ("proj", 4096, 1024, 1024),
 #: K4's two kernels, (a) the row quantize and (b) the s8 GEMM, by a part
 #: of their names (the GEMM by its epilogue)
 K4_KERNELS = {"a": "fused_ch_quantize_kernel", "b": "FusedChRescale"}
+#: the port kernels of the generation path, by parts of their kernels'
+#: names: K1 by its epilogue, K2's wgmma kernel (bf16 x) and its mma.sync
+#: one (f32 x), K4's two kernels apart
+PORT_KERNELS = {"K1": ("GroupFold",),
+                "K2": ("rs_gemm_kernel", "packed_dequant_gemm_kernel"),
+                "K3": ("int8ch_gemm",), "K4 (a)": (K4_KERNELS["a"],),
+                "K4 (b)": (K4_KERNELS["b"],), "K5": ("int8_nd_gemm",)}
 #: the int8 rate probe's default shapes: (name, M, K, N)
 PROBE_SHAPES = (("probe-1920", 4096, 1920, 5760),
                 ("probe-4096", 4096, 4096, 4096))
@@ -788,14 +795,16 @@ def phase_main_path(card: str):
     for mode in PROFILED:
         gen, qp, rng_gen = setups[mode]
         phase_profile(mode, lambda: gen.generate(qp, vae, labels, rng_gen),
-                      card)
+                      card, per_gen[mode])
     return totals, setups, vae
 
 
-def phase_profile(mode: str, run, card: str):
+def phase_profile(mode: str, run, card: str, launches: dict):
     """Where one generation's time goes: torch.profiler over one batch-8
     generation (after the main path's counts were read), summing the device
-    time of every CUDA kernel."""
+    time of every CUDA kernel; each port kernel must show as many launches
+    as the generation makes (``launches``, by K1..K7), so that its time is
+    found under its name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -818,15 +827,15 @@ def phase_profile(mode: str, run, card: str):
               f"recorded no kernel time); wall {wall_ms:.1f} ms")
         return
     ours = []
-    for label, key in (("K1", "int8_group_gemm"),
-                       ("K2", "packed_dequant_gemm"), ("K3", "int8ch_gemm"),
-                       ("K4 (a)", K4_KERNELS["a"]),
-                       ("K4 (b)", K4_KERNELS["b"]),
-                       ("K5", "int8_nd_gemm")):
-        hits = [e for e in kernels if key in e.key]
+    for label, keys in PORT_KERNELS.items():
+        hits = [e for e in kernels if any(k in e.key for k in keys)]
+        n = sum(e.count for e in hits)
+        want = launches[label.split()[0]]
+        if n != want:
+            fail(f"profile: {mode}: {n} kernels named like {label} "
+                 f"({', '.join(keys)}), {want} launches expected")
         ms = sum(dev_ms(e) for e in hits)
-        ours.append(f"{label} {ms:.2f} ms in "
-                    f"{sum(e.count for e in hits)} launches "
+        ours.append(f"{label} {ms:.2f} ms in {n} launches "
                     f"({ms / busy:.3f} of busy)")
     top = sorted(kernels, key=dev_ms, reverse=True)[:6]
     print(f"profile: {mode} batch-8 generation under the profiler: wall "
