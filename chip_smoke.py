@@ -12,7 +12,7 @@ non-zero:
    csrc`` with nvcc for sm_90a, one nvcc per source, all started together,
    prints each kernel's build time, registers and spills, and counts the
    warpgroup MMA instructions (``HGMMA``, ``IGMMA``) in each library's SASS
-   (``cuobjdump -sass``): K2 and K7 must hold ``HGMMA``, K1 and K4
+   (``cuobjdump -sass``): K2 and K7 must hold ``HGMMA``, K1, K3, K4 and K5
    ``IGMMA``, and ptxas must not have serialized the wgmmas of any of them
    (its "wgmma ... serialized" warning);
 3. kernels: K1 (the grouped int8 GEMM), K2 (the dequantize-in-register
@@ -79,7 +79,8 @@ KERNEL_SOURCES = ("int8_group_gemm", "packed_dequant_gemm", "int8ch_gemm",
                   "bf16_probe_gemm")
 #: the sources whose GEMMs run on wgmma, and the SASS instruction of it
 WGMMA_SOURCES = {"int8_group_gemm": "IGMMA", "packed_dequant_gemm": "HGMMA",
-                 "fused_ch_gemm": "IGMMA", "bf16_probe_gemm": "HGMMA"}
+                 "int8ch_gemm": "IGMMA", "fused_ch_gemm": "IGMMA",
+                 "int8_nd_gemm": "IGMMA", "bf16_probe_gemm": "HGMMA"}
 #: the last scale's block linears of VAR-d16 at batch 8: (name, M, K, N)
 D16_SHAPES = (("qkv", 4096, 1024, 3072), ("proj", 4096, 1024, 1024),
               ("fc1", 4096, 1024, 4096), ("fc2", 4096, 4096, 1024))
@@ -87,12 +88,14 @@ D16_SHAPES = (("qkv", 4096, 1024, 3072), ("proj", 4096, 1024, 1024),
 #: of their names (the GEMM by its epilogue)
 K4_KERNELS = {"a": "fused_ch_quantize_kernel", "b": "FusedChRescale"}
 #: the port kernels of the generation path, by parts of their kernels'
-#: names: K1 by its epilogue, K2's wgmma kernel (bf16 x) and its mma.sync
-#: one (f32 x), K4's two kernels apart
+#: names: K1, K3, K4 (b) and K5 by their epilogues (K1 and K5 share one
+#: wgmma instantiation's fold, K3 and K4 (b) one's rescale, each under a
+#: type name of its own), K2's wgmma kernel (bf16 x) and its mma.sync one
+#: (f32 x), K4's two kernels apart; no key is a part of another's
 PORT_KERNELS = {"K1": ("GroupFold",),
                 "K2": ("rs_gemm_kernel", "packed_dequant_gemm_kernel"),
-                "K3": ("int8ch_gemm",), "K4 (a)": (K4_KERNELS["a"],),
-                "K4 (b)": (K4_KERNELS["b"],), "K5": ("int8_nd_gemm",)}
+                "K3": ("Int8ChRescale",), "K4 (a)": (K4_KERNELS["a"],),
+                "K4 (b)": (K4_KERNELS["b"],), "K5": ("NdGroupSum",)}
 #: the int8 rate probe's default shapes: (name, M, K, N)
 PROBE_SHAPES = (("probe-1920", 4096, 1920, 5760),
                 ("probe-4096", 4096, 4096, 4096))
@@ -482,8 +485,8 @@ def phase_k5():
     qkv, proj and fc1 shapes of the last scale (B = 16 rows of CFG's
     doubled batch 8, T = 256), float32 output at fc1, and the first scales'
     ragged T = 9 (N = 1000) and T = 1.  K5 must also equal K1 followed by
-    a cast (the route it replaces, timed beside it): the two share the tile
-    and its f32 sums."""
+    a cast (the route it replaces, timed beside it): the two run one
+    wgmma instantiation's group fold, whose f32 sum K5 rounds once."""
     from fpqvar_tpu_torch.ops import int8_matmul as K
 
     gen = torch.Generator(device="cuda")

@@ -35,8 +35,10 @@
 //       int8 codes and rs = scale / mult;
 //   (b) the s8 instantiation of wgmma_gemm.cuh over the codes and wc
 //       (TMA ring, wgmma m64n256k32 s8 x s8 -> s32 on 128 x 256 tiles),
-//       whose epilogue (FusedChRescale) computes (float(acc) * rs[m]) *
-//       wsc[n]: two multiplies in JAX's order, no add to contract.
+//       whose epilogue (FusedChRescale, on ch_rescale.cuh; K3 runs the
+//       same GEMM and rescale on codes made outside) computes
+//       (float(acc) * rs[m]) * wsc[n]: two multiplies in JAX's order, no
+//       add to contract.
 // The TPU kernel kept the codes out of HBM because a dot-only kernel lost
 // there; here the codes of a whole call (4 MB at d16's qkv, 16 MB at fc2)
 // fit in the 50 MB L2 between the two kernels.
@@ -51,7 +53,7 @@
 // at fc2, +2.4 us and +9.6 us at 3.35 TB/s if it went to HBM, less where
 // L2 holds the codes.  PERF.md has the times of (a), (b) and the whole
 // call.
-#include "wgmma_gemm.cuh"
+#include "ch_rescale.cuh"
 
 namespace {
 
@@ -167,39 +169,10 @@ fused_ch_quantize_kernel(const void* __restrict__ xv,
   }
 }
 
-// (b)'s epilogue, in place on the f32 sums of column blocks [j0, j1):
-// v = (v * rs[row]) * wsc[col], stored as OutT by the pipeline.  The scales
-// are read with plain loads at fixed offsets from one pointer: the
-// compiler moves read-only (__ldg) loads, and the addresses of the 64
-// column scales, above the K loop and keeps them live through it, which
-// spills the consumer's registers.
+// (b)'s epilogue: the per-channel rescale of ch_rescale.cuh, reading the
+// row scales that (a) wrote, under a name of its own.
 template <typename OutT>
-struct FusedChRescale {
-  using Out = OutT;
-  Out* out;
-  const float* rs;
-  const float* wsc;
-  __device__ __forceinline__ void operator()(float (&v)[wgmma_gemm::ACC],
-                                             int j0, int j1, int row,
-                                             int col, int M, int N) const {
-    const float* w = wsc + col;
-    const int cols = N - col;              // column 8j + e is inside N
-    const float s[2] = {row < M ? rs[row] : 0.f,
-                        row + 8 < M ? rs[row + 8] : 0.f};
-#pragma unroll
-    for (int j = j0; j < j1; ++j) {
-      const float wj[2] = {8 * j < cols ? w[8 * j] : 0.f,
-                           8 * j + 1 < cols ? w[8 * j + 1] : 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = v[4 * j + 2 * h + e];
-          x = x * s[h] * wj[e];
-        }
-    }
-  }
-};
+struct FusedChRescale : ch_rescale::RowColRescale<OutT> {};
 
 template <bool XBF16, typename OutT>
 int launch(const void* x, const void* wc, const void* wsc, void* codes,
@@ -212,11 +185,8 @@ int launch(const void* x, const void* wc, const void* wsc, void* codes,
       x, static_cast<int8_t*>(codes), static_cast<float*>(rs), M, K, grid);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const FusedChRescale<OutT> epi{static_cast<OutT*>(out),
-                                 static_cast<const float*>(rs),
-                                 static_cast<const float*>(wsc)};
-  return static_cast<int>(wgmma_gemm::launch<wgmma_gemm::S8>(
-      codes, wc, M, N, K, epi, stream));
+  return static_cast<int>(ch_rescale::launch<FusedChRescale<OutT>>(
+      codes, rs, wc, wsc, out, M, N, K, stream));
 }
 
 }  // namespace

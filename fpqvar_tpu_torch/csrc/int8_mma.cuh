@@ -1,8 +1,8 @@
-// The tile loop shared by the s8 x s8 -> s32 GEMMs for Hopper (sm_90a) that
-// stage 128-byte K chunks with cp.async: K5 (int8_nd_gemm.cu, through
-// int8_group.cuh), K3 (int8ch_gemm.cu) and K6 (int8_probe_gemm.cu).  (K1,
-// K4 and K7 run the TMA + wgmma pipeline of wgmma_gemm.cuh, K2 its
-// register-A sibling.)
+// The mma.sync tile loop of the rate probe's full-K s8 x s8 -> s32 GEMM
+// for Hopper (sm_90a), K6 (int8_probe_gemm.cu), staging 128-byte K chunks
+// with cp.async.  (Every GEMM of the generation path runs the TMA + wgmma
+// pipeline of wgmma_gemm.cuh: K1, K3, K4, K5 and K7 its s8 or bf16
+// instantiations, K2 its register-A sibling.)
 //
 // One thread block owns one 128x128 output tile and walks K in chunks of
 // 128 int8 codes.  A chunk of A (128 rows of the block's M tile) and of B
@@ -10,9 +10,7 @@
 // operand K-contiguous) sits in shared memory, rows padded to 144 bytes so
 // the 32-bit fragment loads hit 32 distinct banks.  Eight warps (2 x 4)
 // each own a 64x32 sub-tile and run mma.sync m16n8k32 s8 into int32
-// registers on it.  Every kernel runs the block's K loop (k_loop); K3 has
-// the full-K rescaling epilogue (store_rescaled), the others store through
-// store_tile.
+// registers on it (k_loop); the epilogue stores through store_tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,12 +62,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The MMA of one 32-byte K step into int32 accumulators.
-__device__ __forceinline__ void mma_step(int (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  mma_s8(c, a, b);
-}
-
 // Stage rows [r0, r0 + 128) x byte chunk [k0, k0 + 128) of a [rows, K]
 // matrix of K bytes a row into smem with cp.async; rows at or past `rows`
 // are zero-filled.
@@ -88,22 +80,20 @@ __device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* src,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void zero(T (&part)[MI][NI][4]) {
+__device__ __forceinline__ void zero(int (&part)[MI][NI][4]) {
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) part[mi][ni][e] = T(0);
+      for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0;
 }
 
 // part += the warp's 64x32 sub-tile of sA (128 rows x BK bytes) . sB^T
 // (128 x BK bytes) for one staged chunk of s8 codes into int32 `part`.
 // Warp (wm, wn); g = lane / 4, t = lane % 4.
-template <typename T>
 __device__ __forceinline__ void mma_chunk(const int8_t* sA, const int8_t* sB,
-                                          T (&part)[MI][NI][4], int wm,
+                                          int (&part)[MI][NI][4], int wm,
                                           int wn, int g, int t) {
 #pragma unroll
   for (int ks = 0; ks < BK; ks += 32) {
@@ -126,7 +116,7 @@ __device__ __forceinline__ void mma_chunk(const int8_t* sA, const int8_t* sB,
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) mma_step(part[mi][ni], af[mi], bf[ni]);
+      for (int ni = 0; ni < NI; ++ni) mma_s8(part[mi][ni], af[mi], bf[ni]);
   }
 }
 
@@ -137,14 +127,11 @@ constexpr int KLOOP_SMEM_BYTES = 2 * KLOOP_STAGE_BYTES;
 // The K loop of one block: part += A[m0, m0 + 128) . B[n0, n0 + 128)^T over
 // rows of `row_bytes` bytes (a multiple of BK; rows of A and B at or past M
 // and N read as zeros), each BK-byte chunk staged by cp.async two stages
-// deep into `smem` (KLOOP_SMEM_BYTES), then after_chunk(kc) once every warp
-// has finished chunk kc (the grouped GEMMs fold a scale group there).
-template <typename T, typename AfterChunk>
+// deep into `smem` (KLOOP_SMEM_BYTES).
 __device__ __forceinline__ void k_loop(const int8_t* __restrict__ a,
                                        const int8_t* __restrict__ b, int M,
                                        int N, int row_bytes, int m0, int n0,
-                                       T (&part)[MI][NI][4], int8_t* smem,
-                                       AfterChunk after_chunk) {
+                                       int (&part)[MI][NI][4], int8_t* smem) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -165,7 +152,6 @@ __device__ __forceinline__ void k_loop(const int8_t* __restrict__ a,
     mma_chunk(sA, sA + TILE_BYTES, part, warp / WARPS_N, warp % WARPS_N,
               lane >> 2, lane & 3);
     __syncthreads();           // the next iteration refills this stage
-    after_chunk(kc);
   }
 }
 
@@ -210,46 +196,6 @@ __device__ __forceinline__ void store_tile(OutT* __restrict__ out, int M,
           if (c + 1 < N) store1(o + 1, v1);
         }
       }
-}
-
-// The full-K epilogue of K3, on the registers:
-//   out[m0 + rl, c] = (float(part) * row_scale(rl)) * wsc[c]
-// as OutT (f32 or bf16) for the warp's fragments, rows masked at M and
-// columns at N.  The two multiplies keep JAX's order; there is no add to
-// contract into an FMA.
-template <typename OutT, typename RowScale>
-__device__ __forceinline__ void store_rescaled(
-    OutT* __restrict__ out, const int (&part)[MI][NI][4],
-    const float* __restrict__ wsc, int M, int N, int m0, int n0, int wm,
-    int wn, int g, int t, RowScale row_scale) {
-  const bool pairs = (N % 2) == 0;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rl = frag_row(wm, mi, g, 2 * h);
-      const int r = m0 + rl;
-      if (r >= M) continue;
-      const float rs = row_scale(rl);
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int c = n0 + frag_col(wn, ni, t, 0);
-        const float v0 = c < N ? static_cast<float>(part[mi][ni][2 * h]) *
-                                     rs * __ldg(wsc + c)
-                               : 0.f;
-        const float v1 = c + 1 < N
-                             ? static_cast<float>(part[mi][ni][2 * h + 1]) *
-                                   rs * __ldg(wsc + c + 1)
-                             : 0.f;
-        OutT* o = out + static_cast<size_t>(r) * N + c;
-        if (pairs && c + 1 < N) {
-          store2(o, v0, v1);
-        } else {
-          if (c < N) store1(o, v0);
-          if (c + 1 < N) store1(o + 1, v1);
-        }
-      }
-    }
 }
 
 }  // namespace int8mma

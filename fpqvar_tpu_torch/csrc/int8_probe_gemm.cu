@@ -43,7 +43,7 @@ int8_probe_gemm_kernel(const int8_t* __restrict__ a,
   const int n0 = blockIdx.x * BN;
   int acc[MI][NI][4];
   zero(acc);
-  k_loop(a, b, M, N, K, m0, n0, acc, smem, [](int) {});
+  k_loop(a, b, M, N, K, m0, n0, acc, smem);
   // int32 -> f32 (nearest even), then store_tile rounds to bf16
   store_tile(out, M, N, m0, n0, [&](int mi, int ni, int e) {
     return __int2float_rn(acc[mi][ni][e]);

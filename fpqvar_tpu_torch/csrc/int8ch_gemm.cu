@@ -7,16 +7,20 @@
 // The port runs it on fc2 of the int8ch recipe: the dual-grid activation
 // codes are made outside (quant_int_codes_dual), and each half is one launch
 // with f32 output; the two halves are summed before the cast.  Operands:
-// ac [M,K] int8 row-major, asc [M,1] f32, wc [N,K] int8 (K-contiguous, as
-// mma.sync wants its B operand), wsc [1,N] f32.  K a multiple of 128.
+// ac [M,K] int8 row-major, asc [M,1] f32, wc [N,K] int8 (the weight's own
+// (out, in) layout: the s8 wgmma wants both operands K-major), wsc [1,N]
+// f32.  K a multiple of 128.
 //
-// Design.  The K loop of int8_mma.cuh (k_loop): one 128x128 output tile per
-// block, K walked in 128-wide chunks, cp.async two stages deep, mma.sync
-// m16n8k32 s8 x s8 -> s32.  Unlike K1 the int32 sum runs over the whole K
-// (one scale per row and per column), so the f32 epilogue happens once, on
-// the registers, before the one store: no [M, N] int32 or f32 pass is
-// written to device memory.  Ragged M and N are zero-filled on load and
-// masked on store.
+// Design.  K4's phase (b) (fused_ch_gemm.cu) computes this function on the
+// codes its phase (a) made, so K3 is the same GEMM: the s8 instantiation
+// of wgmma_gemm.cuh (TMA loads of 128-byte K chunks into a four-stage
+// ring, two consumer warpgroups on wgmma m64n256k32 s8 x s8 -> s32 over
+// 128 x 256 tiles, a persistent grid), whose epilogue is the rescale of
+// ch_rescale.cuh reading asc where K4 reads its own row scales.  The int32
+// sum runs over the whole K (one scale per row and per column), so the
+// epilogue happens once, on the registers, before the TMA store: no
+// [M, N] int32 or f32 pass is written to device memory.  TMA fills the
+// rows and columns past M and N with zeros on load and clips the store.
 //
 // Exactness.  |code| <= 64 on both sides, so at K <= 4096 every partial
 // sum is an integer of magnitude <= 2^24: the int32 sum and its f32
@@ -26,64 +30,33 @@
 //
 // Bound on an H100 SXM.  At fc2 of VAR-d16's last scale at batch 8
 // (M = 4096, K = 4096, N = 1024) the GEMM is 34 GOP, 17.4 us at the
-// 1,979 TOP/s int8 peak, against 36 MB moved (16 MB of codes each side and
-// 16 MB of f32 output), 10.8 us at 3.35 TB/s: operations bound it.  This
-// first version uses mma.sync without wgmma or TMA (PERF.md has its times).
-#include "int8_mma.cuh"
-
-using namespace int8mma;
+// 1,979 TOP/s int8 peak, against 36 MB moved (16 MB of activation codes,
+// 4 MB of weight codes and 16 MB of f32 output), 10.8 us at 3.35 TB/s:
+// operations bound it.
+// PERF.md has its times.
+#include "ch_rescale.cuh"
 
 namespace {
 
+// K3's epilogue: the per-channel rescale, under a name of its own.
 template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-int8ch_gemm_kernel(const int8_t* __restrict__ ac,
-                   const float* __restrict__ asc,
-                   const int8_t* __restrict__ wc,
-                   const float* __restrict__ wsc,
-                   OutT* __restrict__ out, int M, int N, int K) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  int part[MI][NI][4];
-  zero(part);
-  k_loop(ac, wc, M, N, K, m0, n0, part, smem, [](int) {});
-  store_rescaled(out, part, wsc, M, N, m0, n0, warp / WARPS_N,
-                 warp % WARPS_N, lane >> 2, lane & 3,
-                 [&](int rl) { return __ldg(asc + m0 + rl); });
-}
-
-template <typename OutT>
-int launch(const void* ac, const void* asc, const void* wc, const void* wsc,
-           void* out, int M, int N, int K, cudaStream_t stream) {
-  cudaError_t e = opt_in_smem<int8ch_gemm_kernel<OutT>>(KLOOP_SMEM_BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8ch_gemm_kernel<OutT><<<grid, THREADS, KLOOP_SMEM_BYTES, stream>>>(
-      static_cast<const int8_t*>(ac), static_cast<const float*>(asc),
-      static_cast<const int8_t*>(wc), static_cast<const float*>(wsc),
-      static_cast<OutT*>(out), M, N, K);
-  return static_cast<int>(cudaGetLastError());
-}
+struct Int8ChRescale : ch_rescale::RowColRescale<OutT> {};
 
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // The code pointers must be 16-byte aligned and K % 128 == 0 (every code row
-// is a whole number of 16-byte chunks).  out_bf16: 1 for a bf16 output,
+// is a whole number of 128-byte chunks).  out_bf16: 1 for a bf16 output,
 // 0 for f32.
 extern "C" int int8ch_gemm(const void* ac, const void* asc, const void* wc,
                            const void* wsc, void* out, int M, int N, int K,
                            int out_bf16, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % BK != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? launch<__nv_bfloat16>(ac, asc, wc, wsc, out, M, N, K, s)
-                  : launch<float>(ac, asc, wc, wsc, out, M, N, K, s);
+  return static_cast<int>(
+      out_bf16 ? ch_rescale::launch<Int8ChRescale<__nv_bfloat16>>(
+                     ac, asc, wc, wsc, out, M, N, K, s)
+               : ch_rescale::launch<Int8ChRescale<float>>(ac, asc, wc, wsc,
+                                                          out, M, N, K, s));
 }
 
 extern "C" const char* int8ch_gemm_error_string(int code) {

@@ -1,7 +1,8 @@
 // The TMA + wgmma GEMM pipeline for Hopper (sm_90a) shared by K7
-// (bf16_probe_gemm.cu: bf16 x bf16 -> f32), K4's GEMM phase
-// (fused_ch_gemm.cu: s8 x s8 -> s32) and K1 (int8_group_gemm.cu: s8 x s8
-// -> s32 per scale group, folded into f32):
+// (bf16_probe_gemm.cu: bf16 x bf16 -> f32), K4's GEMM phase and K3
+// (fused_ch_gemm.cu, int8ch_gemm.cu: s8 x s8 -> s32, the rescale of
+// ch_rescale.cuh) and K1 and K5 (int8_group_gemm.cu, int8_nd_gemm.cu: s8 x
+// s8 -> s32 per scale group, folded into f32 by group_fold.cuh):
 //
 //   acc[m,n] = sum_k a[m,k] * b[n,k]    a [M, K], b [N, K], both K-contiguous
 //
@@ -10,13 +11,13 @@
 // transposed.  A sibling kernel further down (rs_gemm_kernel, K2:
 // packed_dequant_gemm.cu) takes its A operand from registers instead.
 //
-// Group fold (K1).  An epilogue functor with a member fold() turns the
+// Group fold (K1, K5).  An epilogue functor with a member fold() turns the
 // wgmma sum into a per-group part: the first wgmma of each scale group
 // runs with scale-d = 0 (the part starts afresh), and once the group's
 // wgmmas have retired the functor folds the part into an f32 sum of its
-// own (acc += part * scales), which the epilogue then stores.  K1 runs
-// with BN = 128 (a template parameter), so that the int32 part and the f32
-// sum (64 + 64 registers a thread) fit in a consumer's 232 registers.
+// own (acc += part * scales), which the epilogue then stores.  K1 and K5
+// run with BN = 128 (a template parameter), so that the int32 part and the
+// f32 sum (64 + 64 registers a thread) fit in a consumer's registers.
 //
 // Design.  A persistent grid (one block per SM) walks the BM x BN output
 // tiles (128 x 256) in row-major order, N fastest, so the tiles in flight
@@ -51,15 +52,15 @@
 // f32 values v (exact for the s32 sums, which stay below 2^24).  The
 // instantiation's functor, epi(v, j0, j1, row, col, M, N), with (row, col)
 // the position of v[0], may rescale column blocks [j0, j1) of v in place
-// (K4; K7 keeps the sums).  The pipeline calls it one output box at a
-// time, just before it stores the box as Epi::Out (bf16, rounded to
-// nearest even, or f32), so whatever the functor loads stays live for one
-// box only.  Where a row of the output is a multiple of 16 bytes, each
-// warpgroup writes its slab through a 16 KB staging area in shared memory
-// (two 64-row x 128-byte boxes, 128-byte swizzled, so the fragment's
-// writes hit 32 banks) and one thread sends each box out with a TMA store,
-// which clips at M and N and leaves the warpgroup free to start its next
-// tile.  (Stored straight from the registers, the fragment's scattered
+// (K3, K4; K7 keeps the sums, and K1 and K5 folded their scales in
+// already).  The pipeline calls it one output box at a time, just before
+// it stores the box as Epi::Out (bf16, rounded to nearest even, or f32),
+// so whatever the functor loads stays live for one box only.  Where a row
+// of the output is a multiple of 16 bytes, each warpgroup writes its slab
+// through a 16 KB staging area in shared memory (two 64-row x 128-byte
+// boxes, 128-byte swizzled, so the fragment's writes hit 32 banks) and one
+// thread sends each box out with a TMA store, which clips at M and N and
+// leaves the warpgroup free to start its next tile.  (Stored straight from the registers, the fragment's scattered
 // 4-byte writes held the consumers, and so the tensor cores, for much of
 // each tile.)  Other widths store the column pairs directly
 // (for_each_pair).
@@ -113,7 +114,7 @@ struct S8 {
   static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
 };
 
-constexpr int BN = 256;                  // columns of an output tile (K4, K7)
+constexpr int BN = 256;                    // tile columns (K3, K4, K7)
 constexpr int STAGES = 4;
 constexpr int ACC = BN / 2;                // accumulators per consumer thread
 constexpr int BOX_BYTES = 64 * 128;        // one output box: 64 x 128 bytes
@@ -454,7 +455,7 @@ __device__ __forceinline__ void store_slab(const Epi& epi,
   }
 }
 
-// An epilogue functor that folds scale groups (K1) has chunks_per_group,
+// An epilogue functor that folds scale groups (K1, K5) has chunks_per_group,
 // load_scales(group, row, col, M, N), called before the group's wgmmas are
 // issued, and fold(acc, part, scales), after they retire.
 template <typename T, typename = void>

@@ -12,16 +12,15 @@ K3 (``int8ch_gemm_ref``) and K4 (``fused_ch_gemm_ref``) exactly equal
 (the full-K int32 dot is exact and the epilogue runs the same two
 multiplies), for float32 and bfloat16 outputs, the four K4 formats,
 bfloat16 and float32 ``x``, an all-zero row, one K chunk (K = 128) and
-K = 4096.  K5
-(``int8_group_gemm_nd_ref``) within K1's bound plus one bfloat16 gap for a
-bfloat16 output, on ``[B, T, K]`` codes with ragged T and N, and equal to
-K1 followed by a cast; K6 (``int8_probe_gemm_ref``) exactly equal, sums
-above 2^24 included; K7 (``bf16_probe_gemm_ref``) within
-``K7_TOL_PER_K * K * sum_k |a*b|`` plus one bfloat16 gap, at one K chunk
-(K = 64), K = 4096, ragged M and N and 4096^3.  K1, K2, K4 and K7 run the
-TMA + wgmma pipeline, whose barriers hang the card if their phases are
-wrong (a wait longer than 4 s traps instead); run the file under
-``timeout``.
+K = 4096.  K5 (``int8_group_gemm_nd_ref``) within K1's bound plus one
+bfloat16 gap for a bfloat16 output, on ``[B, T, K]`` codes with ragged T
+and N, groups of 128 and 256, and equal to K1 followed by a cast; K6
+(``int8_probe_gemm_ref``) exactly equal, sums above 2^24 included; K7
+(``bf16_probe_gemm_ref``) within ``K7_TOL_PER_K * K * sum_k |a*b|`` plus
+one bfloat16 gap, at one K chunk (K = 64), K = 4096, ragged M and N and
+4096^3.  K1, K2, K3, K4, K5 and K7 run the TMA + wgmma pipeline, whose
+barriers hang the card if their phases are wrong (a wait longer than 4 s
+traps instead); run the file under ``timeout``.
 
 The tests are marked ``cuda`` and skip without a CUDA device.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -133,6 +132,8 @@ def test_cuda_k2_matches_plain(cuda_device, fmt, m, k, n, dtype, group):
     (16, 1024, 1000, torch.bfloat16),      # ragged M and N
     (37, 640, 384, torch.float32),
     (1, 128, 7, torch.float32),
+    (16, 4096, 1000, torch.float32),       # ragged M and N at K = 4096
+    (300, 128, 700, torch.bfloat16),       # one K chunk
 ])
 def test_cuda_k3_equals_plain(cuda_device, m, k, n, out_dtype):
     rng = np.random.default_rng(6)
@@ -291,15 +292,33 @@ def test_cuda_k2_reuses_the_weight_tensor_map(cuda_device):
     (16, 9, 1024, 1000, torch.bfloat16),       # ragged T and N
     (3, 33, 640, 384, torch.float32),
     (3, 1, 128, 7, torch.bfloat16),            # tiny
+    (16, 1, 1024, 3072, torch.bfloat16),       # d16 qkv, first scale
 ])
 def test_cuda_k5_matches_plain(cuda_device, b, t, k, n, out_dtype):
+    _check_k5(cuda_device, b, t, k, n, out_dtype, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,k,n,out_dtype", [
+    (16, 256, 1024, 3072, torch.bfloat16),     # d16 qkv, two chunks a group
+    (16, 256, 4096, 1024, torch.float32),      # d16 fc2's shape, G = 16
+    (3, 9, 512, 130, torch.float32),           # rows of 520 bytes
+])
+def test_cuda_k5_groups_of_256_match_plain(cuda_device, b, t, k, n,
+                                           out_dtype):
+    _check_k5(cuda_device, b, t, k, n, out_dtype, 256)
+
+
+def _check_k5(device, b, t, k, n, out_dtype, group):
+    """K5 within its tolerance of the plain version, and equal to K1
+    followed by a cast."""
     rng = np.random.default_rng(8)
     x = rng.standard_normal((b, t, k)).astype(np.float32)
     w = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
-    ac, asc = P.quant_int_codes(torch.from_numpy(x).to(cuda_device),
-                                "fp_e2", 128)
-    pw = P.pack_int_codes(torch.from_numpy(w).to(cuda_device), "fp_e2", 128)
-    ops = (ac, asc, pw.codes, pw.scales, 128, out_dtype)
+    ac, asc = P.quant_int_codes(torch.from_numpy(x).to(device), "fp_e2",
+                                group)
+    pw = P.pack_int_codes(torch.from_numpy(w).to(device), "fp_e2", group)
+    ops = (ac, asc, pw.codes, pw.scales, group, out_dtype)
     before = K.nd_launches
     ours = K.int8_group_gemm_nd(*ops)
     torch.cuda.synchronize()
@@ -309,7 +328,7 @@ def test_cuda_k5_matches_plain(cuda_device, b, t, k, n, out_dtype):
     tol = K.int8_group_gemm_nd_tolerance(*ops)
     assert bool(((ours.float() - ref.float()).abs() <= tol).all())
     k1 = K.int8_group_gemm(ac.reshape(b * t, k), asc.reshape(b * t, -1),
-                           pw.codes, pw.scales, 128)
+                           pw.codes, pw.scales, group)
     assert torch.equal(ours.reshape(b * t, n), k1.to(out_dtype))
 
 
