@@ -12,9 +12,9 @@ non-zero:
    csrc`` with nvcc for sm_90a, one nvcc per source, all started together,
    prints each kernel's build time, registers and spills, and counts the
    warpgroup MMA instructions (``HGMMA``, ``IGMMA``) in each library's SASS
-   (``cuobjdump -sass``): K2 and K7 must hold ``HGMMA``, K1, K3, K4 and K5
-   ``IGMMA``, and ptxas must not have serialized the wgmmas of any of them
-   (its "wgmma ... serialized" warning);
+   (``cuobjdump -sass``): K2 and K7 must hold ``HGMMA``, K1, K3, K4, K5
+   and K6 ``IGMMA``, and ptxas must not have serialized the wgmmas of any
+   of them (its "wgmma ... serialized" warning);
 3. kernels: K1 (the grouped int8 GEMM), K2 (the dequantize-in-register
    GEMM over packed fp4 / fp6 codes), K3 (the full-K int8 GEMM with fused
    rescale), K4 (per-token quantize inside the full-K int8 GEMM), K5 (K1's
@@ -31,19 +31,23 @@ non-zero:
 4. small reference: small generations (width 256, so every grouped linear
    has more than one scale group) under ``int8``, ``bf16``, ``packed``,
    ``w4a16p``, W6A6 on the packed backend, ``fake``, ``int8ch``,
-   ``int8chs``, ``int8chsnr`` and ``w4a16``, on the card against the same
-   generations on the CPU;
+   ``int8chs``, ``int8chsnr``, ``w4a16``, ``int8kv`` and ``int8att``, on
+   the card against the same generations on the CPU: the same tokens at
+   every scale, images within 1e-4;
 5. main path: VAR-d16 with the full d16 VQVAE, random seeded weights,
    ``quantize_var_params`` and ``VARGenerator.generate`` for two batches of
    8 labels under ``int8``, ``bf16``, ``packed``, ``w4a16p``, ``int8ch``,
-   ``int8chs``, ``int8chsnr`` and ``w4a16``; checks images and each
-   recipe's kernel launch counts and prints img/s and the host thread's
-   CPU time inside each ``generate`` call;
+   ``int8chs``, ``int8chsnr``, ``w4a16``, ``int8kv`` and ``int8att``;
+   checks images and each recipe's kernel launch counts and prints img/s,
+   the host thread's CPU time inside each ``generate`` call, the KV cache's
+   bytes and the peak of device memory the generations allocated above
+   what was resident before them (weights and earlier recipes' leftovers);
 6. profile: one more batch-8 generation under ``int8``, ``bf16``,
-   ``packed``, ``int8ch`` and ``int8chs`` under torch.profiler, after the
-   launch counts were read: device busy time, idle share, the port
-   kernels' shares (K4's two kernels apart) and the kernels that take the
-   most device time (the source of PERF.md's "Where the time goes");
+   ``packed``, ``int8ch``, ``int8chs`` and ``int8kv`` under
+   torch.profiler, after the launch counts were read: device busy time,
+   idle share, the port kernels' shares (K4's two kernels apart) and the
+   kernels that take the most device time (the source of PERF.md's "Where
+   the time goes");
 7. serving: the d16 ``int8`` and ``bf16`` generators of phase 5 behind a
    ``GenerationServer`` (max_batch 8): one request alone, then a burst of
    20 with that request again inside it; images finite in [0, 1], the
@@ -80,7 +84,8 @@ KERNEL_SOURCES = ("int8_group_gemm", "packed_dequant_gemm", "int8ch_gemm",
 #: the sources whose GEMMs run on wgmma, and the SASS instruction of it
 WGMMA_SOURCES = {"int8_group_gemm": "IGMMA", "packed_dequant_gemm": "HGMMA",
                  "int8ch_gemm": "IGMMA", "fused_ch_gemm": "IGMMA",
-                 "int8_nd_gemm": "IGMMA", "bf16_probe_gemm": "HGMMA"}
+                 "int8_nd_gemm": "IGMMA", "int8_probe_gemm": "IGMMA",
+                 "bf16_probe_gemm": "HGMMA"}
 #: the last scale's block linears of VAR-d16 at batch 8: (name, M, K, N)
 D16_SHAPES = (("qkv", 4096, 1024, 3072), ("proj", 4096, 1024, 1024),
               ("fc1", 4096, 1024, 4096), ("fc2", 4096, 4096, 1024))
@@ -627,7 +632,8 @@ def _small_recipes():
 
     recipes = {m: bench_recipes()[m]
                for m in ("int8", "bf16", "packed", "w4a16p", "fake", "int8ch",
-                         "int8chs", "int8chsnr", "w4a16")}
+                         "int8chs", "int8chsnr", "w4a16", "int8kv",
+                         "int8att")}
     recipes["w6a6-packed"] = fpqvar_w6a6().replace(backend="packed")
     return recipes
 
@@ -635,10 +641,23 @@ def _small_recipes():
 def phase_small_reference():
     """Width-256 generations (every grouped linear has more than one scale
     group) on the card against the same generations on the CPU, at top_k=1
-    and float32 compute."""
+    and float32 compute: the sampled tokens of every scale must be the
+    same, and the images within 1e-4.
+
+    ``int8att`` rounds q and the softmax weights to int8 codes, so a
+    last-bit difference between the card's and the CPU's float32 scores
+    (sums in another order) can move one code by one step, 1/127 of its
+    row's absmax: a shift of the logits' last bits that changes an argmax
+    only where two logits lie that close.  Its images need no wider
+    bound than the others': at top_k=1 with the same tokens, ``f_hat`` and
+    the image depend on the tokens alone, through the VQVAE, whose float32
+    convolutions the 1e-4 bound covers.  So the phase holds the tokens
+    identical for every recipe and prints the largest logit difference
+    beside the images' (for ``int8att`` the trace of such steps)."""
     from fpqvar_tpu_torch.config import GenerateConfig, var_tiny
     from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                          init_vqvae_params)
+    from fpqvar_tpu_torch.models import var as V
     from fpqvar_tpu_torch.quantize import quantize_var_params
 
     cfg = dataclasses.replace(var_tiny(), embed_dim=256, num_heads=4)
@@ -648,19 +667,42 @@ def phase_small_reference():
     params = init_var_params(cfg, seed=4, device="cpu", adaln_gamma_std=0.02)
     vae = init_vqvae_params(cfg.vae, seed=5, device="cpu")
     labels = [3, 5, 7]
-    for mode, q in _small_recipes().items():
-        out = {}
-        for dev in ("cpu", "cuda"):
-            qp = quantize_var_params(_to(params, dev), cfg, q, galt=galt)
-            g = VARGenerator(cfg, q, GenerateConfig(top_k=1, top_p=0.0),
-                             cache_dtype=torch.float32,
-                             compute_dtype=torch.float32, device=dev)
-            out[dev] = g.generate(qp, _to(vae, dev), labels).cpu()
-        err = float((out["cpu"] - out["cuda"]).abs().max())
-        if out["cuda"].shape != (3, 3, 6, 6) or not err <= 1e-4:
-            fail(f"small {mode} generation: card vs CPU max err {err}")
-        print(f"small reference: {mode} width-256 generation, card vs CPU "
-              f"images max err {err:.3e} (tol 1e-4)")
+    sample = V.sample_with_top_k_top_p
+    seen = []
+
+    def recorded(logits, *args, **kw):
+        idx = sample(logits, *args, **kw)
+        seen.append((idx.cpu(), logits.float().cpu()))
+        return idx
+
+    V.sample_with_top_k_top_p = recorded
+    try:
+        for mode, q in _small_recipes().items():
+            out, steps = {}, {}
+            for dev in ("cpu", "cuda"):
+                qp = quantize_var_params(_to(params, dev), cfg, q, galt=galt)
+                g = VARGenerator(cfg, q, GenerateConfig(top_k=1, top_p=0.0),
+                                 cache_dtype=torch.float32,
+                                 compute_dtype=torch.float32, device=dev)
+                seen.clear()
+                out[dev] = g.generate(qp, _to(vae, dev), labels).cpu()
+                steps[dev] = list(seen)
+            err = float((out["cpu"] - out["cuda"]).abs().max())
+            if out["cuda"].shape != (3, 3, 6, 6) or not err <= 1e-4:
+                fail(f"small {mode} generation: card vs CPU max err {err}")
+            if len(steps["cuda"]) != cfg.num_scales or not all(
+                    torch.equal(a[0], b[0])
+                    for a, b in zip(steps["cpu"], steps["cuda"])):
+                fail(f"small {mode} generation: card and CPU sampled other "
+                     "tokens at top_k=1")
+            lerr = max(float((a[1] - b[1]).abs().max())
+                       for a, b in zip(steps["cpu"], steps["cuda"]))
+            print(f"small reference: {mode} width-256 generation, card vs "
+                  f"CPU: tokens identical at all {cfg.num_scales} scales, "
+                  f"logits max diff {lerr:.3e}, images max err {err:.3e} "
+                  "(tol 1e-4)")
+    finally:
+        V.sample_with_top_k_top_p = sample
 
 
 def _to(tree, dev):
@@ -680,7 +722,7 @@ COUNTERS = {"K1": ("int8_matmul", "launches"),
             "K6": ("probe_gemm", "int8_launches"),
             "K7": ("probe_gemm", "bf16_launches")}
 #: the recipes profiled after the main path (phase 6)
-PROFILED = ("int8", "bf16", "packed", "int8ch", "int8chs")
+PROFILED = ("int8", "bf16", "packed", "int8ch", "int8chs", "int8kv")
 
 
 def _counter_modules():
@@ -705,8 +747,10 @@ def phase_main_path(card: str):
     """Each recipe's generations with every launch count set to 0 just
     before them and read just after: K1 and K5 run exactly under ``int8``,
     K2 exactly under ``packed`` and ``w4a16p``, K3 and K4 exactly under the
-    per-channel recipes, K6 and K7 under none.  Returns the launch totals,
-    the profiled recipes' (gen, params, generator) and the VQVAE params."""
+    per-channel recipes (``int8kv`` and ``int8att`` as ``int8ch``: the
+    packed KV cache adds no kernel), K6 and K7 under none.  Returns the
+    launch totals, the profiled recipes' (gen, params, generator) and the
+    VQVAE params."""
     from fpqvar_tpu_torch.config import GenerateConfig, bench_recipes, var_d16
     from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                          init_vqvae_params)
@@ -730,7 +774,8 @@ def phase_main_path(card: str):
     # GEMMs (dual grid); packed fake-quantizes fc2's dual grid first and
     # runs one K2 GEMM; int8ch runs K4 on qkv, proj and fc1 and fc2's dual
     # grid as two K3 GEMMs; int8chs and int8chsnr run K4 on all four; w4a16
-    # runs no kernel (wonly_dot)
+    # runs no kernel (wonly_dot); int8kv and int8att are int8ch with the
+    # packed KV cache
     none = {k: 0 for k in COUNTERS}
     per_gen = {"int8": {**none, "K1": blocks * 2, "K5": blocks * 3},
                "bf16": none,
@@ -739,7 +784,9 @@ def phase_main_path(card: str):
                "int8ch": {**none, "K3": blocks * 2, "K4": blocks * 3},
                "int8chs": {**none, "K4": blocks * 4},
                "int8chsnr": {**none, "K4": blocks * 4},
-               "w4a16": none}
+               "w4a16": none,
+               "int8kv": {**none, "K3": blocks * 2, "K4": blocks * 3},
+               "int8att": {**none, "K3": blocks * 2, "K4": blocks * 3}}
     totals = dict(none)
     results, setups = {}, {}
     for mode in per_gen:
@@ -752,6 +799,10 @@ def phase_main_path(card: str):
         rng_gen = torch.Generator(device="cuda")
         rng_gen.manual_seed(3)
         times, host_cpu = [], []
+        kv_bytes = sum(t.nbytes for t in gen.init_cache(batch).values())
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         reset_counts()
         for i in range(n_batches):
             labels = torch.arange(i * batch, (i + 1) * batch, device="cuda")
@@ -771,6 +822,7 @@ def phase_main_path(card: str):
             if lo < 0.0 or hi > 1.0:
                 fail(f"{mode}: image values outside [0, 1]: {lo}, {hi}")
         counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - resident
         for kern, n in counts.items():
             want = per_gen[mode][kern] * n_batches
             if n != want:
@@ -786,8 +838,11 @@ def phase_main_path(card: str):
               f"warm-up), host CPU ms in generate "
               f"{', '.join(f'{t * 1e3:.1f}' for t in host_cpu)}; steady "
               f"{batch / steady:.2f} img/s; launches per "
-              f"generation {per}; images [{batch}, 3, 256, 256] finite in "
-              f"[0, 1]; on {card}")
+              f"generation {per}; KV cache {kv_bytes} bytes "
+              f"({kv_bytes / 1e6:.1f} MB), peak allocated above the "
+              f"{resident / 1e9:.3f} GB resident before the generations "
+              f"{peak} bytes ({peak / 1e9:.3f} GB); images [{batch}, 3, 256, "
+              f"256] finite in [0, 1]; on {card}")
         if mode in PROFILED:
             setups[mode] = (gen, qp, rng_gen)
     print("main path: steady time against bf16: " + ", ".join(

@@ -124,6 +124,17 @@ class QuantConfig:
     quantize_ada: bool = False
     ada_format: str = "auto"
 
+    def resolved_kv_format(self) -> str:
+        """The KV cache's format: ``kv_format``, or by ``kv_bit`` (6:
+        ``fp6_e2m3``, 4: ``fp_e2``, else ``int_sym``)."""
+        if self.kv_format != "auto":
+            return self.kv_format
+        if self.kv_bit == 6:
+            return "fp6_e2m3"
+        if self.kv_bit == 4:
+            return "fp_e2"
+        return "int_sym"
+
     def replace(self, **kw) -> "QuantConfig":
         return dataclasses.replace(self, **kw)
 
@@ -166,9 +177,7 @@ def fpqvar_w6a6() -> QuantConfig:
 
 
 def bench_recipes() -> dict:
-    """The execution modes the port runs so far (the JAX package's
-    ``bench_recipes`` also has ``int8kv`` and ``int8att``; they come with a
-    later slice):
+    """The execution modes of the JAX package's ``bench_recipes``:
 
       bf16      unquantized baseline
       fake      the paper's W4A4 recipe as exact fp4 values: activations
@@ -191,6 +200,11 @@ def bench_recipes() -> dict:
                 unquantized (``wonly_dot``, no kernel)
       w4a16p    weights-only nibble-packed fp4 codes through K2, activations
                 unquantized
+      int8kv    int8ch with a packed KV cache: int8 fp_e2 codes with one
+                f32 scale per (token, head), attention over the codes
+      int8att   int8kv with both attention products as exact integer
+                contractions of int8 codes (q per (token, head), the
+                softmax weights per row)
     """
     base = fpqvar_w4a4()
     return {
@@ -209,6 +223,12 @@ def bench_recipes() -> dict:
         "w4a16": fpqvar_w4a16(),
         "w4a16p": fpqvar_w4a16().replace(backend="packed",
                                          weight_quant="per_group"),
+        "int8kv": base.replace(backend="int8", weight_quant="per_channel",
+                               act_quant="per_token", kv_bit=4,
+                               kv_backend="packed"),
+        "int8att": base.replace(backend="int8", weight_quant="per_channel",
+                                act_quant="per_token", kv_bit=4,
+                                kv_backend="packed", attn_int8=True),
     }
 
 

@@ -1,7 +1,7 @@
 // Host and device helpers shared by the port's CUDA sources: the
-// per-device shared-memory opt-in (int8_mma.cuh's K6, packed_dequant_gemm.cu's
-// f32 K2, wgmma_gemm.cuh's K1, K2, K3, K4, K5 and K7) and the f32 / bf16
-// output stores of the epilogues.
+// per-device shared-memory opt-in (packed_dequant_gemm.cu's f32 K2,
+// wgmma_gemm.cuh's K1 to K7) and the f32 / bf16 column-pair stores of the
+// pipeline's direct-store epilogue.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,8 +1,9 @@
 // The TMA + wgmma GEMM pipeline for Hopper (sm_90a) shared by K7
-// (bf16_probe_gemm.cu: bf16 x bf16 -> f32), K4's GEMM phase and K3
+// (bf16_probe_gemm.cu: bf16 x bf16 -> f32), K4's GEMM phase, K3 and K6
 // (fused_ch_gemm.cu, int8ch_gemm.cu: s8 x s8 -> s32, the rescale of
-// ch_rescale.cuh) and K1 and K5 (int8_group_gemm.cu, int8_nd_gemm.cu: s8 x
-// s8 -> s32 per scale group, folded into f32 by group_fold.cuh):
+// ch_rescale.cuh; int8_probe_gemm.cu: the s32 sums stored as bf16) and K1
+// and K5 (int8_group_gemm.cu, int8_nd_gemm.cu: s8 x s8 -> s32 per scale
+// group, folded into f32 by group_fold.cuh):
 //
 //   acc[m,n] = sum_k a[m,k] * b[n,k]    a [M, K], b [N, K], both K-contiguous
 //
@@ -49,11 +50,15 @@
 // m16n8 fragment layout, repeated over BN / 8 column blocks.
 //
 // Epilogue.  Once per tile, each consumer thread converts its fragment to
-// f32 values v (exact for the s32 sums, which stay below 2^24).  The
-// instantiation's functor, epi(v, j0, j1, row, col, M, N), with (row, col)
-// the position of v[0], may rescale column blocks [j0, j1) of v in place
-// (K3, K4; K7 keeps the sums, and K1 and K5 folded their scales in
-// already).  The pipeline calls it one output box at a time, just before
+// f32 values v.  An s32 sum converts with static_cast<float>
+// (cvt.rn.f32.s32, nearest even): exact for K3's and K4's sums (|code| <=
+// 64 and K <= 4096 keep them within 2^24), rounded for K6's, whose full
+// int8 codes reach 2^26 at K = 4096 (the first of the two roundings of
+// PyTorch's and JAX's int32 -> bf16 conversion; the bf16 store is the
+// second).  The instantiation's functor, epi(v, j0, j1, row, col, M, N),
+// with (row, col) the position of v[0], may rescale column blocks [j0, j1)
+// of v in place (K3, K4; K6 and K7 keep the sums, and K1 and K5 folded
+// their scales in already).  The pipeline calls it one output box at a time, just before
 // it stores the box as Epi::Out (bf16, rounded to nearest even, or f32),
 // so whatever the functor loads stays live for one box only.  Where a row
 // of the output is a multiple of 16 bytes, each warpgroup writes its slab

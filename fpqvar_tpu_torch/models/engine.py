@@ -33,6 +33,13 @@ class VARGenerator:
         self.compute_dtype = compute_dtype
         self.statics = V.GenStatics.all_steps(cfg)
 
+    def init_cache(self, batch: int) -> dict:
+        """The KV cache of a ``batch``-label generation (CFG doubles the
+        rows): dense in ``cache_dtype``, or packed under the recipe's KV
+        codec."""
+        return V.init_kv_cache(self.cfg, 2 * batch, self.cache_dtype,
+                               self.device, self.qrt.kv_codec)
+
     @torch.inference_mode()
     def generate(self, params, vae_params, label_B,
                  generator: Optional[Generators] = None,
@@ -58,7 +65,7 @@ class VARGenerator:
         x = x.to(self.compute_dtype)
         mod = mod.to(self.compute_dtype)
         lvl_pos = lvl_pos.to(self.compute_dtype)
-        cache = V.init_kv_cache(cfg, 2 * b, self.cache_dtype, self.device)
+        cache = self.init_cache(b)
         hw = cfg.patch_nums[-1]
         f_hat = torch.zeros((b, cfg.vae.z_channels, hw, hw),
                             dtype=torch.float32, device=self.device)

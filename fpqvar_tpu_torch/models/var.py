@@ -1,9 +1,11 @@
-"""VAR next-scale-prediction transformer, dense-cache generation path.
+"""VAR next-scale-prediction transformer, the generation path.
 
 Plain functions over the JAX package's params tree (block parameters
 stacked along a leading depth axis, weights (out, in)); the layer loop is a
-Python loop over depth, and the preallocated KV cache ``[depth, 2B, L, H*c]``
-is written in place, one block's new rows at a time.
+Python loop over depth, and the preallocated KV cache is written in place,
+one block's new rows at a time: dense ``[depth, 2B, L, H*c]``, or packed
+(int8 codes and float32 scales per (token, head), head-major) when the
+recipe has a KV codec.
 """
 from __future__ import annotations
 
@@ -24,8 +26,15 @@ from fpqvar_tpu_torch.ops.hadamard import apply_block_hadamard
 from fpqvar_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_dual
 from fpqvar_tpu_torch.ops.packing import DUAL_CODE_MULT, IntPack, PackedTensor
 from fpqvar_tpu_torch.ops.quant_matmul import packed_linear
+from fpqvar_tpu_torch.ops.quantizers import safe_scale
 
 MAX_SCALE_MUL = math.log(100.0)
+#: 1/127 rounded to float32: under ``jit`` XLA turns ``a / 127.0`` into
+#: ``a * f32(1/127)``, and JAX's engine runs jitted
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+#: a float32 sum of integers is exact while every partial sum stays within
+#: 2^24
+EXACT_F32_INT = 2 ** 24
 
 
 def linear(x: torch.Tensor, w, b=None) -> torch.Tensor:
@@ -70,6 +79,95 @@ def _attention(q, k, v, attn_bias: Optional[torch.Tensor]):
     return torch.einsum("bhlm,bmhc->blhc", probs, v).reshape(b, l, h * c)
 
 
+def int8_row_codes(t: torch.Tensor):
+    """``attn_int8``'s quantizer, per row of the last dim: (codes int8,
+    scales f32 ``[..., 1]``) with scale ``absmax * f32(1/127)`` (1 for an
+    all-zero row) and code ``round(t / scale)``, a true division rounded
+    half to even, as JAX's jitted ``jnp.round(t / s)``."""
+    tf = t.to(torch.float32)
+    s = safe_scale(tf.abs().amax(dim=-1, keepdim=True), INV_127)
+    return torch.round(tf / s).to(torch.int8), s
+
+
+def check_int8_attention_exact(head_dim: int, m: int, max_code: int):
+    """``attn_int8`` runs its two integer contractions as float32 matmuls
+    of the codes, which is exact while every partial sum stays within
+    2^24: q . k over ``head_dim`` terms and p . v over ``m`` cached tokens,
+    each term at most 127 * ``max_code``.  Raises past that bound."""
+    worst = 127 * max_code * max(head_dim, m)
+    if worst > EXACT_F32_INT:
+        raise ValueError(
+            f"attn_int8: sums up to 127*{max_code}*{max(head_dim, m)} = "
+            f"{worst} exceed 2^24, where float32 matmuls of the codes stop "
+            "being exact")
+
+
+def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact ``a @ b`` of int8 codes as a float32 matmul (the caller checks
+    the 2^24 bound; TF32 would round the codes' products)."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "attn_int8's integer contractions run as float32 matmuls and "
+            "need TF32 off (torch.backends.cuda.matmul.allow_tf32 = False)")
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def _int8_attention(q, kc, ks, vc, vs, max_code: int, attn_bias):
+    """Attention with both products over int8 codes (JAX's ``attn_int8``):
+    q [B,l,H,c] quantized per (token, head), scores ``(qc . kc) * qs *
+    ks``, softmax, the weights with v's scales folded in quantized per row,
+    output ``(pc . vc) * ps`` [B,l,H*c] float32.  kc/vc [B,H,M,c] int8,
+    ks/vs [B,H,M] f32."""
+    b, l, h, c = q.shape
+    check_int8_attention_exact(c, kc.shape[2], max_code)
+    qc, qs = int8_row_codes(q)                      # [B,l,H,c], [B,l,H,1]
+    scores = _int_matmul(qc.transpose(1, 2), kc.transpose(-1, -2))
+    scores = scores * qs.transpose(1, 2) * ks[:, :, None, :]
+    if attn_bias is not None:
+        scores = scores + attn_bias
+    pv = torch.softmax(scores, dim=-1) * vs[:, :, None, :]
+    pc, ps = int8_row_codes(pv)                     # [B,H,l,M], [B,H,l,1]
+    oup = _int_matmul(pc, vc) * ps                  # [B,H,l,c]
+    return oup.transpose(1, 2).reshape(b, l, h * c)
+
+
+def _packed_attention(q, k, v, qrt, cache, cur: int, attn_bias):
+    """Attention over the packed cache (JAX's packed-KV branch).  This
+    step's keys and values are encoded once, per (token, head), into rows
+    ``[cur, cur + l)`` of the codes and scales in place; attention reads
+    rows ``[0, cur + l)``.  With value codes the scales fold into the score
+    columns (k) and the softmax weights (v), float32 scores and the second
+    product in ``q``'s dtype, or, under ``attn_int8``, both products run
+    over int8 codes; other grids decode to values for ``_attention``.
+    Returns ``[B, l, H*c]`` in ``q``'s dtype (the block's, to which JAX
+    casts ``attn_int8``'s float32 output)."""
+    codec = qrt.kv_codec
+    b, l, h, c = q.shape
+    end = cur + l
+    for t, codes, scales in ((k, "kc", "ks"), (v, "vc", "vs")):
+        tc, ts = codec.encode(t)                    # [B,l,H,c], [B,l,H,1]
+        cache[codes][:, :, cur:end] = tc.transpose(1, 2)
+        cache[scales][:, :, cur:end] = ts[..., 0].transpose(1, 2)
+    kc, vc = cache["kc"][:, :, :end], cache["vc"][:, :, :end]
+    ks, vs = cache["ks"][:, :, :end], cache["vs"][:, :, :end]
+    if not codec.value_codes:
+        def dec(codes, scales):
+            return codec.decode(codes, scales[..., None]).transpose(
+                1, 2).to(q.dtype)
+
+        return _attention(q, dec(kc, ks), dec(vc, vs), attn_bias)
+    if qrt.attn_int8:
+        return _int8_attention(q, kc, ks, vc, vs, codec.max_code,
+                               attn_bias).to(q.dtype)
+    scores = q.transpose(1, 2).to(torch.float32) @ kc.to(
+        torch.float32).transpose(-1, -2)
+    scores = scores * ks[:, :, None, :]
+    if attn_bias is not None:
+        scores = scores + attn_bias
+    pv = (torch.softmax(scores, dim=-1) * vs[:, :, None, :]).to(q.dtype)
+    return (pv @ vc.to(q.dtype)).transpose(1, 2).reshape(b, l, h * c)
+
+
 def _q_then_lin(qrt, kind: str, xv, w, b=None):
     """Linear of one layer kind.  An :class:`IntPack` weight takes the int8
     linears of ``ops/int8_matmul.py``, which quantize the activation to int
@@ -99,13 +197,15 @@ def block_forward(
     mod: torch.Tensor,                  # [6, B, 1, C]
     qrt,                                # QuantRuntime or None
     cfg: VARConfig,
-    cache: Optional[Dict[str, torch.Tensor]] = None,   # {"k","v"} [B, L, C]
+    cache: Optional[Dict[str, torch.Tensor]] = None,   # one block's leaves
     cur: int = 0,
     attn_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One AdaLN self-attention block.  With a cache, this step's keys and
-    values are written into rows ``[cur, cur + l)`` of ``cache`` in place
-    and attention runs over rows ``[0, cur + l)``."""
+    """One AdaLN self-attention block.  With a cache (dense {"k","v"} [B,
+    L, C], or packed {"kc","vc"} [B, H, L, c] int8 and {"ks","vs"} [B, H,
+    L] f32 under the runtime's KV codec), this step's keys and values are
+    written into rows ``[cur, cur + l)`` of ``cache`` in place and
+    attention runs over rows ``[0, cur + l)``."""
     heads, hd = cfg.heads, cfg.head_dim
     b, l, c = x.shape
     gamma1, gamma2, scale1, scale2, shift1, shift2 = mod
@@ -130,14 +230,16 @@ def block_forward(
         q = _l2norm(q) * scale_mul.to(q.dtype)
         k = _l2norm(k)
 
-    if cache is not None:
-        end = cur + l
-        cache["k"][:, cur:end] = k.reshape(b, l, c).to(cache["k"].dtype)
-        cache["v"][:, cur:end] = v.reshape(b, l, c).to(cache["v"].dtype)
-        k = cache["k"][:, :end].reshape(b, end, heads, hd).to(q.dtype)
-        v = cache["v"][:, :end].reshape(b, end, heads, hd).to(q.dtype)
-
-    oup = _attention(q, k, v, attn_bias)
+    if cache is not None and qrt is not None and qrt.kv_codec is not None:
+        oup = _packed_attention(q, k, v, qrt, cache, cur, attn_bias)
+    else:
+        if cache is not None:
+            end = cur + l
+            cache["k"][:, cur:end] = k.reshape(b, l, c).to(cache["k"].dtype)
+            cache["v"][:, cur:end] = v.reshape(b, l, c).to(cache["v"].dtype)
+            k = cache["k"][:, :end].reshape(b, end, heads, hd).to(q.dtype)
+            v = cache["v"][:, :end].reshape(b, end, heads, hd).to(q.dtype)
+        oup = _attention(q, k, v, attn_bias)
     proj_out = _q_then_lin(qrt, "proj", oup, bp["proj_w"], bp["proj_b"])
     x = x + (proj_out * gamma1).to(x.dtype)
 
@@ -194,7 +296,7 @@ def run_blocks(params, cfg: VARConfig, qrt, x, mod, cache=None, cur: int = 0,
     for i in range(cfg.depth):
         ci = None
         if cache is not None:
-            ci = {"k": cache["k"][i], "v": cache["v"][i]}
+            ci = {kn: leaf[i] for kn, leaf in cache.items()}
         x = block_forward(x, block_params(blocks, i), mod[i], qrt, cfg, ci,
                           cur, attn_bias)
     return x
@@ -227,11 +329,26 @@ class GenStatics:
 
 
 def init_kv_cache(cfg: VARConfig, batch: int, dtype=torch.bfloat16,
-                  device="cuda"):
-    """Dense KV cache {"k","v"} at [depth, B, L, H*c]."""
-    shape = (cfg.depth, batch, cfg.L, cfg.heads * cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+                  device="cuda", kv_codec=None):
+    """Preallocated KV cache, written in place one scale step at a time.
+
+    Dense: {"k","v"} in ``dtype`` at [depth, B, L, H*c].  Packed (a
+    ``kv_codec``): {"kc","vc"} int8 codes at [depth, B, H, L, c] and
+    {"ks","vs"} float32 per-(token, head) scales at [depth, B, H, L],
+    head-major as JAX's, so that attention reads ``[B, H, M, c]`` views.
+    JAX splits the packed cache into one segment per scale because XLA
+    would not update a large buffer in place; PyTorch does, so the port
+    keeps one buffer per leaf, as for the dense cache."""
+    if kv_codec is None:
+        shape = (cfg.depth, batch, cfg.L, cfg.heads * cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    lead = (cfg.depth, batch, cfg.heads, cfg.L)
+    codes = lead + (cfg.head_dim,)
+    return {"kc": torch.zeros(codes, dtype=torch.int8, device=device),
+            "vc": torch.zeros(codes, dtype=torch.int8, device=device),
+            "ks": torch.zeros(lead, dtype=torch.float32, device=device),
+            "vs": torch.zeros(lead, dtype=torch.float32, device=device)}
 
 
 def scale_step(params, vae_qparams, cfg: VARConfig, qrt, gen: GenerateConfig,

@@ -40,7 +40,7 @@ from fpqvar_tpu_torch.ops import probe_gemm as PG
 DEFAULT_SHAPES = "4096x1920x5760,4096x4096x4096"
 #: the compiled tiles of K6 and K7 (csrc/int8_probe_gemm.cu,
 #: csrc/bf16_probe_gemm.cu), BM x BN x BK with BK in elements
-K6_TILE = "128x128x128"
+K6_TILE = "128x256x128"
 K7_TILE = "128x256x64"
 #: timed windows per leg; the leg's time is their median
 WINDOWS = 5

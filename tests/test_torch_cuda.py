@@ -15,12 +15,13 @@ bfloat16 and float32 ``x``, an all-zero row, one K chunk (K = 128) and
 K = 4096.  K5 (``int8_group_gemm_nd_ref``) within K1's bound plus one
 bfloat16 gap for a bfloat16 output, on ``[B, T, K]`` codes with ragged T
 and N, groups of 128 and 256, and equal to K1 followed by a cast; K6
-(``int8_probe_gemm_ref``) exactly equal, sums above 2^24 included; K7
+(``int8_probe_gemm_ref``) exactly equal, sums above 2^24 included, at
+ragged M and N, one K chunk and codes of the whole int8 range; K7
 (``bf16_probe_gemm_ref``) within ``K7_TOL_PER_K * K * sum_k |a*b|`` plus
 one bfloat16 gap, at one K chunk (K = 64), K = 4096, ragged M and N and
-4096^3.  K1, K2, K3, K4, K5 and K7 run the TMA + wgmma pipeline, whose
-barriers hang the card if their phases are wrong (a wait longer than 4 s
-traps instead); run the file under ``timeout``.
+4096^3.  Every kernel but K2's float32-``x`` route runs the TMA + wgmma
+pipeline, whose barriers hang the card if their phases are wrong (a wait
+longer than 4 s traps instead); run the file under ``timeout``.
 
 The tests are marked ``cuda`` and skip without a CUDA device.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -371,6 +372,40 @@ def test_cuda_k6_equals_plain(cuda_device, m, k, n):
         assert float(ours[1, 0]) == -2.0 ** 24
         exact = a.double() @ b.double().T
         assert bool((exact.abs() >= 2.0 ** 24).float().mean() > 0.9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 4096, 1000), (130, 4096, 7),
+                                   (4096, 4096, 520), (300, 128, 700)])
+def test_cuda_k6_ragged_and_witness_on_wgmma(cuda_device, m, k, n):
+    """K6 on the s8 wgmma pipeline's 128 x 256 tiles: ragged M and N (the
+    last tiles partly outside, TMA stores clipped; N = 7 takes the direct
+    store), one K chunk (K = 128), and codes of the whole int8 range.  At
+    K = 4096 rows 0 and 1 hold the witness sums (+-(2^24 + 2^16 + 1),
+    +-2^24 after the conversion's two roundings), row 2 of both operands
+    is -128 throughout (a sum of exactly 2^26) and row 3 of ``a`` -128
+    against ``b``'s 127s (-(2^26 - 2^19))."""
+    if k >= 4096:
+        a, b = _witness_operands(cuda_device, m, k, n)
+        a[2], b[2] = -128, -128
+        a[3], b[3] = -128, 127
+    else:
+        gen = torch.Generator(device=cuda_device).manual_seed(12)
+        a = torch.randint(-128, 128, (m, k), generator=gen,
+                          device=cuda_device, dtype=torch.int8)
+        b = torch.randint(-128, 128, (n, k), generator=gen,
+                          device=cuda_device, dtype=torch.int8)
+    before = PG.int8_launches
+    ours = PG.int8_probe_gemm(a, b)
+    torch.cuda.synchronize()
+    assert PG.int8_launches == before + 1
+    assert ours.shape == (m, n) and ours.dtype == torch.bfloat16
+    assert torch.equal(ours, PG.int8_probe_gemm_ref(a, b))
+    if k >= 4096:
+        assert float(ours[0, 0]) == 2.0 ** 24
+        assert float(ours[1, 0]) == -2.0 ** 24
+        assert float(ours[2, 2]) == 2.0 ** 26
+        assert float(ours[3, 3]) == -(2.0 ** 26 - 2.0 ** 19)
 
 
 @pytest.mark.cuda

@@ -23,7 +23,18 @@ both widths, so that every linear also has more than one scale group;
 weights, fake-quantized activations), W6A6 on the packed backend
 (``w6a6p`` here: fp6 byte codes) and W4A4 on the packed backend with fp_e1
 weight nibbles (``w4a4p_e1``: no in-kernel decoder, JAX's dequantize
-route) at width 128.
+route) at width 128.  The packed-KV recipes ``int8kv`` (``int8ch`` with a
+cache of fp_e2 value codes, attention over the codes), ``int8att`` (both
+attention products over int8 codes) and ``int8kv_e3m2`` (``int8kv`` with a
+6-bit fp6_e3m2 cache: grid indices, decoded before attention) run at
+width 128.  In ``int8kv_e3m2`` the decoded cache values are multiples of
+their row's scale that sit exactly on midpoints of the next linear's fp_e2
+activation grid (a value of 3.5 of the cache's largest 28 lands on 0.75,
+between 0.5 and 1), so a last-bit difference in a cache scale (the keys
+and values come out of float32 sums in another order) moves one
+activation code by one grid step; at scale 0 that step moves logits by
+1.4e-5, and the case holds its logits within ``LOGITS_ATOL`` (5e-5, a few
+such steps); tokens, ``f_hat`` and images keep the bounds above.
 """
 import dataclasses
 import functools
@@ -55,23 +66,31 @@ from fpqvar_tpu_torch.utils.bridge import to_torch
 from test_torch_vqvae import _params as vqvae_params
 
 LABELS = np.array([3, 5, 998])
+#: the sampler's logits bound by recipe (module docstring)
+LOGITS_ATOL = {"int8kv_e3m2": 5e-5}
 #: quantized weight leaf of each recipe's block linears (None: floats)
 LEAF = {"bf16": None, "fake": None, "int8": IntPack, "packed": PackedTensor,
         "w4a16p": PackedTensor, "w6a6p": PackedTensor,
         "w4a4p_e1": PackedTensor, "int8ch": IntPack,
-        "int8chs": IntPack, "int8chsnr": IntPack, "w4a16": IntPack}
+        "int8chs": IntPack, "int8chsnr": IntPack, "w4a16": IntPack,
+        "int8kv": IntPack, "int8att": IntPack, "int8kv_e3m2": IntPack}
 
 
 def _recipe(mode, jax_side=False):
     """A recipe of ``bench_recipes``, ``w6a6p`` (W6A6 on the packed
-    backend, as the JAX package's tests write it) or ``w4a4p_e1`` (W4A4 on
-    the packed backend with fp_e1 weights, a format K2 does not decode)."""
+    backend, as the JAX package's tests write it), ``w4a4p_e1`` (W4A4 on
+    the packed backend with fp_e1 weights, a format K2 does not decode) or
+    ``int8kv_e3m2`` (``int8kv`` with a 6-bit fp6_e3m2 KV cache, a grid
+    without value codes)."""
     if mode == "w6a6p":
         return (jax_w6a6() if jax_side else fpqvar_w6a6()).replace(
             backend="packed")
     if mode == "w4a4p_e1":
         return (jax_w4a4() if jax_side else fpqvar_w4a4()).replace(
             backend="packed", weight_format="fp_e1")
+    if mode == "int8kv_e3m2":
+        return (jax_recipes() if jax_side else bench_recipes())[
+            "int8kv"].replace(kv_format="fp6_e3m2", kv_bit=6)
     return (jax_recipes() if jax_side else bench_recipes())[mode]
 
 
@@ -133,7 +152,8 @@ def _assert_same_weights(ours, theirs):
     (128, "bf16"), (128, "int8"), (256, "int8"), (128, "packed"),
     (256, "packed"), (128, "w4a16p"), (128, "fake"), (128, "w6a6p"),
     (128, "w4a4p_e1"),
-    (128, "int8ch"), (256, "int8chs"), (128, "int8chsnr"), (128, "w4a16")])
+    (128, "int8ch"), (256, "int8chs"), (128, "int8chsnr"), (128, "w4a16"),
+    (128, "int8kv"), (128, "int8att"), (128, "int8kv_e3m2")])
 def test_generation_matches_jax(monkeypatch, width, mode):
     jcfg, jqp = _jax_params(width, mode)
     jvae = _jax_vae()
@@ -192,7 +212,8 @@ def test_generation_matches_jax(monkeypatch, width, mode):
         np.testing.assert_array_equal(port_tokens[si], jax_tokens[si],
                                       err_msg=f"scale {si}")
         np.testing.assert_allclose(port_logits[si], jax_logits[si], rtol=0,
-                                   atol=1e-5, err_msg=f"scale {si}")
+                                   atol=LOGITS_ATOL.get(mode, 1e-5),
+                                   err_msg=f"scale {si}")
     timg = gen.generate(tqp, tvae, LABELS)
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=0, atol=1e-5)
     assert timg.shape == (3, 3, 6, 6) and timg.dtype == torch.float32

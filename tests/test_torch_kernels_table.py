@@ -10,8 +10,8 @@ launches) are held against ``fpqvar_tpu_torch/csrc/``:
 - every ``csrc/*.cu`` is built, and every name built has a source;
 - every ``#include "...cuh"`` names a header of ``csrc/``, and every header
   is reached from some source, so no orphan header is left;
-- every source but the rate probe's ``mma.sync`` K6 runs on ``wgmma``
-  (reaches ``wgmma_gemm.cuh``, and not ``int8_mma.cuh``);
+- every source runs on ``wgmma`` (reaches ``wgmma_gemm.cuh``), and the
+  first slices' ``mma.sync`` tile loop ``int8_mma.cuh`` is gone;
 - no profiler key is a part of another label's key, and each key is a
   part of exactly one kernel or epilogue name defined in ``csrc/``: itself
   (one kernel sharing another's wgmma instantiation must give its
@@ -97,13 +97,14 @@ def test_no_orphan_header(header):
 
 
 def test_every_source_but_the_probe_runs_on_wgmma():
+    """Every source runs on ``wgmma``, the rate probe's K6 as well."""
     wgmma = _tables()["WGMMA_SOURCES"]
-    assert set(wgmma) == set(SOURCES) - {"int8_probe_gemm"}
+    assert set(wgmma) == set(SOURCES)
     assert set(wgmma.values()) <= {"HGMMA", "IGMMA"}
+    assert wgmma["int8_probe_gemm"] == "IGMMA"
     for src in wgmma:
         assert "wgmma_gemm.cuh" in _reached(src), src
-        assert "int8_mma.cuh" not in _reached(src), src
-    assert "int8_mma.cuh" in _reached("int8_probe_gemm")
+    assert not (CSRC / "int8_mma.cuh").exists()
 
 
 def test_port_kernel_keys_are_no_part_of_another_labels_key():

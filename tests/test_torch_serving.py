@@ -10,7 +10,11 @@ the port's server against JAX's ``GenerationServer`` on the same weights
 at width 256 under ``int8`` (every grouped linear has two scale groups and
 runs K5's plain version), ``top_k=1`` (argmax: no RNG) and float32 compute:
 images within 5e-5, as ``test_torch_generate.test_generation_matches_jax``
-holds whole generations (the float32 sums run in another order).
+holds whole generations (the float32 sums run in another order).  Under
+``int8att`` (the packed KV cache and attention over int8 codes) a request
+served in a mixed batch equals, exactly, the same request served alone:
+the KV codec and the q and softmax-weight quantizers work per row, and
+the integer contractions are exact.
 """
 import dataclasses
 
@@ -29,6 +33,7 @@ from fpqvar_tpu_torch.config import (GenerateConfig, QuantConfig, VARConfig,
 from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                      init_vqvae_params)
 from fpqvar_tpu_torch.ops import int8_matmul as K
+from fpqvar_tpu_torch.quantize import quantize_var_params
 from fpqvar_tpu_torch.serving import GenerationServer, row_seed
 from fpqvar_tpu_torch.tools import serving_bench
 from fpqvar_tpu_torch.utils.bridge import to_torch
@@ -101,6 +106,32 @@ def test_pipelined_under_load_reproducible(server):
     # 13 requests / max_batch 4 -> >= 4 batches; at least one pair overlaps
     # (the burst is queued before the first fetch)
     assert after["pipelined"] >= 1
+
+
+def test_int8att_request_equal_alone_and_in_a_mixed_batch(tiny_model):
+    params, vae = tiny_model
+    q = bench_recipes()["int8att"]
+    galt = tuple(np.ones((TINY.depth, TINY.width), np.float32)
+                 for _ in range(2))
+    gen = VARGenerator(TINY, q, device="cpu")
+    assert gen.qrt.attn_int8 and gen.qrt.kv_codec.value_codes
+    srv = GenerationServer(gen, quantize_var_params(params, TINY, q,
+                                                    galt=galt),
+                           vae, max_batch=4, max_wait_ms=100)
+    try:
+        alone = srv.submit(3, seed=7).result(timeout=60)
+        before = srv.stats()
+        futs = [srv.submit(i % 8, seed=100 + i) for i in range(3)]
+        futs.append(srv.submit(3, seed=7))
+        imgs = [f.result(timeout=60) for f in futs]
+        after = srv.stats()
+    finally:
+        srv.stop()
+    assert after["served"] - before["served"] == 4
+    assert after["batches"] - before["batches"] < 4      # batched together
+    assert all(im.shape == (3, 4, 4) for im in imgs)
+    assert torch.equal(imgs[-1], alone)
+    assert not torch.equal(imgs[0], alone)
 
 
 def _gen(seed):

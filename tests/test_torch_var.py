@@ -224,15 +224,31 @@ def test_prepare_generation_and_head_match_jax():
 
 
 def test_runtime_rejects_unported_recipes():
+    """Unported recipes raise ``NotImplementedError``: the fake KV
+    quantizer (``kv_bit`` on the default ``kv_backend="fake"``) and a
+    packed ``int_sym`` KV cache among them, as JAX's ``_build_kv``;
+    ``attn_int8`` without a packed value-codes cache is a ``ValueError``,
+    as JAX's ``_check_attn_int8``."""
     fake = bench_recipes()["fake"]
+    int8ch = bench_recipes()["int8ch"]
     for q in (fake.replace(block_rotate=False),
               fake.replace(mixed_act_formats=("fp_e2", "fp_e1")),
               fake.replace(int_quant=True),
               bench_recipes()["int8"].replace(kv_bit=4),
-              bench_recipes()["int8ch"].replace(kv_bit=4),
-              bench_recipes()["int8ch"].replace(attn_int8=True)):
+              int8ch.replace(kv_bit=4)):
         with pytest.raises(NotImplementedError):
             build_runtime(q, "cpu")
+    # the same refusals as JAX's runtime
+    for name, kw, err in (
+            ("int8ch", {"kv_bit": 8, "kv_backend": "packed"},
+             NotImplementedError),
+            ("int8ch", {"attn_int8": True}, ValueError),
+            ("int8kv", {"kv_format": "fp6_e3m2", "attn_int8": True},
+             ValueError)):
+        with pytest.raises(err):
+            build_runtime(bench_recipes()[name].replace(**kw), "cpu")
+        with pytest.raises(err):
+            jax_runtime(jax_recipes()[name].replace(**kw), 2, 128)
     # per-token activations pair with per-channel weights, as in JAX
     with pytest.raises(ValueError, match="per-token"):
         build_runtime(bench_recipes()["int8"].replace(act_quant="per_token"),
