@@ -31,19 +31,24 @@ non-zero:
 4. small reference: small generations (width 256, so every grouped linear
    has more than one scale group) under ``int8``, ``bf16``, ``packed``,
    ``w4a16p``, W6A6 on the packed backend, ``fake``, ``int8ch``,
-   ``int8chs``, ``int8chsnr``, ``w4a16``, ``int8kv`` and ``int8att``, on
-   the card against the same generations on the CPU: the same tokens at
-   every scale, images within 1e-4;
+   ``int8chs``, ``int8chsnr``, ``w4a16``, ``int8kv``, ``int8att`` and the
+   paper's ``fp4``, ``fp4_kv6``, ``fp6``, ``fp6_kv6``, ``int4_rtn`` and
+   ``fp4_pertensor``, and of a shared-AdaLN model under ``bf16`` and
+   ``fp4_kv6``, on the card against the same generations on the CPU: the
+   same tokens at every scale, images within 1e-4;
 5. main path: VAR-d16 with the full d16 VQVAE, random seeded weights,
    ``quantize_var_params`` and ``VARGenerator.generate`` for two batches of
    8 labels under ``int8``, ``bf16``, ``packed``, ``w4a16p``, ``int8ch``,
-   ``int8chs``, ``int8chsnr``, ``w4a16``, ``int8kv`` and ``int8att``;
-   checks images and each recipe's kernel launch counts and prints img/s,
-   the host thread's CPU time inside each ``generate`` call, the KV cache's
-   bytes and the peak of device memory the generations allocated above
-   what was resident before them (weights and earlier recipes' leftovers);
+   ``int8chs``, ``int8chsnr``, ``w4a16``, ``int8kv``, ``int8att`` and the
+   paper's ``fp4_kv6``, ``fp6_kv6`` and ``int4_rtn`` (the fake backend:
+   no kernel of the port); checks images and each recipe's kernel launch
+   counts and prints img/s, the host thread's CPU time inside each
+   ``generate`` call, the KV cache's bytes and the peak of device memory
+   the generations allocated above what was resident before them (weights
+   and earlier recipes' leftovers);
 6. profile: one more batch-8 generation under ``int8``, ``bf16``,
-   ``packed``, ``int8ch``, ``int8chs`` and ``int8kv`` under
+   ``packed``, ``int8ch``, ``int8chs``, ``int8kv``, ``fp4_kv6``,
+   ``fp6_kv6`` and ``int4_rtn`` under
    torch.profiler, after the launch counts were read: device busy time,
    idle share, the port kernels' shares (K4's two kernels apart) and the
    kernels that take the most device time (the source of PERF.md's "Where
@@ -57,7 +62,13 @@ non-zero:
    wait for the device; then ``tools/serving_bench.run_recipe`` under
    ``int8`` with small counts;
 8. probe: ``tools/int8_rate_probe.run`` at its default shapes (library
-   bf16 and int8 GEMMs, K6, K7), with the launches of K6 and K7 counted.
+   bf16 and int8 GEMMs, K6, K7), with the launches of K6 and K7 counted;
+9. d36-512: VAR-d36-512 at its full width and depth (shared AdaLN, L =
+   2240, the 512 px VQVAE), random seeded weights, two generations of 2
+   labels under ``bf16`` and ``fp4_kv6``: images ``[2, 3, 512, 512]``
+   finite in [0, 1], no port kernel launched; prints ms per generation,
+   img/s, the quantize time with the float64 host rotation apart, the KV
+   cache's bytes and the peak of device memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernel table as one JSON object.
@@ -625,24 +636,34 @@ def phase_k7():
     return rows
 
 
-def _small_recipes():
-    """The small-reference recipes: ``bench_recipes`` entries and W6A6 on
-    the packed backend."""
-    from fpqvar_tpu_torch.config import bench_recipes, fpqvar_w6a6
+def _recipes() -> dict:
+    """Every recipe by name: ``bench_recipes`` and ``paper_recipes``."""
+    from fpqvar_tpu_torch.config import bench_recipes, paper_recipes
 
-    recipes = {m: bench_recipes()[m]
-               for m in ("int8", "bf16", "packed", "w4a16p", "fake", "int8ch",
-                         "int8chs", "int8chsnr", "w4a16", "int8kv",
-                         "int8att")}
-    recipes["w6a6-packed"] = fpqvar_w6a6().replace(backend="packed")
+    return {**bench_recipes(), **paper_recipes()}
+
+
+def _small_recipes():
+    """The small-reference recipes by name: (recipe, shared_aln).  The
+    ``bench_recipes`` entries, W6A6 on the packed backend, the paper's six
+    and a shared-AdaLN model under ``bf16`` and ``fp4_kv6``."""
+    from fpqvar_tpu_torch.config import fpqvar_w6a6
+
+    names = ("int8", "bf16", "packed", "w4a16p", "fake", "int8ch", "int8chs",
+             "int8chsnr", "w4a16", "int8kv", "int8att", "fp4", "fp4_kv6",
+             "fp6", "fp6_kv6", "int4_rtn", "fp4_pertensor")
+    recipes = {m: (_recipes()[m], False) for m in names}
+    recipes["w6a6-packed"] = (fpqvar_w6a6().replace(backend="packed"), False)
+    recipes["shared_aln-bf16"] = (_recipes()["bf16"], True)
+    recipes["shared_aln-fp4_kv6"] = (_recipes()["fp4_kv6"], True)
     return recipes
 
 
 def phase_small_reference():
     """Width-256 generations (every grouped linear has more than one scale
-    group) on the card against the same generations on the CPU, at top_k=1
-    and float32 compute: the sampled tokens of every scale must be the
-    same, and the images within 1e-4.
+    group; a shared-AdaLN model besides) on the card against the same
+    generations on the CPU, at top_k=1 and float32 compute: the sampled
+    tokens of every scale must be the same, and the images within 1e-4.
 
     ``int8att`` rounds q and the softmax weights to int8 codes, so a
     last-bit difference between the card's and the CPU's float32 scores
@@ -660,12 +681,16 @@ def phase_small_reference():
     from fpqvar_tpu_torch.models import var as V
     from fpqvar_tpu_torch.quantize import quantize_var_params
 
-    cfg = dataclasses.replace(var_tiny(), embed_dim=256, num_heads=4)
+    cfgs = {shared: dataclasses.replace(var_tiny(), embed_dim=256,
+                                        num_heads=4, shared_aln=shared)
+            for shared in (False, True)}
     rng = np.random.default_rng(5)
-    galt = tuple(np.exp(0.1 * rng.standard_normal((cfg.depth, cfg.width)))
+    galt = tuple(np.exp(0.1 * rng.standard_normal((2, 256)))
                  .astype(np.float32) for _ in range(2))
-    params = init_var_params(cfg, seed=4, device="cpu", adaln_gamma_std=0.02)
-    vae = init_vqvae_params(cfg.vae, seed=5, device="cpu")
+    params = {shared: init_var_params(c, seed=4, device="cpu",
+                                      adaln_gamma_std=0.02)
+              for shared, c in cfgs.items()}
+    vae = init_vqvae_params(cfgs[False].vae, seed=5, device="cpu")
     labels = [3, 5, 7]
     sample = V.sample_with_top_k_top_p
     seen = []
@@ -677,10 +702,12 @@ def phase_small_reference():
 
     V.sample_with_top_k_top_p = recorded
     try:
-        for mode, q in _small_recipes().items():
+        for mode, (q, shared) in _small_recipes().items():
+            cfg = cfgs[shared]
             out, steps = {}, {}
             for dev in ("cpu", "cuda"):
-                qp = quantize_var_params(_to(params, dev), cfg, q, galt=galt)
+                qp = quantize_var_params(_to(params[shared], dev), cfg, q,
+                                         galt=galt)
                 g = VARGenerator(cfg, q, GenerateConfig(top_k=1, top_p=0.0),
                                  cache_dtype=torch.float32,
                                  compute_dtype=torch.float32, device=dev)
@@ -722,7 +749,8 @@ COUNTERS = {"K1": ("int8_matmul", "launches"),
             "K6": ("probe_gemm", "int8_launches"),
             "K7": ("probe_gemm", "bf16_launches")}
 #: the recipes profiled after the main path (phase 6)
-PROFILED = ("int8", "bf16", "packed", "int8ch", "int8chs", "int8kv")
+PROFILED = ("int8", "bf16", "packed", "int8ch", "int8chs", "int8kv",
+            "fp4_kv6", "fp6_kv6", "int4_rtn")
 
 
 def _counter_modules():
@@ -748,10 +776,11 @@ def phase_main_path(card: str):
     before them and read just after: K1 and K5 run exactly under ``int8``,
     K2 exactly under ``packed`` and ``w4a16p``, K3 and K4 exactly under the
     per-channel recipes (``int8kv`` and ``int8att`` as ``int8ch``: the
-    packed KV cache adds no kernel), K6 and K7 under none.  Returns the
-    launch totals, the profiled recipes' (gen, params, generator) and the
-    VQVAE params."""
-    from fpqvar_tpu_torch.config import GenerateConfig, bench_recipes, var_d16
+    packed KV cache adds no kernel), K6 and K7 under none, and no kernel of
+    the port under the paper's fake recipes ``fp4_kv6``, ``fp6_kv6`` and
+    ``int4_rtn``.  Returns the launch totals, the profiled recipes' (gen,
+    params, generator) and the VQVAE params."""
+    from fpqvar_tpu_torch.config import GenerateConfig, var_d16
     from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                          init_vqvae_params)
     from fpqvar_tpu_torch.quantize import quantize_var_params
@@ -775,7 +804,7 @@ def phase_main_path(card: str):
     # runs one K2 GEMM; int8ch runs K4 on qkv, proj and fc1 and fc2's dual
     # grid as two K3 GEMMs; int8chs and int8chsnr run K4 on all four; w4a16
     # runs no kernel (wonly_dot); int8kv and int8att are int8ch with the
-    # packed KV cache
+    # packed KV cache; the paper's fake recipes run plain PyTorch only
     none = {k: 0 for k in COUNTERS}
     per_gen = {"int8": {**none, "K1": blocks * 2, "K5": blocks * 3},
                "bf16": none,
@@ -786,11 +815,12 @@ def phase_main_path(card: str):
                "int8chsnr": {**none, "K4": blocks * 4},
                "w4a16": none,
                "int8kv": {**none, "K3": blocks * 2, "K4": blocks * 3},
-               "int8att": {**none, "K3": blocks * 2, "K4": blocks * 3}}
+               "int8att": {**none, "K3": blocks * 2, "K4": blocks * 3},
+               "fp4_kv6": none, "fp6_kv6": none, "int4_rtn": none}
     totals = dict(none)
     results, setups = {}, {}
     for mode in per_gen:
-        q = bench_recipes()[mode]
+        q = _recipes()[mode]
         t0 = time.perf_counter()
         qp = quantize_var_params(params, cfg, q, galt=galt)
         torch.cuda.synchronize()
@@ -1048,6 +1078,110 @@ def phase_probe(card: str):
     return counts
 
 
+def phase_d36(card: str):
+    """VAR-d36-512 at its full width and depth (width 2304, 36 heads,
+    depth 36, L = 2240, shared AdaLN) with the 512 px VQVAE, random seeded
+    float32 weights: ``bf16`` and the paper's ``fp4_kv6`` (``run.sh``'s
+    512 px flags) for two generations of 2 labels each, with every launch
+    count set to 0 just before and read just after (no kernel of the port
+    runs under either).  ``fp4_kv6``'s ``quantize_var_params`` is timed
+    with its float64 host rotation apart; each recipe prints ms per
+    generation, img/s, the KV cache's bytes and the peak of device memory
+    (above what was resident, and in all)."""
+    from fpqvar_tpu_torch.config import GenerateConfig, var_d36_512
+    from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
+                                         init_vqvae_params)
+    from fpqvar_tpu_torch.quantize import quantize_var_params, recipe
+
+    cfg = var_d36_512()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_var_params(cfg, seed=0, device="cuda")
+    vae = init_vqvae_params(cfg.vae, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"d36-512: VAR-d36-512 (width {cfg.width}, {cfg.heads} heads, depth "
+          f"{cfg.depth}, L={cfg.L}, patch_nums {cfg.patch_nums}, shared "
+          f"AdaLN) + VQVAE at {cfg.patch_nums[-1] * cfg.vae.downsample} px: "
+          f"{n_params} float32 parameters, random init in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(2)
+    galt = tuple(np.exp(0.1 * rng.standard_normal((cfg.depth, cfg.width)))
+                 .astype(np.float32) for _ in range(2))
+    batch, n_gen = 2, 2
+    side = cfg.patch_nums[-1] * cfg.vae.downsample
+    for mode in ("bf16", "fp4_kv6"):
+        q = _recipes()[mode]
+        t_quant = t_rot = 0.0
+        qp = params
+        if q.enabled:
+            rotate, rot = recipe.rotate_blocks, []
+
+            def timed_rotate(*args, **kw):
+                t = time.perf_counter()
+                out = rotate(*args, **kw)
+                torch.cuda.synchronize()
+                rot.append(time.perf_counter() - t)
+                return out
+
+            recipe.rotate_blocks = timed_rotate
+            try:
+                t0 = time.perf_counter()
+                qp = quantize_var_params(params, cfg, q, galt=galt)
+                torch.cuda.synchronize()
+                t_quant = time.perf_counter() - t0
+            finally:
+                recipe.rotate_blocks = rotate
+            t_rot = sum(rot)
+        gen = VARGenerator(cfg, q, GenerateConfig())
+        rng_gen = torch.Generator(device="cuda")
+        rng_gen.manual_seed(3)
+        kv_bytes = sum(t.nbytes for t in gen.init_cache(batch).values())
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times, host_cpu = [], []
+        for i in range(n_gen):
+            labels = torch.arange(i * batch, (i + 1) * batch, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c0 = time.thread_time()
+            imgs = gen.generate(qp, vae, labels, rng_gen)
+            host_cpu.append(time.thread_time() - c0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            _images_ok(f"d36-512 {mode} generation {i}", imgs,
+                       (batch, 3, side, side))
+        counts = read_counts()
+        if any(counts.values()):
+            fail(f"d36-512 {mode}: port kernels launched: {counts}")
+        peak = torch.cuda.max_memory_allocated()
+        quant = ("" if not q.enabled else
+                 f"quantize_var_params {t_quant:.2f} s, of which the float64 "
+                 f"host rotation {t_rot:.2f} s; ")
+        print(f"d36-512: {mode}: {quant}ms per generation of {batch} = "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in times)} (first includes "
+              f"warm-up), host CPU ms in generate "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in host_cpu)}; steady "
+              f"{batch / times[-1]:.3f} img/s; KV cache {kv_bytes} bytes "
+              f"({kv_bytes / 1e9:.3f} GB); peak allocated {peak} bytes "
+              f"({peak / 1e9:.3f} GB), {peak - resident} above the "
+              f"{resident / 1e9:.3f} GB resident; images [{batch}, 3, {side}, "
+              f"{side}] finite in [0, 1]; no port kernel launched; on {card}")
+        del qp, gen
+        torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def _kernel_row(name, source, replaces, launches, rows, timed="fc1"):
     """One kernel of the JSON table: timed at the d16 shape ``timed``, the
     max error over every shape it was checked at."""
@@ -1064,6 +1198,7 @@ def _kernel_row(name, source, replaces, launches, rows, timed="fc1"):
 
 
 def main():
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     k1_rows = phase_kernels()
@@ -1078,6 +1213,7 @@ def main():
     phase_serving(setups, vae, card)
     del setups
     probe_launches = phase_probe(card)
+    phase_d36(card)
     src = "fpqvar_tpu_torch/csrc/"
     kernels = {"kernels": [
         # K1 runs on the main path only at fc2 (int8's dual grid)
@@ -1105,6 +1241,8 @@ def main():
                     "scripts/int8_rate_probe.py:148",
                     probe_launches["K7"], k7_rows, timed="probe-4096"),
     ]}
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

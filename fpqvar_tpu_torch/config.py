@@ -2,8 +2,9 @@
 
 A copy of the model, recipe and sampling dataclasses of the JAX package's
 ``fpqvar_tpu/config.py`` (the port imports nothing of that package), cut to
-what the port runs: the VAR/VQVAE shapes, the quantization recipes, and the
-execution modes of :func:`bench_recipes`.
+what the port runs: the VAR/VQVAE shapes, the quantization recipes, the
+execution modes of :func:`bench_recipes` and the paper's recipes of
+:func:`paper_recipes`.
 """
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+# patch schedules of the 256 px and 512 px model families
 PATCH_NUMS_256 = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
+PATCH_NUMS_512 = (1, 2, 3, 4, 6, 9, 13, 18, 24, 32)
 
 
 @dataclass(frozen=True)
@@ -78,6 +81,19 @@ def var_d16() -> VARConfig:
     return VARConfig(depth=16)
 
 
+def var_d30() -> VARConfig:
+    return VARConfig(depth=30)
+
+
+def var_d36_512() -> VARConfig:
+    """VAR-d36 at 512 px: width 2304, 36 heads, shared AdaLN, the 512 px
+    patch schedule (L = 2240) and VQVAE."""
+    return VARConfig(
+        depth=36, shared_aln=True, patch_nums=PATCH_NUMS_512,
+        vae=VQVAEConfig(patch_nums=PATCH_NUMS_512),
+    )
+
+
 def var_tiny() -> VARConfig:
     """Test shape: depth 2, width 128, 3 scales, 6x6 images."""
     return VARConfig(
@@ -123,6 +139,13 @@ class QuantConfig:
     mixed_act_formats: Optional[Tuple[str, ...]] = None
     quantize_ada: bool = False
     ada_format: str = "auto"
+
+    def resolved_ada_format(self) -> str:
+        """SiLU(cond)'s format under ``quantize_ada``: ``ada_format``, or
+        ``act_format`` for ``"auto"``."""
+        if self.ada_format == "auto":
+            return self.act_format
+        return self.ada_format
 
     def resolved_kv_format(self) -> str:
         """The KV cache's format: ``kv_format``, or by ``kv_bit`` (6:
@@ -229,6 +252,57 @@ def bench_recipes() -> dict:
         "int8att": base.replace(backend="int8", weight_quant="per_channel",
                                 act_quant="per_token", kv_bit=4,
                                 kv_backend="packed", attn_int8=True),
+    }
+
+
+def paper_recipes() -> dict:
+    """The recipes of the paper's table, as the JAX package's scripts
+    define them:
+
+      fp4            W4A4 fp_e2 per group, dual-grid fc2, rotation and GALT
+                     (``scripts/acceptance.py`` ``recipe_config``, the
+                     ``run.sh`` flags ``--quant --w_bit 4 --a_bit 4
+                     --weight_quant per_group --act_quant per_group
+                     --act_sym ... --rotate --block_rotate --transform``)
+      fp4_kv6        fp4 with the fp6_e2m3 KV cache (``--quant_kv --kv_bit
+                     6``; the fake backend's dense cache, quantized per token
+                     on append), the headline row
+      fp6            W6A6 fp6_e2m3, per-channel weights and per-token
+                     activations, the integer-negative / e2m3-positive fc2,
+                     rotation, no GALT (``scripts/acceptance.py``)
+      fp6_kv6        fp6 with the fp6_e2m3 KV cache
+      int4_rtn       the INT4 round-to-nearest baseline: symmetric int4
+                     per-channel weights and per-token activations (fc2
+                     asymmetric), no rotation (``scripts/quality_ladder.py``)
+      fp4_pertensor  fp4 with one scale per tensor for weights and
+                     activations, single-grid fc2, no rotation or GALT
+                     (``scripts/quality_ladder.py``)
+    """
+    fp4 = QuantConfig(
+        enabled=True, w_bit=4, a_bit=4,
+        weight_quant="per_group", act_quant="per_group", act_sym=True,
+        weight_format="fp_e2", act_format="fp_e2",
+        fc2_format="fp_e1m2_neg_e2m1_pos",
+        rotate=True, block_rotate=True, transform=True)
+    fp6 = QuantConfig(
+        enabled=True, w_bit=6, a_bit=6,
+        weight_quant="per_channel", act_quant="per_token", act_sym=True,
+        weight_format="fp6_e2m3", act_format="fp6_e2m3",
+        fc2_format="fp6_int_neg_e2m3_pos",
+        rotate=True, block_rotate=True, transform=False)
+    return {
+        "fp4": fp4,
+        "fp4_kv6": fp4.replace(kv_bit=6),
+        "fp6": fp6,
+        "fp6_kv6": fp6.replace(kv_bit=6),
+        "int4_rtn": QuantConfig(
+            enabled=True, int_quant=True, w_bit=4, a_bit=4,
+            weight_quant="per_channel", act_quant="per_token",
+            act_sym=True),
+        "fp4_pertensor": fpqvar_w4a4().replace(
+            rotate=False, block_rotate=False, transform=False,
+            weight_quant="per_tensor", act_quant="per_tensor",
+            fc2_format="fp_e2"),
     }
 
 

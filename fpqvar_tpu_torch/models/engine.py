@@ -28,7 +28,7 @@ class VARGenerator:
         self.qcfg = qcfg
         self.gen = gen
         self.device = torch.device(device)
-        self.qrt = build_runtime(qcfg, device)
+        self.qrt = build_runtime(qcfg, cfg.depth, cfg.width, device)
         self.cache_dtype = cache_dtype
         self.compute_dtype = compute_dtype
         self.statics = V.GenStatics.all_steps(cfg)
@@ -61,7 +61,8 @@ class VARGenerator:
         if not (generator is None or isinstance(generator, torch.Generator)
                 or len(generator) == b):
             raise ValueError(f"{len(generator)} generators for {b} labels")
-        cond_BD, mod, lvl_pos, x = V.prepare_generation(params, cfg, label_B)
+        cond_BD, mod, lvl_pos, x = V.prepare_generation(params, cfg, label_B,
+                                                       self.qrt)
         x = x.to(self.compute_dtype)
         mod = mod.to(self.compute_dtype)
         lvl_pos = lvl_pos.to(self.compute_dtype)

@@ -3,9 +3,12 @@
 Plain functions over the JAX package's params tree (block parameters
 stacked along a leading depth axis, weights (out, in)); the layer loop is a
 Python loop over depth, and the preallocated KV cache is written in place,
-one block's new rows at a time: dense ``[depth, 2B, L, H*c]``, or packed
-(int8 codes and float32 scales per (token, head), head-major) when the
-recipe has a KV codec.
+one block's new rows at a time: dense ``[depth, 2B, L, H*c]`` (fake-
+quantized on append, or its whole prefix re-quantized every scale step,
+under a fake KV quantizer), or packed (int8 codes and float32 scales per
+(token, head), head-major) when the recipe has a KV codec.  The AdaLN
+modulations come from a per-block ``ada_lin`` or, for the 512 px models,
+one ``shared_ada_lin`` plus a per-block ``ada_gss``.
 """
 from __future__ import annotations
 
@@ -168,6 +171,43 @@ def _packed_attention(q, k, v, qrt, cache, cur: int, attn_bias):
     return (pv @ vc.to(q.dtype)).transpose(1, 2).reshape(b, l, h * c)
 
 
+def _rotate(qrt, x: torch.Tensor) -> torch.Tensor:
+    """The online rotation of a linear's input: the block-diagonal one as
+    one ``[..., C/128, 128]`` matmul, or the full-size ``x @ Q``."""
+    if qrt is None:
+        return x
+    if qrt.rotation_block is not None:
+        return apply_block_hadamard(x, qrt.rotation_block)
+    if qrt.rotation_full is not None:
+        return x @ qrt.rotation_full.to(x.dtype)
+    return x
+
+
+def _dense_cache_update(k, v, qrt, cache, cur: int):
+    """Write this step's keys and values ``[B, l, H, c]`` into rows ``[cur,
+    cur + l)`` of the dense cache ``{"k","v"}`` ``[B, L, H*c]`` in place and
+    return rows ``[0, cur + l)`` as ``[B, M, H, c]`` in ``k``'s dtype.
+
+    Under a fake KV quantizer, ``kv_mode="store"`` quantizes the new rows
+    before they are written; ``"reference"`` re-quantizes the cached rows
+    ``[0, cur)`` in place first and appends the new rows raw, so the prefix
+    is quantized again at every later scale step (JAX writes the quantized
+    prefix back the same way)."""
+    b, l, heads, hd = k.shape
+    end = cur + l
+    kv_q = qrt.kv_q if qrt is not None else None
+    if kv_q is not None and qrt.kv_mode == "store":
+        k, v = kv_q(k), kv_q(v)
+    out = []
+    for t, buf in ((k, cache["k"]), (v, cache["v"])):
+        if kv_q is not None and qrt.kv_mode == "reference" and cur > 0:
+            pre = buf[:, :cur].reshape(b, cur, heads, hd)
+            buf[:, :cur] = kv_q(pre).reshape(b, cur, heads * hd).to(buf.dtype)
+        buf[:, cur:end] = t.reshape(b, l, heads * hd).to(buf.dtype)
+        out.append(buf[:, :end].reshape(b, end, heads, hd).to(t.dtype))
+    return out
+
+
 def _q_then_lin(qrt, kind: str, xv, w, b=None):
     """Linear of one layer kind.  An :class:`IntPack` weight takes the int8
     linears of ``ops/int8_matmul.py``, which quantize the activation to int
@@ -210,14 +250,12 @@ def block_forward(
     b, l, c = x.shape
     gamma1, gamma2, scale1, scale2, shift1, shift2 = mod
     smooth = qrt is not None and qrt.transform
-    rot = qrt.rotation_block if qrt is not None else None
 
     # ---- attention branch
     x1 = layernorm_no_affine(x, cfg.norm_eps) * (1.0 + scale1) + shift1
     if smooth:
         x1 = x1 * bp["mat_qkv_s"].to(x1.dtype)
-    if rot is not None:
-        x1 = apply_block_hadamard(x1, rot)
+    x1 = _rotate(qrt, x1)
     qkv = _q_then_lin(qrt, "mat_qkv", x1, bp["mat_qkv_w"])
     bias = torch.cat([bp["q_bias"], torch.zeros_like(bp["q_bias"]),
                       bp["v_bias"]])
@@ -234,11 +272,7 @@ def block_forward(
         oup = _packed_attention(q, k, v, qrt, cache, cur, attn_bias)
     else:
         if cache is not None:
-            end = cur + l
-            cache["k"][:, cur:end] = k.reshape(b, l, c).to(cache["k"].dtype)
-            cache["v"][:, cur:end] = v.reshape(b, l, c).to(cache["v"].dtype)
-            k = cache["k"][:, :end].reshape(b, end, heads, hd).to(q.dtype)
-            v = cache["v"][:, :end].reshape(b, end, heads, hd).to(q.dtype)
+            k, v = _dense_cache_update(k, v, qrt, cache, cur)
         oup = _attention(q, k, v, attn_bias)
     proj_out = _q_then_lin(qrt, "proj", oup, bp["proj_w"], bp["proj_b"])
     x = x + (proj_out * gamma1).to(x.dtype)
@@ -247,8 +281,7 @@ def block_forward(
     x2 = layernorm_no_affine(x, cfg.norm_eps) * (1.0 + scale2) + shift2
     if smooth:
         x2 = x2 * bp["fc1_s"].to(x2.dtype)
-    if rot is not None:
-        x2 = apply_block_hadamard(x2, rot)
+    x2 = _rotate(qrt, x2)
     h = gelu_tanh(_q_then_lin(qrt, "fc1", x2, bp["fc1_w"], bp["fc1_b"]))
     out = _q_then_lin(qrt, "fc2", h, bp["fc2_w"], bp["fc2_b"])
     return x + (out * gamma2).to(x.dtype)
@@ -265,14 +298,22 @@ def block_params(blocks: Dict, i: int) -> Dict:
     return out
 
 
-def compute_modulations(params, cfg: VARConfig, cond_BD: torch.Tensor):
-    """Per-block AdaLN modulation [depth, 6, B, 1, C] (non-shared
-    SiLU -> Linear(D, 6C) per block)."""
-    if cfg.shared_aln:
-        raise NotImplementedError(
-            "shared_aln is not ported yet (ROADMAP: shared_aln / d36-512)")
+def compute_modulations(params, cfg: VARConfig, cond_BD: torch.Tensor,
+                        qrt=None):
+    """Per-block AdaLN modulation [depth, 6, B, 1, C]: SiLU(cond) (fake-
+    quantized per token under ``quantize_ada``), then per block
+    ``ada_lin`` (Linear(D, 6C)), or with ``shared_aln`` one
+    ``shared_ada_lin`` plus each block's ``ada_gss`` [6, C]."""
     d, b, c = cfg.depth, cond_BD.shape[0], cfg.width
     act = F.silu(cond_BD)
+    aq = qrt.act_q.get("ada") if qrt is not None else None
+    if aq is not None:
+        act = aq(act)
+    if cfg.shared_aln:
+        sal = params["shared_ada_lin"]
+        gss = linear(act, sal["w"], sal["b"]).reshape(b, 6, c)
+        mod = params["blocks"]["ada_gss"][:, None] + gss[None]  # [d,B,6,C]
+        return mod.permute(0, 2, 1, 3)[:, :, :, None, :]
     w = params["blocks"]["ada_lin"]["w"]           # [depth, 6C, D]
     bb = params["blocks"]["ada_lin"]["b"]          # [depth, 6C]
     mod = torch.einsum("bd,kod->kbo", act, w.to(act.dtype)) + bb[:, None, :]
@@ -291,13 +332,16 @@ def head_logits(params, cfg: VARConfig, x: torch.Tensor, cond_BD):
 
 def run_blocks(params, cfg: VARConfig, qrt, x, mod, cache=None, cur: int = 0,
                attn_bias=None):
-    """All blocks in order; block i reads and writes ``cache[...][i]``."""
+    """All blocks in order; block i reads and writes ``cache[...][i]``
+    and, under mixed formats, runs with ``qrt.for_block(i)``."""
     blocks = params["blocks"]
+    mixed = qrt is not None and qrt.mixed_act_q is not None
     for i in range(cfg.depth):
         ci = None
         if cache is not None:
             ci = {kn: leaf[i] for kn, leaf in cache.items()}
-        x = block_forward(x, block_params(blocks, i), mod[i], qrt, cfg, ci,
+        x = block_forward(x, block_params(blocks, i), mod[i],
+                          qrt.for_block(i) if mixed else qrt, cfg, ci,
                           cur, attn_bias)
     return x
 
@@ -401,7 +445,8 @@ def _lvl_index(cfg: VARConfig, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(lvl_1L(cfg)).to(device)
 
 
-def prepare_generation(params, cfg: VARConfig, label_B: torch.Tensor):
+def prepare_generation(params, cfg: VARConfig, label_B: torch.Tensor,
+                       qrt=None):
     """Condition embeddings, modulations and the first token map."""
     uncond = torch.full_like(label_B, cfg.num_classes)
     cond_BD = params["class_emb"][torch.cat([label_B, uncond])]
@@ -409,7 +454,7 @@ def prepare_generation(params, cfg: VARConfig, label_B: torch.Tensor):
     lvl_pos = params["lvl_embed"][lvl][None] + params["pos_1LC"]
     first = (cond_BD[:, None, :] + params["pos_start"]
              + lvl_pos[:, : cfg.first_l])
-    mod = compute_modulations(params, cfg, cond_BD)
+    mod = compute_modulations(params, cfg, cond_BD, qrt)
     return cond_BD, mod, lvl_pos, first
 
 
@@ -423,7 +468,9 @@ def init_var_params(cfg: VARConfig, seed: int = 0, device="cuda",
     """Random init in the JAX package's tree layout: truncated-normal
     (+-2 std) weights, zero biases, ``scale_mul = log 4``.  The reference
     AdaLN gamma std makes fresh blocks near-identity; pass 0.02 to make
-    outputs depend on the block internals."""
+    outputs depend on the block internals.  With ``shared_aln`` the blocks
+    hold ``ada_gss`` (standard normal / sqrt(C)) in place of ``ada_lin``,
+    and the tree a ``shared_ada_lin``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     c, d, heads = cfg.width, cfg.depth, cfg.heads
@@ -456,12 +503,14 @@ def init_var_params(cfg: VARConfig, seed: int = 0, device="cuda",
         "fc2_b": zeros(d, c),
         "mat_qkv_s": torch.ones((d, c), dtype=dtype, device=device),
         "fc1_s": torch.ones((d, c), dtype=dtype, device=device),
-        "ada_lin": {"w": tn((d, 6 * c, c), adaln_gamma_std),
-                    "b": zeros(d, 6 * c)},
     }
     if cfg.shared_aln:
-        raise NotImplementedError("shared_aln is not ported yet")
-    return {
+        z = torch.randn((d, 6, c), generator=gen, device=device)
+        blocks["ada_gss"] = (z / math.sqrt(c)).to(dtype)
+    else:
+        blocks["ada_lin"] = {"w": tn((d, 6 * c, c), adaln_gamma_std),
+                             "b": zeros(d, 6 * c)}
+    params = {
         "word_embed": lin_init(c, cvae),
         "class_emb": tn((cfg.num_classes + 1, c)),
         "pos_start": tn((1, cfg.first_l, c)),
@@ -471,3 +520,6 @@ def init_var_params(cfg: VARConfig, seed: int = 0, device="cuda",
         "head_nm": lin_init(2 * c, c),
         "head": lin_init(v, c),
     }
+    if cfg.shared_aln:
+        params["shared_ada_lin"] = lin_init(6 * c, c)
+    return params

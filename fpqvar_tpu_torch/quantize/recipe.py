@@ -5,12 +5,14 @@ A function over the params tree, as the JAX package's
 
 1. GALT fold: ``W_qkv /= s_qkv`` and ``W_fc1 /= s_fc1`` along the input
    channels, keeping the vectors for the online activation multiply;
-2. rotation ``W <- W @ Q_block`` for mat_qkv and fc1, in float64 on the
-   host;
+2. rotation ``W <- W @ Q`` for mat_qkv and fc1, block-diagonal or
+   full-size, in float64 on the host;
 3. weight quantization: :class:`IntPack` integer codes for the ``int8``
    backend (per group of 128, or per output channel),
    :class:`PackedTensor` grid codes for the ``packed`` backend, or
-   fake-quantized (dequantized) float weights for the ``fake`` backend.
+   fake-quantized (dequantized) float weights for the ``fake`` backend
+   (``int_sym`` under ``int_quant``); with ``quantize_ada`` also the
+   AdaLN linears (``ada_lin`` or ``shared_ada_lin``), always fake.
 """
 from __future__ import annotations
 
@@ -44,18 +46,24 @@ def fold_galt(blocks: dict, mat_qkv_s, fc1_s) -> dict:
 
 
 def rotate_blocks(blocks: dict, qcfg: QuantConfig) -> dict:
-    """Offline block rotation ``W <- W @ Q_b`` in float64 on the host."""
-    if not qcfg.block_rotate:
-        raise NotImplementedError(
-            "full-size rotation (block_rotate=False) is not ported yet")
-    qb = H.block_hadamard_block(qcfg.rotation_block, qcfg.rotation_seed)
+    """Offline rotation ``W <- W @ Q`` in float64 on the host: ``Q`` the
+    block-diagonal rotation (applied per 128-block) or the full-size one
+    of the width."""
+    width = blocks[_ROTATED_KEYS[0]].shape[-1]
+    if qcfg.block_rotate:
+        q = H.block_hadamard_block(qcfg.rotation_block, qcfg.rotation_seed)
+    else:
+        q = H.random_hadamard_matrix(width, qcfg.rotation_seed)
+    n = q.shape[0]
     out = dict(blocks)
     for key in _ROTATED_KEYS:
         src = blocks[key]
         w = src.detach().cpu().numpy().astype(np.float64)   # [depth, out, in]
-        d, o, i = w.shape
-        wr = (w.reshape(d, o, i // qb.shape[0], qb.shape[0]) @ qb
-              ).reshape(d, o, i)
+        if not qcfg.block_rotate:
+            wr = w @ q
+        else:
+            d, o, i = w.shape
+            wr = (w.reshape(d, o, i // n, n) @ q).reshape(d, o, i)
         out[key] = torch.from_numpy(wr).to(device=src.device, dtype=src.dtype)
     return out
 
@@ -86,17 +94,24 @@ def quantize_weights(blocks: dict, qcfg: QuantConfig) -> dict:
             gs = w.shape[-1] if per_channel else qcfg.group_size
             out[key] = P.pack_int_codes(w, fmt, gs)
         return out
-    if qcfg.backend != "fake" or qcfg.int_quant:
-        raise NotImplementedError(
-            f"weight quantization for backend={qcfg.backend!r}, "
-            f"int_quant={qcfg.int_quant} is not ported yet")
+    if qcfg.backend != "fake":
+        raise ValueError(f"unknown backend {qcfg.backend!r}")
+    wq = _fake_weight_quantizer(qcfg)
+    for key in _WEIGHT_KEYS:
+        out[key] = wq(blocks[key])
+    return out
+
+
+def _fake_weight_quantizer(qcfg: QuantConfig):
+    """The fake backend's weight quantizer (``int_sym`` under
+    ``int_quant``): float32 in, the weight's dtype out, over the stacked
+    ``[depth, out, in]`` tensor (so a per-tensor scale spans the depth, as
+    in JAX)."""
+    fmt = "int_sym" if qcfg.int_quant else qcfg.weight_format
     wq = Q.make_weight_quantizer(fmt, qcfg.w_bit,
                                  granularity=qcfg.weight_quant,
                                  group_size=qcfg.group_size)
-    for key in _WEIGHT_KEYS:
-        w = blocks[key]
-        out[key] = wq(w.to(torch.float32)).to(w.dtype)
-    return out
+    return lambda w: wq(w.to(torch.float32)).to(w.dtype)
 
 
 def quantize_var_params(
@@ -119,5 +134,15 @@ def quantize_var_params(
         blocks = rotate_blocks(blocks, qcfg)
     if qcfg.enabled:
         blocks = quantize_weights(blocks, qcfg)
+        if qcfg.quantize_ada:
+            # always fake (dequantized weights) under every backend: the
+            # modulations are computed once per generation
+            wq = _fake_weight_quantizer(qcfg)
+            if "ada_lin" in blocks:
+                blocks["ada_lin"] = {**blocks["ada_lin"],
+                                     "w": wq(blocks["ada_lin"]["w"])}
+            if "shared_ada_lin" in out:
+                out["shared_ada_lin"] = {**out["shared_ada_lin"],
+                                         "w": wq(out["shared_ada_lin"]["w"])}
     out["blocks"] = blocks
     return out

@@ -1,22 +1,22 @@
 """QuantRuntime: the online half of a quantization recipe.
 
 Resolves a :class:`QuantConfig` into what the block forward needs at run
-time: per quantized layer kind the activation format (the ``int8`` backend
-quantizes inside its GEMM call and needs the name) and the activation
-quantizer (the ``fake`` and ``packed`` backends quantize, then dequantize,
-before the matmul), the packed KV cache's codec and the ``attn_int8`` flag,
-the 128x128 rotation block and the GALT flag.  The port covers the bf16
-baseline, the ``int8`` backend (per-group weights and activations,
-per-channel weights with per-token activations, and weights-only ``bf16``
-activations), the ``fake`` and ``packed`` backends with grid and dual-grid
-activation formats, and the packed KV cache (``kv_backend="packed"``) of
-any grid format; every other combination raises.
+time, as the JAX package's ``quantize/runtime.py``: per quantized layer
+kind the activation format (the ``int8`` backend quantizes inside its GEMM
+call and needs the name) and the activation quantizer (the ``fake`` and
+``packed`` backends quantize, then dequantize, before the matmul; the pure
+INT recipe, log2 at fc2, and ``"ada"``, SiLU(cond) under
+``quantize_ada``), one quantizer dict per distinct block format under
+mixed formats, the KV cache's fake quantizer (``kv_backend="fake"``) or
+packed codec (``"packed"``) and the ``attn_int8`` flag, the 128x128
+rotation block or the full-size rotation, and the GALT flag.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from functools import lru_cache
-from typing import Callable, Dict, Optional
+from functools import lru_cache, partial
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -100,36 +100,83 @@ def make_kv_codec(fmt: str) -> KVCodec:
 
 @dataclass(frozen=True)
 class QuantRuntime:
-    #: layer kind -> activation quantizer (None: not quantized)
+    #: layer kind -> activation quantizer (None: not quantized); "ada" is
+    #: SiLU(cond)'s under ``quantize_ada``
     act_q: Dict[str, Optional[Callable]] = field(default_factory=dict)
     #: layer kind -> activation format name (None: not quantized)
     act_fmts: Dict[str, Optional[str]] = field(default_factory=dict)
+    #: mixed formats: one ``act_q`` per distinct block format, and each
+    #: block's index into them
+    mixed_act_q: Optional[Tuple[Dict[str, Optional[Callable]], ...]] = None
+    mixed_idx: Optional[Tuple[int, ...]] = None
+    #: the dense KV cache's fake quantizer (None: not quantized)
+    kv_q: Optional[Callable] = None
+    #: "store": quantize once on append; "reference": re-quantize the whole
+    #: cached prefix every scale step before appending raw rows
+    kv_mode: str = "store"
     #: the packed KV cache's codec (None: a dense cache)
     kv_codec: Optional[KVCodec] = None
     #: both attention products as integer contractions of int8 codes
     #: (``QuantConfig.attn_int8``; needs a value-codes ``kv_codec``)
     attn_int8: bool = False
     rotation_block: Optional[torch.Tensor] = None   # 128x128, float32
+    rotation_full: Optional[torch.Tensor] = None    # C x C, float32
     transform: bool = False
 
+    def for_block(self, i: int) -> "QuantRuntime":
+        """The runtime of block ``i`` under mixed formats."""
+        return self.for_variant(self.mixed_idx[i])
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, modules still to port)")
+    def for_variant(self, v: int) -> "QuantRuntime":
+        """The runtime with variant ``v``'s activation quantizers."""
+        if self.mixed_act_q is None:
+            raise ValueError("not a mixed-format runtime")
+        return dataclasses.replace(self, act_q=self.mixed_act_q[v],
+                                   mixed_act_q=None, mixed_idx=None)
 
 
-def _build_kv(qcfg: QuantConfig) -> Optional[KVCodec]:
-    """The KV codec of ``kv_bit`` with ``kv_backend="packed"`` (None
-    without ``kv_bit``)."""
+def _act_quantizer_for(qcfg: QuantConfig, fmt_name: str, kind: str):
+    """One activation quantizer, as JAX's ``_act_quantizer_for``: under
+    ``int_quant`` (or an INT / log2 format name) log2 where asked
+    (``fc2_log2`` at fc2), else ``int_sym`` with ``act_sym`` and
+    ``int_asym`` without it; fc2 is always asymmetric."""
+    gran = qcfg.act_quant
+    if qcfg.int_quant or fmt_name in ("int_sym", "int_asym", "log2"):
+        if fmt_name == "log2" or (kind == "fc2" and qcfg.fc2_log2):
+            fmt = "log2"
+        else:
+            sym = qcfg.act_sym and kind != "fc2"
+            fmt = "int_sym" if sym else "int_asym"
+        return Q.make_act_quantizer(fmt, qcfg.a_bit, granularity=gran,
+                                    group_size=qcfg.group_size)
+    return Q.make_act_quantizer(fmt_name, qcfg.a_bit, granularity=gran,
+                                group_size=qcfg.group_size)
+
+
+def _ada_act_quantizer(qcfg: QuantConfig):
+    """The per-token quantizer of SiLU(cond) before ``ada_lin`` /
+    ``shared_ada_lin`` (``quantize_ada``), in ``resolved_ada_format()``
+    (INT under ``int_quant``)."""
+    fmt = qcfg.resolved_ada_format()
+    if qcfg.int_quant or fmt in ("int_sym", "int_asym", "log2"):
+        fmt = "int_sym" if qcfg.act_sym else "int_asym"
+    return Q.make_act_quantizer(fmt, qcfg.a_bit, granularity="per_token",
+                                group_size=qcfg.group_size)
+
+
+def _build_kv(qcfg: QuantConfig):
+    """(kv_q, kv_codec): the fake quantizer of a dense cache
+    (``kv_backend="fake"``) or the packed cache's codec, for any backend;
+    both None without ``kv_bit``."""
     if not qcfg.kv_bit:
-        return None
-    if qcfg.kv_backend != "packed":
-        raise _unported("the fake KV quantizer (kv_backend='fake')")
-    fmt = qcfg.resolved_kv_format()
-    if fmt == "int_sym":
-        raise NotImplementedError(
-            "packed int KV not wired; use a grid kv_format")
-    return make_kv_codec(fmt)
+        return None, None
+    if qcfg.kv_backend == "packed":
+        fmt = qcfg.resolved_kv_format()
+        if fmt == "int_sym":
+            raise NotImplementedError(
+                "packed int KV not wired; use a grid kv_format")
+        return None, make_kv_codec(fmt)
+    return partial(Q.fake_quant_kv, qcfg=qcfg), None
 
 
 def _check_attn_int8(qcfg: QuantConfig, kv_codec) -> bool:
@@ -142,56 +189,97 @@ def _check_attn_int8(qcfg: QuantConfig, kv_codec) -> bool:
     return True
 
 
-def build_runtime(qcfg: QuantConfig, device="cuda") -> QuantRuntime:
-    kv_codec = _build_kv(qcfg)
-    attn_int8 = _check_attn_int8(qcfg, kv_codec)
-    if qcfg.fc2_log2:
-        raise _unported("the log2 fc2 baseline (fc2_log2)")
-    if qcfg.quantize_ada:
-        raise _unported("quantize_ada")
+def _check_int8(qcfg: QuantConfig, fmts: Dict[str, Optional[str]]) -> None:
+    """The ``int8`` backend's limits, as JAX's: per-group or per-token fp
+    activations, per-token paired with per-channel weights, no mixed
+    formats, integer-value (or weights-only ``bf16``) activation formats."""
+    if qcfg.int_quant or qcfg.act_quant not in ("per_group", "per_token"):
+        raise ValueError(
+            "int8 backend requires per-group or per-token fp act "
+            "quantization")
+    if ((qcfg.act_quant == "per_token")
+            != (qcfg.weight_quant == "per_channel")):
+        raise ValueError(
+            "int8 backend: per-token acts pair with per-channel "
+            "weights (the int8ch full-K path): set both or neither")
     if qcfg.mixed_act_formats is not None:
-        raise _unported("mixed_act_formats")
-    if qcfg.int_quant:
-        raise _unported("the pure INT recipe (int_quant)")
-    rotation = None
-    if qcfg.rotate:
-        if not qcfg.block_rotate:
-            raise _unported("full-size rotation (block_rotate=False)")
-        rotation = torch.tensor(
-            H.block_hadamard_block(qcfg.rotation_block, qcfg.rotation_seed),
-            dtype=torch.float32, device=device)
+        raise ValueError("int8 backend does not support mixed_act_formats")
+    for k, f in fmts.items():
+        # "bf16" = weights only (w4a16): the activation is not quantized
+        # (ops/int8_matmul.py wonly_dot)
+        if (f != "bf16" and f not in P.CODE_MULT
+                and f not in P.DUAL_CODE_MULT):
+            raise ValueError(
+                f"int8 backend: unsupported act format {f!r} ({k})")
+
+
+def _rotations(qcfg: QuantConfig, width: Optional[int], device):
+    """(128x128 block, full C x C) rotation as float32 on ``device``; at
+    most one is set."""
+    if not qcfg.rotate:
+        return None, None
+    if qcfg.block_rotate:
+        h = H.block_hadamard_block(qcfg.rotation_block, qcfg.rotation_seed)
+        return torch.tensor(h, dtype=torch.float32, device=device), None
+    if width is None:
+        raise ValueError("width required for full-size rotation")
+    h = H.random_hadamard_matrix(width, qcfg.rotation_seed)
+    return None, torch.tensor(h, dtype=torch.float32, device=device)
+
+
+def build_runtime(qcfg: QuantConfig, depth: Optional[int] = None,
+                  width: Optional[int] = None, device="cuda") -> QuantRuntime:
+    """Resolve ``qcfg`` into run-time callables and tensors (on
+    ``device``).  ``width`` is required for a full-size rotation and
+    ``depth`` for mixed formats."""
+    rotation, rotation_full = _rotations(qcfg, width, device)
+    kv_q, kv_codec = _build_kv(qcfg)
     fmts: Dict[str, Optional[str]] = {k: None for k in LAYER_KINDS}
     act_q: Dict[str, Optional[Callable]] = {k: None for k in LAYER_KINDS}
+    mixed = mixed_idx = None
     if qcfg.enabled:
-        fmts = {k: qcfg.act_format for k in ("mat_qkv", "proj", "fc1")}
-        fmts["fc2"] = qcfg.fc2_format
+        if qcfg.int_quant:
+            fmts = {k: "int" for k in LAYER_KINDS}
+        else:
+            fmts = {k: qcfg.act_format for k in ("mat_qkv", "proj", "fc1")}
+            fmts["fc2"] = qcfg.fc2_format
         if qcfg.backend == "int8":
             # the activation is quantized inside the GEMM call (codes and
             # scales, no dequantized intermediate): see ops/int8_matmul.py
-            if qcfg.act_quant not in ("per_group", "per_token"):
-                raise ValueError(
-                    "int8 backend requires per-group or per-token fp act "
-                    "quantization")
-            if ((qcfg.act_quant == "per_token")
-                    != (qcfg.weight_quant == "per_channel")):
-                raise ValueError(
-                    "int8 backend: per-token acts pair with per-channel "
-                    "weights (the int8ch full-K path): set both or neither")
-            for k, f in fmts.items():
-                # "bf16" = weights only (w4a16): the activation is not
-                # quantized (ops/int8_matmul.py wonly_dot)
-                if (f != "bf16" and f not in P.CODE_MULT
-                        and f not in P.DUAL_CODE_MULT):
-                    raise ValueError(
-                        f"int8 backend: unsupported act format {f!r} ({k})")
+            _check_int8(qcfg, fmts)
         elif qcfg.backend in ("fake", "packed"):
             # "bf16" act format = no activation quantizer (weights-only)
-            act_q = {k: None if f == "bf16" else Q.make_act_quantizer(
-                         f, qcfg.a_bit, granularity=qcfg.act_quant,
-                         group_size=qcfg.group_size)
-                     for k, f in fmts.items()}
+            act_q = {k: None if f == "bf16" else _act_quantizer_for(
+                         qcfg, f, k) for k, f in fmts.items()}
         else:
-            raise _unported(f"the {qcfg.backend!r} backend")
-    return QuantRuntime(act_q=act_q, act_fmts=fmts, kv_codec=kv_codec,
-                        attn_int8=attn_int8, rotation_block=rotation,
+            raise ValueError(f"unknown backend {qcfg.backend!r}")
+        if qcfg.quantize_ada:
+            # SiLU(cond) is quantized on the fake path under every backend:
+            # the modulations are computed once per generation
+            act_q["ada"] = _ada_act_quantizer(qcfg)
+        if qcfg.mixed_act_formats is not None:     # int8 refused it above
+            mixed, mixed_idx = _mixed(qcfg, act_q, depth)
+    return QuantRuntime(act_q=act_q, act_fmts=fmts, mixed_act_q=mixed,
+                        mixed_idx=mixed_idx, kv_q=kv_q, kv_mode=qcfg.kv_mode,
+                        kv_codec=kv_codec,
+                        attn_int8=_check_attn_int8(qcfg, kv_codec),
+                        rotation_block=rotation, rotation_full=rotation_full,
                         transform=qcfg.transform)
+
+
+def _mixed(qcfg: QuantConfig, act_q: dict, depth: Optional[int]):
+    """Mixed formats: one ``act_q`` per distinct block format (its format
+    at mat_qkv, proj and fc1; the rest shared) and each block's index."""
+    if depth is None:
+        raise ValueError("depth required for mixed-format configs")
+    if len(qcfg.mixed_act_formats) != depth:
+        raise ValueError("mixed_act_formats must have one entry per block")
+    distinct = list(dict.fromkeys(qcfg.mixed_act_formats))
+    variants = []
+    for bfmt in distinct:
+        d = dict(act_q)
+        for k in ("mat_qkv", "proj", "fc1"):
+            d[k] = _act_quantizer_for(qcfg, bfmt, k)
+        variants.append(d)
+    return (tuple(variants),
+            tuple(distinct.index(f) for f in qcfg.mixed_act_formats))

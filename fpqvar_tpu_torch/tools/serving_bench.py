@@ -36,21 +36,22 @@ import numpy as np
 import torch
 
 from fpqvar_tpu_torch.config import (GenerateConfig, VARConfig,
-                                     bench_recipes, var_d16, var_tiny)
+                                     bench_recipes, paper_recipes, var_d16,
+                                     var_d30, var_d36_512, var_tiny)
 from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                      init_vqvae_params)
 from fpqvar_tpu_torch.quantize import quantize_var_params
 from fpqvar_tpu_torch.serving import GenerationServer
 
 
-def _d36():
-    raise NotImplementedError(
-        "preset d36 needs shared_aln, which is not ported yet (ROADMAP §1 "
-        "item 6: shared_aln / d36-512)")
+PRESETS = {"tiny": var_tiny, "d16": var_d16, "d30": var_d30,
+           "d36": var_d36_512}
 
 
-PRESETS = {"tiny": var_tiny, "d16": var_d16,
-           "d30": lambda: VARConfig(depth=30), "d36": _d36}
+def recipes() -> dict:
+    """The recipes the bench takes by name: ``bench_recipes`` and
+    ``paper_recipes``."""
+    return {**bench_recipes(), **paper_recipes()}
 
 
 def _require_device(device) -> torch.device:
@@ -171,8 +172,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="d16", choices=sorted(PRESETS))
     ap.add_argument("--recipes", default="bf16,int8",
-                    help="comma list of config.bench_recipes names, all "
-                         "measured in one process")
+                    help="comma list of config.bench_recipes or "
+                         "config.paper_recipes names, all measured in one "
+                         "process")
     ap.add_argument("--n", type=int, default=64,
                     help="saturation-burst request count")
     ap.add_argument("--poisson", type=int, default=0,
@@ -195,7 +197,7 @@ def main(argv=None):
     results = {}
     for recipe in args.recipes.split(","):
         results[recipe] = run_recipe(
-            cfg, bench_recipes()[recipe], vae, salt, n=args.n,
+            cfg, recipes()[recipe], vae, salt, n=args.n,
             poisson=args.poisson, util=args.util, max_batch=args.max_batch,
             max_wait_ms=args.max_wait_ms, unloaded=args.unloaded,
             device=dev)

@@ -455,3 +455,72 @@ def test_cuda_k5_k6_k7_raise_on_bad_layout(cuda_device):
                       device=cuda_device)[1:].view(8, k)
     with pytest.raises(ValueError, match="aligned"):
         PG.bf16_probe_gemm(odd, a16)
+
+
+@pytest.mark.cuda
+def test_cuda_d16_fp4_kv6_matches_cpu(cuda_device):
+    """The paper's ``fp4_kv6`` (fake quantizers, a dense cache quantized
+    per token to fp6_e2m3 on append) at VAR-d16's width and depth over its
+    first three scales (1, 2, 3; a small VQVAE), float32 compute and cache
+    at ``top_k=1``: the card samples the CPU's tokens at every scale,
+    launches no kernel of the port, and its ``f_hat`` agrees within 1e-5
+    (it depends on the tokens alone, through the VQVAE's float32 convs)."""
+    cpu_tokens, cpu_fhat = _d16_fp4_kv6(torch.device("cpu"))
+    counters = (K.launches, K.nd_launches, K.fused_launches, K.ch_launches,
+                QM.launches)
+    tokens, fhat = _d16_fp4_kv6(cuda_device)
+    assert (K.launches, K.nd_launches, K.fused_launches, K.ch_launches,
+            QM.launches) == counters
+    assert len(tokens) == len(cpu_tokens) == 3
+    for a, b in zip(tokens, cpu_tokens):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(fhat, cpu_fhat, rtol=0, atol=1e-5)
+
+
+def _d16_fp4_kv6(device):
+    """(the tokens of each scale, f_hat) of one seeded ``fp4_kv6``
+    generation of 3 labels at d16's width and depth on ``device``."""
+    import dataclasses
+
+    from fpqvar_tpu_torch.config import (GenerateConfig, VQVAEConfig,
+                                         paper_recipes, var_d16)
+    from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
+                                         init_vqvae_params)
+    from fpqvar_tpu_torch.models import var as V
+    from fpqvar_tpu_torch.quantize import quantize_var_params
+
+    pn = (1, 2, 3)
+    cfg = dataclasses.replace(var_d16(), patch_nums=pn, vae=VQVAEConfig(
+        ch=16, ch_mult=(1, 2), num_res_blocks=1, patch_nums=pn))
+    q = paper_recipes()["fp4_kv6"]
+    rng = np.random.default_rng(7)
+    galt = tuple(np.exp(0.1 * rng.standard_normal((cfg.depth, cfg.width)))
+                 .astype(np.float32) for _ in range(2))
+    params = init_var_params(cfg, seed=8, device="cpu", adaln_gamma_std=0.02)
+    vae = init_vqvae_params(cfg.vae, seed=9, device="cpu")
+    qp = quantize_var_params(_tree_to(params, device), cfg, q, galt=galt)
+    gen = VARGenerator(cfg, q, GenerateConfig(top_k=1, top_p=0.0),
+                       cache_dtype=torch.float32,
+                       compute_dtype=torch.float32, device=device)
+    sample, tokens = V.sample_with_top_k_top_p, []
+
+    def recorded(logits, *args, **kw):
+        idx = sample(logits, *args, **kw)
+        tokens.append(idx.cpu())
+        return idx
+
+    V.sample_with_top_k_top_p = recorded
+    try:
+        fhat = gen.generate(qp, _tree_to(vae, device), [3, 5, 998],
+                            return_fhat=True)
+    finally:
+        V.sample_with_top_k_top_p = sample
+    return tokens, fhat.cpu()
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)

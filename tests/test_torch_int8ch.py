@@ -237,7 +237,7 @@ def test_wonly_dot_matches_jax(per_channel, dtype):
 def test_runtime_takes_the_per_channel_recipes():
     """``build_runtime`` accepts the four recipes with JAX's formats and
     rejects a per-channel / per-group mix with JAX's ``ValueError``."""
-    rt = {mode: build_runtime(bench_recipes()[mode], "cpu")
+    rt = {mode: build_runtime(bench_recipes()[mode], device="cpu")
           for mode in ("int8ch", "int8chs", "int8chsnr", "w4a16")}
     assert rt["int8ch"].act_fmts == {
         "mat_qkv": "fp_e2", "proj": "fp_e2", "fc1": "fp_e2",
@@ -251,7 +251,7 @@ def test_runtime_takes_the_per_channel_recipes():
     assert all(v is None for r in rt.values() for v in r.act_q.values())
     with pytest.raises(ValueError, match="per-token"):
         build_runtime(bench_recipes()["int8ch"].replace(
-            act_quant="per_group"), "cpu")
+            act_quant="per_group"), device="cpu")
     with pytest.raises(ValueError, match="per-group or per-token"):
         build_runtime(bench_recipes()["int8ch"].replace(
-            act_quant="per_tensor"), "cpu")
+            act_quant="per_tensor"), device="cpu")

@@ -181,14 +181,15 @@ def test_int8_contractions_exact_to_the_bound():
 
 def test_runtime_builds_the_kv_codec():
     for mode, attn in (("int8kv", False), ("int8att", True)):
-        rt = build_runtime(bench_recipes()[mode], "cpu")
+        rt = build_runtime(bench_recipes()[mode], device="cpu")
         jrt = jax_runtime(jax_recipes()[mode], 2, 128)
         assert rt.kv_codec.fmt == jrt.kv_codec.fmt == "fp_e2"
         assert rt.kv_codec.value_codes and rt.kv_codec.max_code == 12
         assert rt.attn_int8 is jrt.attn_int8 is attn
-    assert build_runtime(bench_recipes()["int8ch"], "cpu").kv_codec is None
+    assert build_runtime(bench_recipes()["int8ch"],
+                         device="cpu").kv_codec is None
     rt = build_runtime(bench_recipes()["int8kv"].replace(
-        kv_bit=6, kv_format="fp6_e3m2"), "cpu")
+        kv_bit=6, kv_format="fp6_e3m2"), device="cpu")
     assert rt.kv_codec.fmt == "fp6_e3m2" and not rt.kv_codec.value_codes
 
 
@@ -213,7 +214,7 @@ def _setup(mode):
     jqp = jax_quantize(jparams, jcfg, jq, galt=galt)
     tqp = to_torch(jax.tree_util.tree_map(np.asarray, jqp), "cpu")
     return (jcfg, cfg, jqp, tqp, jax_runtime(jq, jcfg.depth, width),
-            build_runtime(q, "cpu"))
+            build_runtime(q, cfg.depth, width, device="cpu"))
 
 
 def _ulps(a, b):

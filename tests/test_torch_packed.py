@@ -137,13 +137,24 @@ def test_weight_quantizer_bit_equal(fmt, granularity):
 
 
 def test_unported_quantizers_raise():
+    """Every quantizer of the JAX package is ported (``test_torch_fake.py``
+    holds them to JAX's); what neither package knows raises ``ValueError``,
+    as JAX's dispatch does."""
     for fmt in ("int", "log2", "fp_neg_reverse_quant"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        assert callable(Q.make_act_quantizer(fmt, 4))
+    assert callable(Q.make_weight_quantizer("int_sym", 4))
+    x = torch.ones(4, 128)
+    x[0, 0], x[0, 1] = 12.0, 5.0       # one scale, 12 / 6, for the tensor
+    y = Q.fake_quant_fp(x, "fp_e2", granularity="per_tensor")
+    # 1 / 2 is on the grid; 5 / 2 ties between 2 and 3 and snaps up
+    assert y[0, :2].tolist() == [12.0, 6.0] and float(y[1, 1]) == 1.0
+    for fmt in ("fp5", "int4"):
+        with pytest.raises(ValueError, match="unknown activation format"):
             Q.make_act_quantizer(fmt, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Q.make_weight_quantizer("int_sym", 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Q.fake_quant_fp(torch.ones(4, 128), "fp_e2", granularity="per_tensor")
+    with pytest.raises(ValueError, match="unknown weight format"):
+        Q.make_weight_quantizer("fp_neg_reverse_quant", 4)
+    with pytest.raises(ValueError, match="unknown granularity"):
+        Q.fake_quant_fp(x, "fp_e2", granularity="per_row")
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

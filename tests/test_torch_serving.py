@@ -28,8 +28,9 @@ from fpqvar_tpu.config import GenerateConfig as JaxGenerateConfig
 from fpqvar_tpu.models.engine import VARGenerator as JaxGenerator
 from fpqvar_tpu.serving import GenerationServer as JaxServer
 
-from fpqvar_tpu_torch.config import (GenerateConfig, QuantConfig, VARConfig,
-                                     VQVAEConfig, bench_recipes, var_tiny)
+from fpqvar_tpu_torch.config import (PATCH_NUMS_512, GenerateConfig,
+                                     QuantConfig, VARConfig, VQVAEConfig,
+                                     bench_recipes, paper_recipes, var_tiny)
 from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                      init_vqvae_params)
 from fpqvar_tpu_torch.ops import int8_matmul as K
@@ -208,8 +209,9 @@ def test_server_matches_jax_server(monkeypatch):
 
 def test_serving_bench_runs_its_phases_on_cpu():
     """The bench's unloaded, saturated and Poisson phases at the tiny
-    config, with burst-only counters; the d36 preset names its ROADMAP
-    item."""
+    config, with burst-only counters; the d30 and d36 presets are VAR-d30
+    and VAR-d36-512 (shared AdaLN), and the bench takes the paper's
+    recipes by name."""
     vae = init_vqvae_params(TINY.vae, seed=1, device="cpu")
     res = serving_bench.run_recipe(TINY, bench_recipes()["int8"], vae,
                                    salt=7, n=4, poisson=3, max_batch=2,
@@ -218,5 +220,11 @@ def test_serving_bench_runs_its_phases_on_cpu():
     assert len(res["poisson_ms"]["samples_ms"]) == 3
     assert res["unloaded_ms"]["p50"] > 0 and res["saturated_imgs_per_s"] > 0
     assert res["batches"] >= 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving_bench.PRESETS["d36"]()
+    d30, d36 = serving_bench.PRESETS["d30"](), serving_bench.PRESETS["d36"]()
+    assert (d30.depth, d30.width, d30.L, d30.shared_aln) == (30, 1920, 680,
+                                                             False)
+    assert (d36.depth, d36.width, d36.heads, d36.L, d36.shared_aln) == (
+        36, 2304, 36, 2240, True)
+    assert d36.vae.patch_nums == d36.patch_nums == PATCH_NUMS_512
+    assert serving_bench.recipes()["fp4_kv6"] == paper_recipes()["fp4_kv6"]
+    assert serving_bench.recipes()["int8"] == bench_recipes()["int8"]

@@ -129,7 +129,8 @@ def _setup(width, mode):
     jqp = jax_quantize(jparams, jcfg, jq, galt=galt) if jq.enabled else jparams
     tqp = to_torch(jax.tree_util.tree_map(np.asarray, jqp), "cpu")
     jrt = jax_runtime(jq, jcfg.depth, jcfg.width)
-    return jcfg, cfg, jqp, tqp, jrt, build_runtime(q, "cpu")
+    return jcfg, cfg, jqp, tqp, jrt, build_runtime(q, cfg.depth, cfg.width,
+                                                   device="cpu")
 
 
 @pytest.mark.parametrize("width", [128, 256])
@@ -224,20 +225,33 @@ def test_prepare_generation_and_head_match_jax():
 
 
 def test_runtime_rejects_unported_recipes():
-    """Unported recipes raise ``NotImplementedError``: the fake KV
-    quantizer (``kv_bit`` on the default ``kv_backend="fake"``) and a
-    packed ``int_sym`` KV cache among them, as JAX's ``_build_kv``;
-    ``attn_int8`` without a packed value-codes cache is a ``ValueError``,
-    as JAX's ``_check_attn_int8``."""
-    fake = bench_recipes()["fake"]
-    int8ch = bench_recipes()["int8ch"]
-    for q in (fake.replace(block_rotate=False),
-              fake.replace(mixed_act_formats=("fp_e2", "fp_e1")),
-              fake.replace(int_quant=True),
-              bench_recipes()["int8"].replace(kv_bit=4),
-              int8ch.replace(kv_bit=4)):
-        with pytest.raises(NotImplementedError):
-            build_runtime(q, "cpu")
+    """The recipes the port once refused now build as JAX's do (a full-size
+    rotation, mixed formats, the pure INT recipe, a fake KV cache under the
+    int8 backends); a full-size rotation without ``width`` and mixed
+    formats without ``depth`` are ``ValueError``s in both.  The refusals
+    left are JAX's: a packed ``int_sym`` KV cache (``NotImplementedError``,
+    as JAX's ``_build_kv``) and ``attn_int8`` without a packed value-codes
+    cache (``ValueError``, as JAX's ``_check_attn_int8``)."""
+    fake, jfake = bench_recipes()["fake"], jax_recipes()["fake"]
+    for kw in ({"block_rotate": False},
+               {"mixed_act_formats": ("fp_e2", "fp_e1")},
+               {"int_quant": True}):
+        rt = build_runtime(fake.replace(**kw), 2, 128, device="cpu")
+        jrt = jax_runtime(jfake.replace(**kw), 2, 128)
+        assert rt.act_fmts == jrt.act_fmts
+        assert rt.mixed_idx == jrt.mixed_idx
+        assert (rt.rotation_full is None) == (jrt.rotation_full is None)
+        if "int_quant" not in kw:
+            with pytest.raises(ValueError):
+                build_runtime(fake.replace(**kw), device="cpu")
+            with pytest.raises(ValueError):
+                jax_runtime(jfake.replace(**kw))
+    for name in ("int8", "int8ch"):
+        rt = build_runtime(bench_recipes()[name].replace(kv_bit=4),
+                           device="cpu")
+        jrt = jax_runtime(jax_recipes()[name].replace(kv_bit=4), 2, 128)
+        assert rt.kv_q is not None and jrt.kv_q is not None
+        assert rt.kv_codec is None and jrt.kv_codec is None
     # the same refusals as JAX's runtime
     for name, kw, err in (
             ("int8ch", {"kv_bit": 8, "kv_backend": "packed"},
@@ -246,22 +260,22 @@ def test_runtime_rejects_unported_recipes():
             ("int8kv", {"kv_format": "fp6_e3m2", "attn_int8": True},
              ValueError)):
         with pytest.raises(err):
-            build_runtime(bench_recipes()[name].replace(**kw), "cpu")
+            build_runtime(bench_recipes()[name].replace(**kw), device="cpu")
         with pytest.raises(err):
             jax_runtime(jax_recipes()[name].replace(**kw), 2, 128)
     # per-token activations pair with per-channel weights, as in JAX
     with pytest.raises(ValueError, match="per-token"):
         build_runtime(bench_recipes()["int8"].replace(act_quant="per_token"),
-                      "cpu")
-    rt = build_runtime(bench_recipes()["int8"], "cpu")
+                      device="cpu")
+    rt = build_runtime(bench_recipes()["int8"], device="cpu")
     assert rt.act_fmts == {"mat_qkv": "fp_e2", "proj": "fp_e2",
                            "fc1": "fp_e2", "fc2": "fp_e1m2_neg_e2m1_pos"}
     assert rt.transform and tuple(rt.rotation_block.shape) == (128, 128)
     assert all(v is None for v in rt.act_q.values())
     for mode in ("fake", "packed"):
-        rt = build_runtime(bench_recipes()[mode], "cpu")
+        rt = build_runtime(bench_recipes()[mode], device="cpu")
         assert all(callable(v) for v in rt.act_q.values()), mode
         assert rt.transform and rt.rotation_block is not None
-    rt = build_runtime(bench_recipes()["w4a16p"], "cpu")
+    rt = build_runtime(bench_recipes()["w4a16p"], device="cpu")
     assert all(v is None for v in rt.act_q.values())
     assert not rt.transform and rt.rotation_block is None
