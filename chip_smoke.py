@@ -61,14 +61,39 @@ non-zero:
    CUDA's sync debug mode set to raise, to show that ``generate`` does not
    wait for the device; then ``tools/serving_bench.run_recipe`` under
    ``int8`` with small counts;
+   Then the same server over a fused generator (CUDA graphs): the repeat
+   equal to its lone twin, every image equal to the eager server's,
+   the pipeline used, one replay under the sync debug mode; saturated
+   img/s and p50 / p99 beside the eager server's;
 8. probe: ``tools/int8_rate_probe.run`` at its default shapes (library
    bf16 and int8 GEMMs, K6, K7), with the launches of K6 and K7 counted;
 9. d36-512: VAR-d36-512 at its full width and depth (shared AdaLN, L =
    2240, the 512 px VQVAE), random seeded weights, two generations of 2
    labels under ``bf16`` and ``fp4_kv6``: images ``[2, 3, 512, 512]``
    finite in [0, 1], no port kernel launched; prints ms per generation,
-   img/s, the quantize time with the float64 host rotation apart, the KV
-   cache's bytes and the peak of device memory.
+   img/s, the quantize time with the float64 host rotation apart and the
+   device transform's time beside it (with the weights where the two
+   differ counted), the KV cache's bytes and the peak of device memory;
+   one eager generation's kernel launches under torch.profiler; then a
+   fused generator's two generations, ``torch.equal`` to the eager ones;
+10. fused (run after phase 6, on phase 5's trees): the engine's fused mode
+   (``VARGenerator(fuse_steps=True)``, CUDA graphs) under the profiled
+   recipes of phase 6: two generations from phase 5's generator seed and
+   labels must equal phase 5's images (``torch.equal``), and one replay
+   under torch.profiler must launch each port kernel as often as one
+   eager generation (phase 5's counts: the host counters see only the
+   warm-up and the capture); prints eager and fused ms per batch and
+   img/s, host CPU ms inside ``generate``, warm-up and capture times, the
+   graphs' pool bytes and the replay's idle share;
+11. transform: the device transform (``transform_blocks_traced``) at width
+   256 under ``int8``, ``packed`` and ``fake`` on the card against the
+   CPU (rotated weights within the float32 bound, the quantize stage bit
+   for bit, differing codes counted), and a fused generation from
+   ``synth_device_params`` of each, finite in [0, 1].
+
+The phases run in the order 1-6, 10, 7-9, 11.  Phases 4-6 and the
+launch gates of phases 7 and 9 run the eager loop (``fuse_steps=False``),
+whose every launch the wrappers' host counters see.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernel table as one JSON object.
@@ -710,7 +735,8 @@ def phase_small_reference():
                                          galt=galt)
                 g = VARGenerator(cfg, q, GenerateConfig(top_k=1, top_p=0.0),
                                  cache_dtype=torch.float32,
-                                 compute_dtype=torch.float32, device=dev)
+                                 compute_dtype=torch.float32, device=dev,
+                                 fuse_steps=False)
                 seen.clear()
                 out[dev] = g.generate(qp, _to(vae, dev), labels).cpu()
                 steps[dev] = list(seen)
@@ -825,10 +851,10 @@ def phase_main_path(card: str):
         qp = quantize_var_params(params, cfg, q, galt=galt)
         torch.cuda.synchronize()
         t_quant = time.perf_counter() - t0
-        gen = VARGenerator(cfg, q, GenerateConfig())
+        gen = VARGenerator(cfg, q, GenerateConfig(), fuse_steps=False)
         rng_gen = torch.Generator(device="cuda")
         rng_gen.manual_seed(3)
-        times, host_cpu = [], []
+        times, host_cpu, images = [], [], []
         kv_bytes = sum(t.nbytes for t in gen.init_cache(batch).values())
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
@@ -851,6 +877,7 @@ def phase_main_path(card: str):
             lo, hi = float(imgs.min()), float(imgs.max())
             if lo < 0.0 or hi > 1.0:
                 fail(f"{mode}: image values outside [0, 1]: {lo}, {hi}")
+            images.append(imgs)
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() - resident
         for kern, n in counts.items():
@@ -874,25 +901,31 @@ def phase_main_path(card: str):
               f"{peak} bytes ({peak / 1e9:.3f} GB); images [{batch}, 3, 256, "
               f"256] finite in [0, 1]; on {card}")
         if mode in PROFILED:
-            setups[mode] = (gen, qp, rng_gen)
+            # the eager images and times, for the fused phase (10)
+            setups[mode] = (gen, qp, rng_gen, {
+                "images": images, "ms": [t * 1e3 for t in times],
+                "host_cpu_ms": [t * 1e3 for t in host_cpu]})
     print("main path: steady time against bf16: " + ", ".join(
         f"{m} {results[m] / results['bf16']:.3f}" for m in results)
         + f" on {card}; launches over the main path: "
         + ", ".join(f"{k} {n}" for k, n in totals.items()))
     labels = torch.arange(batch, device="cuda")
     for mode in PROFILED:
-        gen, qp, rng_gen = setups[mode]
+        gen, qp, rng_gen, _ = setups[mode]
         phase_profile(mode, lambda: gen.generate(qp, vae, labels, rng_gen),
                       card, per_gen[mode])
-    return totals, setups, vae
+    return totals, setups, vae, per_gen
 
 
-def phase_profile(mode: str, run, card: str, launches: dict):
+def phase_profile(mode: str, run, card: str, launches: dict,
+                  required: bool = False, batch: int = 8):
     """Where one generation's time goes: torch.profiler over one batch-8
     generation (after the main path's counts were read), summing the device
     time of every CUDA kernel; each port kernel must show as many launches
     as the generation makes (``launches``, by K1..K7), so that its time is
-    found under its name."""
+    found under its name.  Returns ``{"wall_ms", "busy_ms", "kernels",
+    "idle"}``, or None where the profiler recorded no kernel time (a
+    failure if ``required``: the kernel counts are a gate there)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -911,9 +944,12 @@ def phase_profile(mode: str, run, card: str, launches: dict):
     busy = sum(dev_ms(e) for e in kernels)
     n_kernels = sum(e.count for e in kernels)
     if busy <= 0.0:
+        if required:
+            fail(f"profile: {mode}: the profiler recorded no kernel time, "
+                 "so the kernel counts cannot be checked")
         print(f"profile: {mode}: device time not measured (the profiler "
               f"recorded no kernel time); wall {wall_ms:.1f} ms")
-        return
+        return None
     ours = []
     for label, keys in PORT_KERNELS.items():
         hits = [e for e in kernels if any(k in e.key for k in keys)]
@@ -926,13 +962,92 @@ def phase_profile(mode: str, run, card: str, launches: dict):
         ours.append(f"{label} {ms:.2f} ms in {n} launches "
                     f"({ms / busy:.3f} of busy)")
     top = sorted(kernels, key=dev_ms, reverse=True)[:6]
-    print(f"profile: {mode} batch-8 generation under the profiler: wall "
+    print(f"profile: {mode} batch-{batch} generation under the profiler: wall "
           f"{wall_ms:.1f} ms, device busy {busy:.1f} ms in {n_kernels} "
           f"kernel launches, idle share {1.0 - busy / wall_ms:.3f}; "
           f"{'; '.join(ours)}; on {card}")
     for e in top:
         print(f"profile: {mode}   {dev_ms(e):8.2f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "kernels": n_kernels,
+            "idle": 1.0 - busy / wall_ms}
+
+
+def _fused_run(gen, qp, vae, label_sets, seed: int):
+    """Generations of ``gen`` from one generator seeded ``seed``, one per
+    label set, each timed on the host clock (ending in a synchronize) and
+    by the host thread's CPU time inside ``generate``: (images, ms,
+    host CPU ms)."""
+    rng_gen = torch.Generator(device="cuda")
+    rng_gen.manual_seed(seed)
+    images, ms, host_cpu = [], [], []
+    for labels in label_sets:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c0 = time.thread_time()
+        images.append(gen.generate(qp, vae, labels, rng_gen))
+        host_cpu.append((time.thread_time() - c0) * 1e3)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return images, ms, host_cpu
+
+
+def phase_fused(setups, vae, per_gen: dict, card: str):
+    """The engine's fused mode (CUDA graphs) at VAR-d16 batch 8 under the
+    profiled recipes, beside phase 5's eager generations of the same
+    trees: two generations from a generator seeded as phase 5's (3), on
+    phase 5's labels, must give phase 5's images (``torch.equal``, read
+    after both ran: the second replay must not overwrite the first call's
+    result), and one more replay under torch.profiler must launch each
+    port kernel as often as one eager generation does (``per_gen``; the
+    host counters see only the warm-up and the capture).  Prints eager and
+    fused ms per batch and img/s, the host CPU ms inside ``generate``, the
+    warm-up and capture times, the graphs' pool bytes and the replay's
+    idle share."""
+    from fpqvar_tpu_torch.models import VARGenerator
+
+    batch = 8
+    label_sets = [torch.arange(i * batch, (i + 1) * batch, device="cuda")
+                  for i in range(2)]
+    summary = []
+    for mode in PROFILED:
+        eager_gen, qp, _, eager = setups[mode]
+        gen = VARGenerator(eager_gen.cfg, eager_gen.qcfg, eager_gen.gen,
+                           qrt=eager_gen.qrt)
+        torch.cuda.empty_cache()
+        images, ms, host_cpu = _fused_run(gen, qp, vae, label_sets, seed=3)
+        stats = gen.capture_stats(batch)
+        for i, (got, want) in enumerate(zip(images, eager["images"])):
+            if not torch.equal(got, want):
+                diff = float((got - want).abs().max())
+                fail(f"fused {mode}: generation {i} differs from the eager "
+                     f"loop's (max diff {diff})")
+        if gen.captures != 1:
+            fail(f"fused {mode}: {gen.captures} captures for one batch size")
+        prof = phase_profile(
+            f"fused {mode}", lambda: gen.generate(qp, vae, label_sets[0]),
+            card, per_gen[mode], required=True)
+        e_ms, f_ms = eager["ms"][-1], ms[-1]
+        summary.append(f"{mode} {e_ms / f_ms:.3f}")
+        print(f"fused: {mode}: images torch.equal to the eager loop's for "
+              f"both generations; eager ms/batch-of-{batch} "
+              f"{', '.join(f'{t:.1f}' for t in eager['ms'])} (host CPU "
+              f"{', '.join(f'{t:.1f}' for t in eager['host_cpu_ms'])}), "
+              f"steady {batch / e_ms * 1e3:.2f} img/s; fused "
+              f"{', '.join(f'{t:.1f}' for t in ms)} (first includes warm-up "
+              f"{stats['warmup_s']:.2f} s and capture "
+              f"{stats['capture_s']:.2f} s; host CPU "
+              f"{', '.join(f'{t:.1f}' for t in host_cpu)}), steady "
+              f"{batch / f_ms * 1e3:.2f} img/s; graph pool "
+              f"{stats['pool_bytes']} bytes "
+              f"({stats['pool_bytes'] / 1e9:.3f} GB); replay under the "
+              f"profiler: wall {prof['wall_ms']:.1f} ms, busy "
+              f"{prof['busy_ms']:.1f} ms in {prof['kernels']} kernels, idle "
+              f"share {prof['idle']:.3f}; on {card}")
+        del gen, images
+        torch.cuda.empty_cache()
+    print("fused: steady eager ms / fused ms: " + ", ".join(summary)
+          + f" on {card}")
 
 
 def _images_ok(label: str, img, shape) -> None:
@@ -945,19 +1060,56 @@ def _images_ok(label: str, img, shape) -> None:
         fail(f"{label}: image values outside [0, 1]: {lo}, {hi}")
 
 
+def _serve(gen, qp, vae, max_batch: int, n_burst: int, repeat_at: int):
+    """A ``GenerationServer`` over ``gen``: one request alone, then a burst
+    of ``n_burst`` with that request again at ``repeat_at``, with the
+    launch counts set to 0 just before and read just after.  Returns the
+    lone image, the burst's images and latencies (s), its wall time, the
+    stats before and after the burst and the launch counts."""
+    from fpqvar_tpu_torch.serving import GenerationServer
+
+    server = GenerationServer(gen, qp, vae, max_batch=max_batch,
+                              max_wait_ms=30.0)
+    try:
+        reset_counts()
+        lone = server.submit(207, 5).result()
+        st0 = server.stats()
+        t0 = time.perf_counter()
+        subs = []
+        for i in range(n_burst):
+            req = (207, 5) if i == repeat_at else (i * 37 % 1000, 100 + i)
+            subs.append((time.perf_counter(), server.submit(*req)))
+        imgs, lat = [], []
+        for ts, fut in subs:
+            imgs.append(fut.result())
+            lat.append(time.perf_counter() - ts)
+        wall = time.perf_counter() - t0
+        st = server.stats()
+        counts = read_counts()
+    finally:
+        server.stop()
+    return lone, imgs, lat, wall, st0, st, counts
+
+
 def phase_serving(setups, vae, card: str):
     """The d16 ``int8`` and ``bf16`` generators of the main path behind a
     ``GenerationServer`` with max_batch 8, with the launch counts set to 0
     just before each recipe and read just after.  Beside it, direct batch-8
     generations on the main thread, timed in the same phase: with one
-    generator and with one per row (the server's call)."""
+    generator and with one per row (the server's call).  Then the same
+    server over a fused generator of the same recipe and tree (CUDA
+    graphs, captured by the server's first batch): the repeat equal to its
+    lone twin and every image equal to the eager server's, the depth-2
+    pipeline used, and one direct replay under CUDA's sync debug mode set
+    to raise."""
     from fpqvar_tpu_torch.config import bench_recipes
-    from fpqvar_tpu_torch.serving import GenerationServer, row_seed
+    from fpqvar_tpu_torch.models import VARGenerator
+    from fpqvar_tpu_torch.serving import row_seed
     from fpqvar_tpu_torch.tools import serving_bench
 
     max_batch, n_burst, repeat_at = 8, 20, 11
     for mode in ("int8", "bf16"):
-        gen, qp, _ = setups[mode]
+        gen, qp = setups[mode][:2]
         blocks = gen.cfg.depth * gen.cfg.num_scales
         # generate only queues work: with CUDA's sync debug mode set to
         # raise, one direct call with per-row generators must not wait
@@ -971,12 +1123,15 @@ def phase_serving(setups, vae, card: str):
                 gens.append(g)
             return gens
 
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            gen.generate(qp, vae, labels, row_gens())
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        def no_sync(g):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                g.generate(qp, vae, labels, row_gens())
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        no_sync(gen)
 
         def direct(gens):
             torch.cuda.synchronize()
@@ -990,26 +1145,8 @@ def phase_serving(setups, vae, card: str):
         t_one = min(direct(one) for _ in range(2))
         t_rows = min(direct(row_gens()) for _ in range(2))
 
-        server = GenerationServer(gen, qp, vae, max_batch=max_batch,
-                                  max_wait_ms=30.0)
-        try:
-            reset_counts()
-            lone = server.submit(207, 5).result()
-            st0 = server.stats()
-            t0 = time.perf_counter()
-            subs = []
-            for i in range(n_burst):
-                req = (207, 5) if i == repeat_at else (i * 37 % 1000, 100 + i)
-                subs.append((time.perf_counter(), server.submit(*req)))
-            imgs, lat = [], []
-            for ts, fut in subs:
-                imgs.append(fut.result())
-                lat.append(time.perf_counter() - ts)
-            wall = time.perf_counter() - t0
-            st = server.stats()
-            counts = read_counts()
-        finally:
-            server.stop()
+        lone, imgs, lat, wall, st0, st, counts = _serve(
+            gen, qp, vae, max_batch, n_burst, repeat_at)
         for i, img in enumerate([lone] + imgs):
             _images_ok(f"serving {mode} request {i}", img, (3, 256, 256))
         if not torch.equal(imgs[repeat_at], lone):
@@ -1045,14 +1182,60 @@ def phase_serving(setups, vae, card: str):
               + ", ".join(f"{k} {n // batches}" for k, n in counts.items()
                           if n)
               + f"; generate queued without a host sync; on {card}")
+
+        fused = VARGenerator(gen.cfg, gen.qcfg, gen.gen, qrt=gen.qrt)
+        f_lone, f_imgs, f_lat, f_wall, f_st0, f_st, _ = _serve(
+            fused, qp, vae, max_batch, n_burst, repeat_at)
+        for i, img in enumerate([f_lone] + f_imgs):
+            _images_ok(f"serving fused {mode} request {i}", img,
+                       (3, 256, 256))
+        if not torch.equal(f_imgs[repeat_at], f_lone):
+            fail(f"serving fused {mode}: the repeated request differs from "
+                 "its lone twin")
+        if not torch.equal(f_lone, lone):
+            diff = float((f_lone - lone).abs().max())
+            fail(f"serving fused {mode}: the lone request differs from the "
+                 f"eager server's (max diff {diff})")
+        # a row's image depends only on its request, so every burst image
+        # equals the eager server's
+        bad = [i for i, (a, b) in enumerate(zip(f_imgs, imgs))
+               if not torch.equal(a, b)]
+        if bad:
+            fail(f"serving fused {mode}: burst requests {bad} differ from "
+                 "the eager server's")
+        f_pipelined = f_st["pipelined"] - f_st0["pipelined"]
+        if f_pipelined < 1:
+            fail(f"serving fused {mode}: the burst was never pipelined "
+                 f"({f_st})")
+        if fused.captures != 1:
+            fail(f"serving fused {mode}: {fused.captures} captures")
+        no_sync(fused)
+        stats = fused.capture_stats(max_batch)
+        f_lat_ms = np.asarray(f_lat) * 1e3
+        f_rate = n_burst / f_wall
+        print(f"serving: fused {mode}: saturated {f_rate:.3f} img/s "
+              f"(eager {rate:.3f}), burst wall {f_wall * 1e3:.1f} ms, "
+              f"latency p50 {np.percentile(f_lat_ms, 50):.1f} ms p99 "
+              f"{np.percentile(f_lat_ms, 99):.1f} ms (eager p50 "
+              f"{np.percentile(lat_ms, 50):.1f} p99 "
+              f"{np.percentile(lat_ms, 99):.1f}), "
+              f"{f_st['batches'] - f_st0['batches']} burst batches, "
+              f"pipelined {f_pipelined}; every image equal to the eager "
+              f"server's, repeat equal to its lone twin; captured once by "
+              f"the server's first batch (warm-up {stats['warmup_s']:.2f} s, "
+              f"capture {stats['capture_s']:.2f} s, pool "
+              f"{stats['pool_bytes']} bytes); a replay queued without a "
+              f"host sync; on {card}")
+        del fused
+        torch.cuda.empty_cache()
     res = serving_bench.run_recipe(gen.cfg, bench_recipes()["int8"], vae,
                                    salt=12345, n=16, unloaded=2, poisson=0,
                                    max_batch=max_batch)
     brief = {k: ({kk: vv for kk, vv in v.items() if kk != "samples_ms"}
                  if isinstance(v, dict) else v) for k, v in res.items()}
     print(f"serving: tools/serving_bench.run_recipe int8 d16 (n 16, "
-          f"unloaded 2, max_batch {max_batch}) on {card}: "
-          f"{json.dumps(brief)}")
+          f"unloaded 2, max_batch {max_batch}; synth_device_params, fused "
+          f"generator) on {card}: {json.dumps(brief)}")
 
 
 def phase_probe(card: str):
@@ -1085,9 +1268,16 @@ def phase_d36(card: str):
     512 px flags) for two generations of 2 labels each, with every launch
     count set to 0 just before and read just after (no kernel of the port
     runs under either).  ``fp4_kv6``'s ``quantize_var_params`` is timed
-    with its float64 host rotation apart; each recipe prints ms per
-    generation, img/s, the KV cache's bytes and the peak of device memory
-    (above what was resident, and in all)."""
+    with its float64 host rotation apart, and beside it the device
+    transform (``transform_blocks_traced``, float32 on the card) of the
+    same blocks, with the weights where the two differ counted (a finding,
+    not a gate: the float32 sums run in another order).  Each recipe
+    prints ms per generation, img/s, the KV cache's bytes and the peak of
+    device memory (above what was resident, and in all), then one more
+    eager generation under torch.profiler counts its kernel launches, and
+    a fused generator of the same tree makes the two generations again
+    from the same seed and labels: its images must equal the eager ones
+    (``torch.equal``)."""
     from fpqvar_tpu_torch.config import GenerateConfig, var_d36_512
     from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                          init_vqvae_params)
@@ -1111,6 +1301,9 @@ def phase_d36(card: str):
                  .astype(np.float32) for _ in range(2))
     batch, n_gen = 2, 2
     side = cfg.patch_nums[-1] * cfg.vae.downsample
+    label_sets = [torch.arange(i * batch, (i + 1) * batch, device="cuda")
+                  for i in range(n_gen)]
+    none = {k: 0 for k in COUNTERS}
     for mode in ("bf16", "fp4_kv6"):
         q = _recipes()[mode]
         t_quant = t_rot = 0.0
@@ -1134,7 +1327,33 @@ def phase_d36(card: str):
             finally:
                 recipe.rotate_blocks = rotate
             t_rot = sum(rot)
-        gen = VARGenerator(cfg, q, GenerateConfig())
+            t0 = time.perf_counter()
+            dev_blocks = recipe.transform_blocks_traced(params["blocks"], cfg,
+                                                        q, galt)
+            torch.cuda.synchronize()
+            t_dev = time.perf_counter() - t0
+            keys = ("mat_qkv_w", "proj_w", "fc1_w", "fc2_w")
+            differ = {k: int((dev_blocks[k] != qp["blocks"][k]).sum())
+                      for k in keys}
+            # a last-bit change of a group's absmax moves its scale and so
+            # every weight of the group by an ulp; another fp4 grid value
+            # moves a weight by a third of its size or more (or to zero)
+            grid_moves = sum(
+                int(((dev_blocks[k] - qp["blocks"][k]).abs()
+                     > 1e-3 * qp["blocks"][k].abs()).sum()) for k in keys)
+            total = sum(qp["blocks"][k].numel() for k in keys)
+            del dev_blocks
+            torch.cuda.empty_cache()
+            print(f"d36-512: {mode}: quantize_var_params {t_quant:.2f} s "
+                  f"(float64 host rotation {t_rot:.2f} s) against the device "
+                  f"transform transform_blocks_traced {t_dev * 1e3:.1f} ms "
+                  f"in the same phase; block weights that differ between "
+                  f"the two: {sum(differ.values())} of {total} "
+                  f"({sum(differ.values()) / total:.3e}; "
+                  + ", ".join(f"{k} {n}" for k, n in differ.items())
+                  + f"), of which {grid_moves} by more than a relative 1e-3 "
+                  f"(another grid value); on {card}")
+        gen = VARGenerator(cfg, q, GenerateConfig(), fuse_steps=False)
         rng_gen = torch.Generator(device="cuda")
         rng_gen.manual_seed(3)
         kv_bytes = sum(t.nbytes for t in gen.init_cache(batch).values())
@@ -1142,9 +1361,8 @@ def phase_d36(card: str):
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        times, host_cpu = [], []
-        for i in range(n_gen):
-            labels = torch.arange(i * batch, (i + 1) * batch, device="cuda")
+        times, host_cpu, eager = [], [], []
+        for i, labels in enumerate(label_sets):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             c0 = time.thread_time()
@@ -1154,6 +1372,7 @@ def phase_d36(card: str):
             times.append(time.perf_counter() - t0)
             _images_ok(f"d36-512 {mode} generation {i}", imgs,
                        (batch, 3, side, side))
+            eager.append(imgs)
         counts = read_counts()
         if any(counts.values()):
             fail(f"d36-512 {mode}: port kernels launched: {counts}")
@@ -1170,8 +1389,116 @@ def phase_d36(card: str):
               f"({peak / 1e9:.3f} GB), {peak - resident} above the "
               f"{resident / 1e9:.3f} GB resident; images [{batch}, 3, {side}, "
               f"{side}] finite in [0, 1]; no port kernel launched; on {card}")
-        del qp, gen
+        phase_profile(f"d36-512 eager {mode}",
+                      lambda: gen.generate(qp, vae, label_sets[0], rng_gen),
+                      card, none, batch=batch)
+        fused = VARGenerator(cfg, q, GenerateConfig(), qrt=gen.qrt)
         torch.cuda.empty_cache()
+        images, ms, f_host = _fused_run(fused, qp, vae, label_sets, seed=3)
+        stats = fused.capture_stats(batch)
+        for i, (got, want) in enumerate(zip(images, eager)):
+            if not torch.equal(got, want):
+                diff = float((got - want).abs().max())
+                fail(f"d36-512 fused {mode}: generation {i} differs from the "
+                     f"eager loop's (max diff {diff})")
+        print(f"d36-512: fused {mode}: images torch.equal to the eager "
+              f"loop's for both generations; ms per generation of {batch} = "
+              f"{', '.join(f'{t:.1f}' for t in ms)} (first includes warm-up "
+              f"{stats['warmup_s']:.2f} s and capture "
+              f"{stats['capture_s']:.2f} s; host CPU "
+              f"{', '.join(f'{t:.1f}' for t in f_host)}), steady "
+              f"{batch / ms[-1] * 1e3:.3f} img/s (eager "
+              f"{batch / times[-1]:.3f}); graph pool {stats['pool_bytes']} "
+              f"bytes ({stats['pool_bytes'] / 1e9:.3f} GB), peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; on {card}")
+        del qp, gen, fused, images, eager
+        torch.cuda.empty_cache()
+
+
+def phase_transform(card: str):
+    """The device transform at width 256 (``var_tiny`` widened; block
+    rotation, GALT) under ``int8``, ``packed`` and ``fake``:
+    ``transform_blocks_traced`` on the card against the same transform on
+    the CPU.  The rotated weights must agree within the bound of two
+    float32 sums in different orders (``tests/test_torch_transform.py``:
+    ``2 * 128 * 2^-24 * sum|w * q|``, here with TF32 left on, which the
+    transform must override), and the quantize stage on the card, given the
+    CPU's rotated weights, must equal the CPU's bit for bit; the codes (or
+    fake weights) of the whole transforms that differ are counted, where
+    the float32 rotation summed in another order.  Then a fused generation
+    from ``synth_device_params`` of each recipe: images finite in
+    [0, 1]."""
+    from fpqvar_tpu_torch.config import GenerateConfig, var_tiny
+    from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
+                                         init_vqvae_params)
+    from fpqvar_tpu_torch.ops import hadamard as H
+    from fpqvar_tpu_torch.quantize import recipe
+
+    cfg = dataclasses.replace(var_tiny(), embed_dim=256, num_heads=4)
+    blocks = init_var_params(cfg, seed=6, device="cpu",
+                             adaln_gamma_std=0.02)["blocks"]
+    on_card = _to(blocks, "cuda")
+    rng = np.random.default_rng(7)
+    galt = tuple(np.exp(0.1 * rng.standard_normal((cfg.depth, cfg.width)))
+                 .astype(np.float32) for _ in range(2))
+    qmat = np.abs(H.block_hadamard_block(128, 42))
+    vae = init_vqvae_params(cfg.vae, seed=8, device="cuda")
+    keys = ("mat_qkv_w", "proj_w", "fc1_w", "fc2_w")
+
+    def parts(leaf):
+        return ([leaf] if isinstance(leaf, torch.Tensor)
+                else [leaf.codes, leaf.scales])
+
+    for mode in ("int8", "packed", "fake"):
+        q = _recipes()[mode]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            rot_card = recipe._rotate_f32(on_card, cfg, q, galt)
+            whole_card = recipe.transform_blocks_traced(on_card, cfg, q, galt)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        rot_cpu = recipe._rotate_f32(blocks, cfg, q, galt)
+        worst = 0.0
+        for key, g in zip(("mat_qkv_w", "fc1_w"), galt):
+            w = np.abs(blocks[key].double().numpy() / g[:, None, :])
+            d, o, i = w.shape
+            bound = 2 * 128 * 2.0 ** -24 * (
+                w.reshape(d, o, i // 128, 128) @ qmat).reshape(d, o, i)
+            diff = (rot_card[key].cpu().double() - rot_cpu[key].double()
+                    ).abs().numpy()
+            if not (diff <= bound).all():
+                fail(f"transform {mode}: rotated {key} outside the float32 "
+                     f"bound (worst diff/bound {float((diff / bound).max())})")
+            worst = max(worst, float((diff / bound).max()))
+        staged = _to(rot_cpu, "cuda")
+        q_card = recipe._quantize_traced(staged, q, torch.float32)
+        q_cpu = recipe._quantize_traced(rot_cpu, q, torch.float32)
+        whole_cpu = recipe.transform_blocks_traced(blocks, cfg, q, galt)
+        for key in keys:
+            for a, b in zip(parts(q_card[key]), parts(q_cpu[key])):
+                if not torch.equal(a.cpu(), b):
+                    fail(f"transform {mode}: the card's quantize stage "
+                         f"differs from the CPU's at {key}")
+        n_diff = sum(int((a.cpu() != b).sum())
+                     for key in keys
+                     for a, b in zip(parts(whole_card[key])[:1],
+                                     parts(whole_cpu[key])[:1]))
+        n_all = sum(parts(whole_cpu[key])[0].numel() for key in keys)
+        n_rot = sum(int((rot_card[k].cpu() != rot_cpu[k]).sum())
+                    for k in ("mat_qkv_w", "fc1_w"))
+        params = recipe.synth_device_params(cfg, q, seed=9, galt=galt)
+        gen = VARGenerator(cfg, q, GenerateConfig())
+        labels = torch.tensor([3, 5, 7], device="cuda")
+        imgs = gen.generate(params, vae, labels)
+        _images_ok(f"transform {mode} synth_device_params generation", imgs,
+                   (3, 3, 6, 6))
+        print(f"transform: {mode} width 256: card vs CPU rotated weights "
+              f"within the float32 bound (worst diff/bound {worst:.3f}; "
+              f"{n_rot} of {rot_cpu['mat_qkv_w'].numel() + rot_cpu['fc1_w'].numel()} "
+              f"rotated values differ); quantize stage equal given the same "
+              f"rotated weights; whole transform: {n_diff} of {n_all} codes "
+              f"differ; a fused generation from synth_device_params finite "
+              f"in [0, 1] ({gen.captures} capture); on {card}")
 
 
 def _leaves(tree):
@@ -1199,8 +1526,14 @@ def _kernel_row(name, source, replaces, launches, rows, timed="fc1"):
 
 def main():
     t_start = time.perf_counter()
+
+    def done(phase: str):
+        print(f"chip_smoke: {phase} done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+
     card = phase_device()
     phase_build()
+    done("build")
     k1_rows = phase_kernels()
     k2_rows = phase_k2()
     k3_rows = phase_k3()
@@ -1208,12 +1541,21 @@ def main():
     k5_rows = phase_k5()
     k6_rows = phase_k6()
     k7_rows = phase_k7()
+    done("kernels")
     phase_small_reference()
-    launches, setups, vae = phase_main_path(card)
+    done("small reference")
+    launches, setups, vae, per_gen = phase_main_path(card)
+    done("main path and profile")
+    phase_fused(setups, vae, per_gen, card)
+    done("fused")
     phase_serving(setups, vae, card)
+    done("serving")
     del setups
     probe_launches = phase_probe(card)
+    done("probe")
     phase_d36(card)
+    done("d36-512")
+    phase_transform(card)
     src = "fpqvar_tpu_torch/csrc/"
     kernels = {"kernels": [
         # K1 runs on the main path only at fc2 (int8's dual grid)

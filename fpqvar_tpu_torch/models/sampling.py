@@ -64,6 +64,27 @@ def gumbel_noise(shape, generator: Generators, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def noise_plan(sizes: Sequence[int], vocab: int, batch: int,
+               generator: Optional[Generators], more_smooth: bool, device,
+               out: Optional[list] = None) -> list:
+    """All of a generation's Gumbel noise, drawn up front: for each scale
+    (``sizes`` holds its ``l = pn * pn`` tokens) the sample's ``(batch, l,
+    vocab)`` noise, then, under ``more_smooth``, the soft blend's, as
+    ``(sample, blend or None)`` pairs.  These are the eager loop's draws,
+    in its order and from the same generators (one for the batch, or one
+    per row), so each generator yields the same values and ends in the same
+    state.  With ``out`` (a plan of the same shapes) the noise is copied
+    into its buffers, which are returned."""
+    plan = []
+    for i, l in enumerate(sizes):
+        pair = [gumbel_noise((batch, l, vocab), generator, device)
+                for _ in range(2 if more_smooth else 1)]
+        if out is not None:
+            pair = [buf.copy_(t) for buf, t in zip(out[i], pair)]
+        plan.append((pair[0], pair[1] if more_smooth else None))
+    return plan
+
+
 def sample_with_top_k_top_p(logits: torch.Tensor, top_k: int = 0,
                             top_p: float = 0.0,
                             generator: Optional[Generators] = None,

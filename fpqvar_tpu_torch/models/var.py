@@ -397,7 +397,7 @@ def init_kv_cache(cfg: VARConfig, batch: int, dtype=torch.bfloat16,
 
 def scale_step(params, vae_qparams, cfg: VARConfig, qrt, gen: GenerateConfig,
                st: GenStatics, x, cond_BD, mod, lvl_pos, cache, f_hat,
-               generator: Optional[Generators]):
+               generator: Optional[Generators], noise=None):
     """One scale: transformer -> logits -> CFG -> sample -> residual
     pyramid -> the next scale's token map.  Returns (next x or None at the
     last scale, f_hat).
@@ -405,20 +405,25 @@ def scale_step(params, vae_qparams, cfg: VARConfig, qrt, gen: GenerateConfig,
     ``generator`` is one ``torch.Generator`` for the whole batch or one per
     row (JAX's single key or ``[B, 2]`` per-row keys); each draws the
     sample's noise first, then, under ``more_smooth``, the soft blend's, in
-    the order JAX splits its keys."""
+    the order JAX splits its keys.  ``noise``, this scale's ``(sample,
+    blend)`` pair of a ``sampling.noise_plan``, takes the generator's
+    place."""
     b = x.shape[0] // 2
     x = run_blocks(params, cfg, qrt, x, mod, cache, st.cur)
     logits = head_logits(params, cfg, x.to(torch.float32), cond_BD)
     t = gen.cfg * (st.si / (cfg.num_scales - 1))
     logits = (1.0 + t) * logits[:b] - t * logits[b:]
-    idx_Bl = sample_with_top_k_top_p(logits, gen.top_k, gen.top_p, generator)
+    sample_noise, blend_noise = noise if noise is not None else (None, None)
+    idx_Bl = sample_with_top_k_top_p(logits, gen.top_k, gen.top_p, generator,
+                                     gumbel=sample_noise)
     if gen.more_smooth:
         # the Gumbel-softmax blend of the codebook; the index above is still
         # drawn (and dropped) so that the noise stream matches the default
         # mode's
         ratio = st.si / (cfg.num_scales - 1)
         gum_t = max(0.27 * (1.0 - ratio * 0.95), 0.005)
-        soft = gumbel_softmax(logits * (1.0 + ratio), gum_t, generator)
+        soft = gumbel_softmax(logits * (1.0 + ratio), gum_t, generator,
+                              gumbel=blend_noise)
         h_BChw = soft @ vae_qparams["embedding"].to(soft.dtype)
     else:
         h_BChw = vq.embed_idx(vae_qparams, idx_Bl)       # [B, l, Cvae]

@@ -28,6 +28,7 @@ with ``scale = absmax / gmax / mult`` absorbing the multiplier.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -136,7 +137,16 @@ def grid_values(p: PackedTensor) -> torch.Tensor:
     decode = DECODERS.get(p.fmt)
     if decode is not None:
         return decode(codes)
-    return torch.as_tensor(G.GRIDS[p.fmt], device=codes.device)[codes.long()]
+    return _grid_table(p.fmt, codes.device)[codes.long()]
+
+
+@lru_cache(maxsize=None)
+def _grid_table(fmt: str, device: torch.device) -> torch.Tensor:
+    """The grid of ``fmt`` on ``device``, copied there once: a copy from
+    pageable host memory on every call would make the host wait for the
+    device, and has no place in a captured CUDA graph."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(G.GRIDS[fmt]).to(device)
 
 
 def dequantize(p: PackedTensor, dtype=torch.float32) -> torch.Tensor:

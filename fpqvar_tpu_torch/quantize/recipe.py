@@ -13,9 +13,16 @@ A function over the params tree, as the JAX package's
    fake-quantized (dequantized) float weights for the ``fake`` backend
    (``int_sym`` under ``int_quant``); with ``quantize_ada`` also the
    AdaLN linears (``ada_lin`` or ``shared_ada_lin``), always fake.
+
+``quantize_var_params`` is the bit-parity surface (float64 rotation on the
+host).  ``transform_blocks_traced`` runs the same pipeline on the tensors'
+device in float32 and ``synth_device_params`` builds a seeded, transformed
+tree on the card with no host round trip, as the JAX package's benchmark
+and serving bench build theirs.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -146,3 +153,120 @@ def quantize_var_params(
                                          "w": wq(out["shared_ada_lin"]["w"])}
     out["blocks"] = blocks
     return out
+
+
+@contextlib.contextmanager
+def _ieee_f32():
+    """Float32 matmuls in float32 whatever ``allow_tf32`` says (TF32
+    rounds the operands to 10 mantissa bits)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _rotate_f32(blocks: dict, cfg: VARConfig, qcfg: QuantConfig,
+                galt=None) -> dict:
+    """The fold and rotation stage of :func:`transform_blocks_traced`:
+    ``mat_qkv_w`` and ``fc1_w`` as float32 ``W / s`` (under GALT) times the
+    rotation in float32 on their device; ``mat_qkv_s`` and ``fc1_s`` the
+    GALT vectors."""
+    if qcfg.transform and galt is None:
+        raise ValueError("qcfg.transform=True requires GALT vectors")
+    dev = blocks["mat_qkv_w"].device
+    scales = (None, None)
+    if qcfg.transform:
+        scales = tuple(torch.as_tensor(g, dtype=torch.float32, device=dev)
+                       for g in galt)
+    qmat = None
+    if qcfg.rotate:
+        q = (H.block_hadamard_block(qcfg.rotation_block, qcfg.rotation_seed)
+             if qcfg.block_rotate
+             else H.random_hadamard_matrix(cfg.width, qcfg.rotation_seed))
+        qmat = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    out = dict(blocks)
+    with _ieee_f32():
+        for key, s in zip(_ROTATED_KEYS, scales):
+            w = blocks[key].to(torch.float32)
+            if s is not None:
+                w = w / s[:, None, :]
+            if qmat is not None and qcfg.block_rotate:
+                d, o, i = w.shape
+                n = qmat.shape[0]
+                w = (w.reshape(d, o, i // n, n) @ qmat).reshape(d, o, i)
+            elif qmat is not None:
+                w = w @ qmat
+            out[key] = w
+    if qcfg.transform:
+        out["mat_qkv_s"] = scales[0].to(blocks["mat_qkv_s"].dtype)
+        out["fc1_s"] = scales[1].to(blocks["fc1_s"].dtype)
+    return out
+
+
+def _quantize_traced(rotated: dict, qcfg: QuantConfig, in_dtype) -> dict:
+    """The quantize stage of :func:`transform_blocks_traced` over the
+    output of :func:`_rotate_f32`: :func:`quantize_weights` on the float32
+    rotated weights, fake-backend weights (and, with ``enabled=False``, the
+    rotated ones) cast to ``in_dtype``, and the per-block ``ada_lin`` under
+    ``quantize_ada``."""
+    out = dict(rotated)
+    if not qcfg.enabled:
+        for key in _ROTATED_KEYS:
+            out[key] = out[key].to(in_dtype)
+        return out
+    out = quantize_weights(out, qcfg)
+    if qcfg.backend == "fake":
+        for key in _WEIGHT_KEYS:
+            out[key] = out[key].to(in_dtype)
+    if qcfg.quantize_ada and "ada_lin" in out:
+        out["ada_lin"] = {**out["ada_lin"],
+                          "w": _fake_weight_quantizer(qcfg)(
+                              out["ada_lin"]["w"])}
+    return out
+
+
+def transform_blocks_traced(blocks: dict, cfg: VARConfig, qcfg: QuantConfig,
+                            galt: Optional[Tuple] = None) -> dict:
+    """Fold -> rotate -> quantize over the stacked ``blocks`` on their own
+    device, as the JAX package's ``transform_blocks_traced``.  The same
+    pipeline as :func:`quantize_var_params` with JAX's two deviations:
+
+    - the rotation runs in float32 on the device (TF32 off), not float64
+      on the host, so a rotated weight may differ in its last bits where
+      the float32 sums run in another order; :func:`quantize_var_params`
+      stays the bit-parity surface for real checkpoints;
+    - fake-backend weights come back in the input dtype (bf16 for
+      :func:`synth_device_params`), not in float32.
+
+    ``quantize_ada`` covers the per-block ``ada_lin`` only (d36-512's
+    ``shared_ada_lin`` lies outside ``blocks``: the host path covers it)."""
+    return _quantize_traced(_rotate_f32(blocks, cfg, qcfg, galt), qcfg,
+                            blocks["mat_qkv_w"].dtype)
+
+
+def synth_device_params(cfg: VARConfig, qcfg: QuantConfig, seed: int = 0,
+                        galt: Optional[Tuple] = None, device="cuda") -> dict:
+    """A seeded random VAR tree (``init_var_params`` in bf16) transformed
+    by :func:`transform_blocks_traced`, built on ``device`` with no host
+    round trip: for benchmarks and tools, not for real checkpoints.  Under
+    the fake backend every float32 leaf is cast to bf16, as JAX does."""
+    from fpqvar_tpu_torch.models.var import init_var_params
+
+    p = init_var_params(cfg, seed=seed, device=device, dtype=torch.bfloat16)
+    if not qcfg.enabled:
+        return p
+    p = dict(p)
+    p["blocks"] = transform_blocks_traced(p["blocks"], cfg, qcfg, galt)
+    if qcfg.backend == "fake":
+        p = _to_bf16(p)
+    return p
+
+
+def _to_bf16(tree):
+    if isinstance(tree, dict):
+        return {k: _to_bf16(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.float32:
+        return tree.to(torch.bfloat16)
+    return tree

@@ -15,7 +15,11 @@ pinned memory, without a wait), which is what makes the overlap real.  A
 batch's images are fetched on a copy stream once an event recorded at the
 end of that batch's work has fired: a copy on the compute stream would
 also wait for the next batch, queued behind it (JAX waits for the one
-buffer).
+buffer).  Over a fused generator (CUDA graphs, the engine's default) the
+per-row generators reach the graphs only through the noise that
+``generate`` draws before each replay, so the graphs captured by the
+first batch serve every later request, and the copy that ``generate``
+returns keeps a batch's images while the next batch replays.
 
 A port of ``fpqvar_tpu/serving.py`` with the same API.  Each row's
 ``torch.Generator`` is a pure function of ``(base_seed, seed)``

@@ -13,12 +13,20 @@ JSON line:
 - poisson: ``--poisson`` requests with exponential inter-arrival times at
   ``--util`` times the measured saturated rate and uniformly random
   classes, the arrival process of a deployment; with 500 or more requests
-  the p99 is a real quantile, not the run's maximum.
+  the p99 is a real quantile, not the run's maximum.  A request's latency
+  runs from its intended arrival to the time its future completed, stamped
+  by a done-callback; the latencies are read only once every callback has
+  stamped its request.  Unlike the JAX package's bench, which seeds the
+  trace with ``salt & 0xFFFF`` and so gives each recipe another trace, the
+  port draws the gaps and classes from one fixed seed
+  (:data:`POISSON_SEED`): every recipe of every run replays the same
+  arrivals, scaled to its own saturated rate.
 
-Every phase's per-request samples are in the JSON.  Params are made on the
-device (``init_var_params`` and ``quantize_var_params`` from seeds), and
-requests carry seeds salted per process, so that no two runs ask for the
-same images.  Needs a CUDA device unless ``--device cpu`` (a CPU run
+Every phase's per-request samples are in the JSON.  Params are built on the
+device by ``synth_device_params`` (seeded init and the float32 device
+transform), and requests carry seeds salted per process, so that no two
+runs ask for the same images.  The generator runs fused (CUDA graphs, the
+engine's default).  Needs a CUDA device unless ``--device cpu`` (a CPU run
 measures the CPU, not the card).
 
     python -m fpqvar_tpu_torch.tools.serving_bench --preset d16 \\
@@ -30,6 +38,7 @@ import argparse
 import json
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -38,14 +47,15 @@ import torch
 from fpqvar_tpu_torch.config import (GenerateConfig, VARConfig,
                                      bench_recipes, paper_recipes, var_d16,
                                      var_d30, var_d36_512, var_tiny)
-from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
-                                     init_vqvae_params)
-from fpqvar_tpu_torch.quantize import quantize_var_params
+from fpqvar_tpu_torch.models import VARGenerator, init_vqvae_params
+from fpqvar_tpu_torch.quantize import synth_device_params
 from fpqvar_tpu_torch.serving import GenerationServer
 
 
 PRESETS = {"tiny": var_tiny, "d16": var_d16, "d30": var_d30,
            "d36": var_d36_512}
+#: the seed of the Poisson phase's arrival gaps and classes
+POISSON_SEED = 0
 
 
 def recipes() -> dict:
@@ -74,9 +84,7 @@ def run_recipe(cfg: VARConfig, qcfg, vae, salt: int, *, n: int = 64,
     if qcfg.transform:
         galt = tuple(np.ones((cfg.depth, cfg.width), np.float32)
                      for _ in range(2))
-    params = init_var_params(cfg, seed=0, device=dev)
-    if qcfg.enabled:
-        params = quantize_var_params(params, cfg, qcfg, galt=galt)
+    params = synth_device_params(cfg, qcfg, seed=0, galt=galt, device=dev)
     gen = VARGenerator(cfg, qcfg, GenerateConfig(), device=dev)
     server = GenerationServer(gen, params, vae, max_batch=max_batch,
                               max_wait_ms=max_wait_ms)
@@ -107,17 +115,20 @@ def run_recipe(cfg: VARConfig, qcfg, vae, salt: int, *, n: int = 64,
 
         lat_poi, poi = [], {}
         if poisson:
-            rng = np.random.default_rng(salt & 0xFFFF)
+            rng = np.random.default_rng(POISSON_SEED)
             rate = util * (n / wall)                 # requests/s
             gaps = rng.exponential(1.0 / rate, size=poisson)
             classes = rng.integers(0, cfg.num_classes, size=poisson)
             done_at = [None] * poisson
+            stamped = threading.Semaphore(0)
 
             def _stamp(i):
-                # runs on the server's worker at set_result time, so the
-                # completion time is right though results are read in order
+                # runs on the server's worker once set_result has woken the
+                # waiters, so the completion time is right though results
+                # are read in order, and may come after result() returned
                 def cb(_):
                     done_at[i] = time.perf_counter()
+                    stamped.release()
                 return cb
 
             t0 = time.perf_counter()
@@ -136,6 +147,8 @@ def run_recipe(cfg: VARConfig, qcfg, vae, salt: int, *, n: int = 64,
             for _, fut in subs:
                 fut.result()
             poi_wall = time.perf_counter() - t0
+            for _ in range(poisson):       # every completion time is stamped
+                stamped.acquire()
             lat_poi = [done_at[i] - subs[i][0] for i in range(poisson)]
             poi = {"target_rate": rate,
                    "achieved_imgs_per_s": poisson / poi_wall}

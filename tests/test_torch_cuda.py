@@ -23,6 +23,14 @@ one bfloat16 gap, at one K chunk (K = 64), K = 4096, ragged M and N and
 pipeline, whose barriers hang the card if their phases are wrong (a wait
 longer than 4 s traps instead); run the file under ``timeout``.
 
+The engine's fused mode (CUDA graphs) at width 256 under ``int8`` (K5 and
+K1 captured): images ``torch.equal`` to the eager loop's for one generator
+and for one per row, a second call with other labels and generators
+without a new capture, and a new params tree captured again.  The device
+transform (``transform_blocks_traced``) on the card against the CPU's:
+rotated weights within ``test_torch_transform``'s bound of two float32
+sums, and the quantize stage bit-equal given the same rotated weights.
+
 The tests are marked ``cuda`` and skip without a CUDA device.  The file
 imports no JAX, so it also runs where JAX is not installed:
 
@@ -501,7 +509,8 @@ def _d16_fp4_kv6(device):
     qp = quantize_var_params(_tree_to(params, device), cfg, q, galt=galt)
     gen = VARGenerator(cfg, q, GenerateConfig(top_k=1, top_p=0.0),
                        cache_dtype=torch.float32,
-                       compute_dtype=torch.float32, device=device)
+                       compute_dtype=torch.float32, device=device,
+                       fuse_steps=False)
     sample, tokens = V.sample_with_top_k_top_p, []
 
     def recorded(logits, *args, **kw):
@@ -524,3 +533,91 @@ def _tree_to(tree, device):
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def _small_int8(device):
+    import dataclasses
+
+    from fpqvar_tpu_torch.config import bench_recipes, var_tiny
+    from fpqvar_tpu_torch.models import init_var_params, init_vqvae_params
+    from fpqvar_tpu_torch.quantize import quantize_var_params
+
+    cfg = dataclasses.replace(var_tiny(), embed_dim=256, num_heads=4)
+    q = bench_recipes()["int8"]
+    params = init_var_params(cfg, seed=4, device=device, adaln_gamma_std=0.02)
+    vae = init_vqvae_params(cfg.vae, seed=5, device=device)
+    galt = tuple(np.ones((cfg.depth, cfg.width), np.float32)
+                 for _ in range(2))
+    return cfg, q, params, vae, lambda: quantize_var_params(params, cfg, q,
+                                                            galt=galt)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_generation_equals_eager(cuda_device):
+    from fpqvar_tpu_torch.models import VARGenerator
+
+    cfg, q, _, vae, build = _small_int8(cuda_device)
+    qp = build()
+    eager = VARGenerator(cfg, q, device=cuda_device, fuse_steps=False)
+    fused = VARGenerator(cfg, q, qrt=eager.qrt, device=cuda_device)
+
+    def gens(seeds):
+        out = [torch.Generator(device=cuda_device).manual_seed(s)
+               for s in seeds]
+        return out[0] if len(out) == 1 else out
+
+    calls = (([3, 5, 7], [1]), ([9, 2, 4], [4, 5, 6]), ([0, 0, 1], [2]))
+    outs = []
+    for i, (labels, seeds) in enumerate(calls):
+        params = qp if i < 2 else build()          # the third: a new tree
+        want = eager.generate(params, vae, labels, gens(seeds))
+        outs.append((fused.generate(params, vae, labels, gens(seeds)), want))
+        assert fused.captures == (1 if i < 2 else 2), i
+    # read after every call: a later replay leaves an earlier result alone
+    for i, (got, want) in enumerate(outs):
+        assert torch.equal(got, want), i
+    stats = fused.capture_stats(3)
+    assert stats["capture_s"] > 0 and stats["pool_bytes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "packed", "fake"])
+def test_cuda_device_transform_matches_cpu(cuda_device, mode):
+    from fpqvar_tpu_torch.config import bench_recipes
+    from fpqvar_tpu_torch.ops import hadamard as H
+    from fpqvar_tpu_torch.quantize import recipe as R
+
+    cfg, _, params, _, _ = _small_int8("cpu")
+    q = bench_recipes()[mode]
+    blocks = params["blocks"]
+    rng = np.random.default_rng(6)
+    galt = tuple(np.exp(0.1 * rng.standard_normal((cfg.depth, cfg.width)))
+                 .astype(np.float32) for _ in range(2))
+    on_card = {k: (v.to(cuda_device) if isinstance(v, torch.Tensor) else
+                   {kk: vv.to(cuda_device) for kk, vv in v.items()})
+               for k, v in blocks.items()}
+    torch.backends.cuda.matmul.allow_tf32 = True      # the transform's own
+    try:
+        rot_card = R._rotate_f32(on_card, cfg, q, galt)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rot_cpu = R._rotate_f32(blocks, cfg, q, galt)
+    qmat = np.abs(H.block_hadamard_block(128, 42))
+    for key, g in zip(("mat_qkv_w", "fc1_w"), galt):
+        w = np.abs(blocks[key].double().numpy() / g[:, None, :])
+        d, o, i = w.shape
+        bound = 2 * 128 * 2.0 ** -24 * (w.reshape(d, o, i // 128, 128)
+                                        @ qmat).reshape(d, o, i)
+        diff = (rot_card[key].cpu().double() - rot_cpu[key].double()).abs()
+        assert bool((diff.numpy() <= bound).all()), key
+    staged = {k: (v.to(cuda_device) if isinstance(v, torch.Tensor) else v)
+              for k, v in rot_cpu.items()}
+    staged["ada_lin"] = on_card["ada_lin"]
+    card = R._quantize_traced(staged, q, torch.float32)
+    cpu = R._quantize_traced(rot_cpu, q, torch.float32)
+    for key in ("mat_qkv_w", "proj_w", "fc1_w", "fc2_w"):
+        a, b = card[key], cpu[key]
+        pairs = ([(a, b)] if isinstance(a, torch.Tensor) else
+                 [(a.codes, b.codes), (a.scales, b.scales)])
+        for x, y in pairs:
+            assert torch.equal(x.cpu(), y), key

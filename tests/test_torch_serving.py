@@ -14,9 +14,12 @@ holds whole generations (the float32 sums run in another order).  Under
 ``int8att`` (the packed KV cache and attention over int8 codes) a request
 served in a mixed batch equals, exactly, the same request served alone:
 the KV codec and the q and softmax-weight quantizers work per row, and
-the integer contractions are exact.
+the integer contractions are exact.  The serving bench's Poisson phase
+reads every completion time only once it is stamped.
 """
 import dataclasses
+import time
+from concurrent.futures import Future
 
 import jax
 import jax.numpy as jnp
@@ -228,3 +231,24 @@ def test_serving_bench_runs_its_phases_on_cpu():
     assert d36.vae.patch_nums == d36.patch_nums == PATCH_NUMS_512
     assert serving_bench.recipes()["fp4_kv6"] == paper_recipes()["fp4_kv6"]
     assert serving_bench.recipes()["int8"] == bench_recipes()["int8"]
+
+
+def test_serving_bench_poisson_waits_for_every_completion_stamp(monkeypatch):
+    """A future's done-callbacks run after ``set_result`` has woken its
+    waiters, so ``result()`` can return before the callback that stamps
+    the request's completion time.  With every callback delayed, the
+    Poisson phase still returns one positive latency per request (reading
+    an unstamped time would raise ``TypeError``)."""
+    invoke = Future._invoke_callbacks
+
+    def late(self):
+        time.sleep(0.05)
+        invoke(self)
+
+    monkeypatch.setattr(Future, "_invoke_callbacks", late)
+    vae = init_vqvae_params(TINY.vae, seed=1, device="cpu")
+    res = serving_bench.run_recipe(TINY, bench_recipes()["bf16"], vae,
+                                   salt=9, n=2, poisson=4, max_batch=2,
+                                   unloaded=0, device="cpu")
+    lat = res["poisson_ms"]["samples_ms"]
+    assert len(lat) == 4 and all(v > 0 for v in lat)
