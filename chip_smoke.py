@@ -89,9 +89,24 @@ non-zero:
    256 under ``int8``, ``packed`` and ``fake`` on the card against the
    CPU (rotated weights within the float32 bound, the quantize stage bit
    for bit, differing codes counted), and a fused generation from
-   ``synth_device_params`` of each, finite in [0, 1].
+   ``synth_device_params`` of each, finite in [0, 1];
+12. teacher forcing and training, at VAR-d16 full width and depth: K1-K5
+   at the teacher-forcing forward's M = 5440 against their plain
+   versions (K5 as ``[8, 680, K]``), timed as in phase 3; (a) one
+   ``var_forward`` at batch 8 under ``bf16``, ``int8``, ``packed`` and
+   ``int8ch`` with its exact launches (K5 48 + K1 32, K2 64, K4 48 + K3
+   32, none) and ms, and the KV-cached scale loop against one masked
+   ``run_blocks`` within a derived float32 bound; (b) width-256 logits
+   and capture taps, card against CPU, within 1e-4 (the quantized
+   recipes' logits within 1e-3: an activation code at a near-tie moves
+   them by ~2e-4); (c) the d16 VQVAE
+   encoder and tokenizer at 256 px, batch 8, and card against CPU tokens
+   under the near-tie rule; (d) mixed-precision training on those tokens
+   (the loss falls), step ms and tokens/s, the peak memory with and
+   without ``remat`` and their gradients, a checkpoint and ``auto_resume``
+   equal to the uninterrupted step, and the training CLI run twice.
 
-The phases run in the order 1-6, 10, 7-9, 11.  Phases 4-6 and the
+The phases run in the order 1-6, 10, 7-9, 11, 12.  Phases 4-6 and the
 launch gates of phases 7 and 9 run the eager loop (``fuse_steps=False``),
 whose every launch the wrappers' host counters see.
 
@@ -102,8 +117,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -137,6 +156,15 @@ PORT_KERNELS = {"K1": ("GroupFold",),
                 "K2": ("rs_gemm_kernel", "packed_dequant_gemm_kernel"),
                 "K3": ("Int8ChRescale",), "K4 (a)": (K4_KERNELS["a"],),
                 "K4 (b)": (K4_KERNELS["b"],), "K5": ("NdGroupSum",)}
+#: the block linears of the VAR-d16 teacher-forcing forward at batch 8, all
+#: L = 680 tokens of a row in one call: (name, M, K, N); M = 5440 = 42 *
+#: 128 + 64 ends in a half-filled row tile, and K5 takes it as [8, 680, K]
+TF_SHAPES = (("qkv", 5440, 1024, 3072), ("proj", 5440, 1024, 1024),
+             ("fc1", 5440, 1024, 4096), ("fc2", 5440, 4096, 1024))
+#: each recipe's port-kernel launches per d16 teacher-forcing forward (16
+#: blocks, as a generation's scale step launches them, once)
+TF_LAUNCHES = {"bf16": {}, "int8": {"K5": 48, "K1": 32},
+               "packed": {"K2": 64}, "int8ch": {"K4": 48, "K3": 32}}
 #: the int8 rate probe's default shapes: (name, M, K, N)
 PROBE_SHAPES = (("probe-1920", 4096, 1920, 5760),
                 ("probe-4096", 4096, 4096, 4096))
@@ -918,9 +946,11 @@ def phase_main_path(card: str):
 
 
 def phase_profile(mode: str, run, card: str, launches: dict,
-                  required: bool = False, batch: int = 8):
-    """Where one generation's time goes: torch.profiler over one batch-8
-    generation (after the main path's counts were read), summing the device
+                  required: bool = False, batch: int = 8,
+                  what: str = "generation"):
+    """Where one generation's (or ``what``'s) time goes: torch.profiler
+    over one batch-8 generation (after the main path's counts were read),
+    summing the device
     time of every CUDA kernel; each port kernel must show as many launches
     as the generation makes (``launches``, by K1..K7), so that its time is
     found under its name.  Returns ``{"wall_ms", "busy_ms", "kernels",
@@ -962,7 +992,7 @@ def phase_profile(mode: str, run, card: str, launches: dict,
         ours.append(f"{label} {ms:.2f} ms in {n} launches "
                     f"({ms / busy:.3f} of busy)")
     top = sorted(kernels, key=dev_ms, reverse=True)[:6]
-    print(f"profile: {mode} batch-{batch} generation under the profiler: wall "
+    print(f"profile: {mode} batch-{batch} {what} under the profiler: wall "
           f"{wall_ms:.1f} ms, device busy {busy:.1f} ms in {n_kernels} "
           f"kernel launches, idle share {1.0 - busy / wall_ms:.3f}; "
           f"{'; '.join(ours)}; on {card}")
@@ -1501,6 +1531,533 @@ def phase_transform(card: str):
               f"in [0, 1] ({gen.captures} capture); on {card}")
 
 
+def phase_teacher_kernels() -> dict:
+    """K1-K5 at the shapes the d16 teacher-forcing forward gives them (M =
+    5440, ``TF_SHAPES``), against their plain versions with phase 3's
+    tolerances and timed as phase 3 times them: K1 at fc2 (``int8``'s
+    dual grid, float32 out), K2 at all four linears (bfloat16 x, fp_e2
+    nibbles, ``packed``), K3 at fc2 (``int8ch``'s dual grid, float32 out),
+    K4 at qkv, proj and fc1 (bfloat16 x and out) and K5 at qkv, proj and
+    fc1 as ``[8, 680, K]`` (bfloat16 out, also equal to K1 followed by a
+    cast).  Returns each kernel's rows."""
+    from fpqvar_tpu_torch.ops import int8_matmul as K
+    from fpqvar_tpu_torch.ops import packing as P
+    from fpqvar_tpu_torch.ops import quant_matmul as QM
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = {name: (m, k, n) for name, m, k, n in TF_SHAPES}
+    rows = {kern: [] for kern in ("K1", "K2", "K3", "K4", "K5")}
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def matmul(m, k, n, dtype=bf16):
+        a, b = randn(m, k, dtype=dtype), randn(k, n, dtype=dtype)
+        return lambda: torch.matmul(a, b)
+
+    m, k, n = shapes["fc2"]
+    g = k // 128
+    ops = _k1_operands(m, k, n, gen) + (128,)
+    rows["K1"].append(check_and_time(
+        "K1 teacher", {"shape": "fc2", "M": m, "K": k, "N": n, "group": 128},
+        lambda: K.int8_group_gemm(*ops), lambda: K.int8_group_gemm_ref(*ops),
+        lambda: K.int8_group_gemm_tolerance(*ops), matmul(m, k, n),
+        m * k + m * g * 4 + n * k + g * n * 4 + m * n * 4, H100_INT8_OPS,
+        f"{K.K1_REL_TOL:g}*sum_g|sa*sw*part|", "bf16 torch.matmul"))
+    for name, (m, k, n) in shapes.items():
+        x, w = randn(m, k, dtype=bf16), randn(n, k) * 0.02
+        pw = P.pack(w, "fp_e2", 128)
+        ops = (x, pw.codes, pw.scales, "fp_e2", 128, pw.nibble_packed)
+        rows["K2"].append(check_and_time(
+            "K2 teacher", {"shape": name, "M": m, "K": k, "N": n,
+                           "fmt": "fp_e2", "x": "bfloat16", "group": 128},
+            lambda: QM.packed_matmul(*ops), lambda: QM.packed_matmul_ref(*ops),
+            lambda: QM.packed_matmul_tolerance(*ops), matmul(m, k, n),
+            x.numel() * 2 + pw.codes.numel() + pw.scales.numel() * 4
+            + m * n * 4, H100_BF16_FLOPS,
+            f"{QM.K2_REL_TOL:g}*sum_g|s|*sum_k|x*grid|", "bf16 torch.matmul"))
+    m, k, n = shapes["fc2"]
+    x, w = randn(m, k), randn(n, k) * 0.02
+    ac, asc = P.quant_int_codes(x, "fp_e2", k)
+    pw = P.pack_int_codes(w, "fp_e2", k)
+    ops = (ac, asc, pw.codes, pw.scales, f32)
+    rows["K3"].append(check_and_time(
+        "K3 teacher", {"shape": "fc2", "M": m, "K": k, "N": n,
+                       "out": "float32"},
+        lambda: K.int8ch_gemm(*ops), lambda: K.int8ch_gemm_ref(*ops), None,
+        matmul(m, k, n), m * k + m * 4 + n * k + n * 4 + m * n * 4,
+        H100_INT8_OPS, "", "bf16 torch.matmul", int_mm=_int_mm(m, k, n, gen)))
+    for name in ("qkv", "proj", "fc1"):
+        m, k, n = shapes[name]
+        x, w = (randn(m, k) * 3.0).to(bf16), randn(n, k) * 0.02
+        pw = P.pack_int_codes(w, "fp_e2", k)
+        ops = (x, pw.codes, pw.scales, "fp_e2", bf16)
+        rows["K4"].append(check_and_time(
+            "K4 teacher", {"shape": name, "M": m, "K": k, "N": n,
+                           "fmt": "fp_e2", "x": "bfloat16"},
+            lambda: K.fused_ch_gemm(*ops), lambda: K.fused_ch_gemm_ref(*ops),
+            None, matmul(m, k, n),
+            m * k * 2 + pw.codes.numel() + pw.scales.numel() * 4 + m * n * 2,
+            H100_INT8_OPS, "", "bf16 torch.matmul",
+            int_mm=_int_mm(m, k, n, gen)))
+    for name in ("qkv", "proj", "fc1"):
+        m, k, n = shapes[name]
+        b, t, g = 8, m // 8, k // 128
+        ac, asc, wc, ws = _k1_operands(m, k, n, gen)
+        ac, asc = ac.reshape(b, t, k), asc.reshape(b, t, g)
+        ops = (ac, asc, wc, ws, 128, bf16)
+        k1_cast = (lambda: K.int8_group_gemm(ac.reshape(m, k),
+                                             asc.reshape(m, g), wc, ws,
+                                             128).to(bf16))
+        if not torch.equal(K.int8_group_gemm_nd(*ops).reshape(m, n),
+                           k1_cast()):
+            fail(f"K5 teacher {name}: differs from K1 followed by a cast")
+        rows["K5"].append(check_and_time(
+            "K5 teacher", {"shape": name, "B": b, "T": t, "M": m, "K": k,
+                           "N": n, "out": "bfloat16"},
+            lambda: K.int8_group_gemm_nd(*ops),
+            lambda: K.int8_group_gemm_nd_ref(*ops),
+            lambda: K.int8_group_gemm_nd_tolerance(*ops), matmul(m, k, n),
+            m * k + m * g * 4 + n * k + g * n * 4 + m * n * 2, H100_INT8_OPS,
+            f"{K.K1_REL_TOL:g}*sum_g|sa*sw*part| (+1 bf16 gap)",
+            "bf16 torch.matmul", extras=(("k1_cast", k1_cast),)))
+    return rows
+
+
+def _galt(cfg, seed: int = 2):
+    rng = np.random.default_rng(seed)
+    return tuple(np.exp(0.1 * rng.standard_normal((cfg.depth, cfg.width)))
+                 .astype(np.float32) for _ in range(2))
+
+
+def _teacher_forward(cfg, card: str) -> dict:
+    """(a) One teacher-forcing forward of VAR-d16 at batch 8 under each
+    recipe of ``TF_LAUNCHES``, on ``synth_device_params`` trees (bf16
+    weights; quantized blocks from the device transform) and a bf16
+    teacher-forcing input: with the launch counts set to 0 just before
+    the forward and read just after, each kernel launched exactly as
+    ``TF_LAUNCHES`` says; logits ``[8, 680, 4096]`` float32, finite; ms
+    per forward.  Returns the launch totals."""
+    from fpqvar_tpu_torch.models import var as V
+    from fpqvar_tpu_torch.quantize import recipe
+    from fpqvar_tpu_torch.quantize.runtime import build_runtime
+
+    batch = 8
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen,
+                           device="cuda")
+    x = torch.randn((batch, cfg.L - cfg.first_l, cfg.vae.z_channels),
+                    generator=gen, device="cuda").to(torch.bfloat16)
+    totals = {k: 0 for k in COUNTERS}
+    for mode, want in TF_LAUNCHES.items():
+        q = _recipes()[mode]
+        params = recipe.synth_device_params(cfg, q, seed=0, galt=_galt(cfg))
+        qrt = build_runtime(q, cfg.depth, cfg.width, "cuda")
+
+        def forward():
+            return V.var_forward(params, cfg, qrt, labels, x)
+
+        with torch.inference_mode():
+            forward()                       # builds, maps, lazy constants
+            torch.cuda.synchronize()
+            reset_counts()
+            logits = forward()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            expect = {k: want.get(k, 0) for k in COUNTERS}
+            if counts != expect:
+                fail(f"teacher forward {mode}: launches {counts}, expected "
+                     f"{expect}")
+            if (tuple(logits.shape) != (batch, cfg.L, cfg.vae.vocab_size)
+                    or logits.dtype != torch.float32
+                    or not bool(torch.isfinite(logits).all())):
+                fail(f"teacher forward {mode}: logits {tuple(logits.shape)} "
+                     f"{logits.dtype}, finite {bool(torch.isfinite(logits).all())}")
+            ms = cuda_ms(forward, reps=5)
+        for k, n in counts.items():
+            totals[k] += n
+        print(f"teacher forcing: (a) d16 var_forward {mode}, batch {batch} "
+              f"(M = {batch * cfg.L}): {ms:.2f} ms a forward "
+              f"({batch * cfg.L / ms * 1e3:.0f} tokens/s), launches "
+              + (", ".join(f"{k} {n}" for k, n in counts.items() if n)
+                 or "no port kernel")
+              + f"; logits [{batch}, {cfg.L}, {cfg.vae.vocab_size}] finite; "
+              f"on {card}")
+        del params, logits
+        torch.cuda.empty_cache()
+    return totals
+
+
+def _stepwise_vs_masked(cfg, card: str) -> None:
+    """(a) The KV-cached scale loop against one masked forward of
+    ``run_blocks``, VAR-d16 float32 weights (``adaln_gamma_std=0.02``),
+    batch 8, token maps and condition of std 0.1, float32 with TF32 off.
+    The two differ only in the order of float32 sums: the linears' (other
+    M, other cuBLAS tiles) and the attention's over another number of
+    columns (the masked path's ``-inf`` columns add exact zeros).  Under
+    the probabilistic rounding model a K-term float32 dot product is off
+    by about ``sqrt(K) u`` of its terms; with two paths, each block's
+    residual update ``r`` is off by at most ``2 sqrt(4C) u |r|`` (fc2's
+    K = 4C the longest sum) plus the residual add's own rounding ``u |x|``
+    in each path; near-identity blocks add these over the depth: bound =
+    ``2 depth (2 sqrt(4C) u max|r| + u max|x|)`` with ``max|r|`` the
+    largest change the blocks made to any element."""
+    from fpqvar_tpu_torch.models import var as V
+    from fpqvar_tpu_torch.models.var import init_var_params
+
+    batch = 8
+    params = init_var_params(cfg, seed=0, device="cuda",
+                             adaln_gamma_std=0.02)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    xs = [torch.randn((batch, pn * pn, cfg.width), generator=gen,
+                      device="cuda") * 0.1 for pn in cfg.patch_nums]
+    cond = torch.randn((batch, cfg.width), generator=gen, device="cuda") * 0.1
+    with torch.inference_mode():
+        mod = V.compute_modulations(params, cfg, cond)
+        cache = V.init_kv_cache(cfg, batch, torch.float32, "cuda")
+        outs, cur = [], 0
+        for x in xs:
+            outs.append(V.run_blocks(params, cfg, None, x, mod, cache, cur))
+            cur += x.shape[1]
+        stepwise = torch.cat(outs, dim=1)
+        x_in = torch.cat(xs, dim=1)
+        masked = V.run_blocks(params, cfg, None, x_in, mod,
+                              attn_bias=V.attn_bias_for_masking(
+                                  cfg, x_in.device))
+    diff = float((stepwise - masked).abs().max())
+    r = float((masked - x_in).abs().max())
+    x_max = float(masked.abs().max())
+    u = 2.0 ** -24
+    bound = 2 * cfg.depth * (2 * math.sqrt(4 * cfg.width) * u * r
+                             + u * x_max)
+    if not diff <= bound:
+        fail(f"teacher forcing: stepwise vs masked run_blocks max diff "
+             f"{diff} exceeds the bound {bound}")
+    print(f"teacher forcing: (a) d16 stepwise (KV cache) vs masked "
+          f"run_blocks, batch {batch}, float32: max diff {diff:.3e} within "
+          f"the derived bound {bound:.3e} (max|r| {r:.4f}, max|x| "
+          f"{x_max:.4f}); on {card}")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def _teacher_small_reference(card: str) -> None:
+    """(b) Width 256 (phase 4's model): ``var_forward`` logits and the
+    capture taps of a masked ``run_blocks`` under ``bf16``, ``int8``,
+    ``packed`` and ``int8ch`` on the card against the CPU, float32
+    compute.  The taps (the linears' inputs, before an int8 linear's
+    quantizer) and ``bf16``'s logits within phase 4's 1e-4 (float32 sums
+    in another order).  The quantized forward is not continuous: an
+    activation that lies within a float32 ulp of a grid midpoint takes
+    another code on the other device, and one such step moves these
+    logits (of order 1) by up to ~2e-4.  So the quantized recipes' logits
+    are held within 1e-3, a few such steps, and beside them the phase
+    prints how far the CPU's own logits move when the input moves by one
+    ulp (``x * (1 + 2^-23)``), the size of one step."""
+    from fpqvar_tpu_torch.config import var_tiny
+    from fpqvar_tpu_torch.models import var as V
+    from fpqvar_tpu_torch.models.var import init_var_params
+    from fpqvar_tpu_torch.quantize import quantize_var_params
+    from fpqvar_tpu_torch.quantize.runtime import build_runtime
+
+    cfg = dataclasses.replace(var_tiny(), embed_dim=256, num_heads=4)
+    params = init_var_params(cfg, seed=4, device="cpu", adaln_gamma_std=0.02)
+    galt = _galt(cfg, seed=5)
+    rng = np.random.default_rng(12)
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, 3))
+    x = torch.from_numpy(rng.standard_normal(
+        (3, cfg.L - cfg.first_l, cfg.vae.z_channels)).astype(np.float32))
+    tokens = torch.from_numpy(
+        (rng.standard_normal((3, cfg.L, cfg.width)) * 0.1).astype(np.float32))
+    cond = torch.from_numpy(
+        (rng.standard_normal((3, cfg.width)) * 0.1).astype(np.float32))
+    for mode in ("bf16", "int8", "packed", "int8ch"):
+        q = _recipes()[mode]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            qp = (quantize_var_params(_to(params, dev), cfg, q, galt=galt)
+                  if q.enabled else _to(params, dev))
+            qrt = build_runtime(q, cfg.depth, cfg.width, dev)
+            with torch.inference_mode():
+                logits = V.var_forward(qp, cfg, qrt, labels.to(dev),
+                                       x.to(dev))
+                mod = V.compute_modulations(qp, cfg, cond.to(dev), qrt)
+                _, taps = V.run_blocks(
+                    qp, cfg, qrt, tokens.to(dev), mod,
+                    attn_bias=V.attn_bias_for_masking(cfg, torch.device(dev)),
+                    capture=True)
+                if dev == "cpu":
+                    step = float((V.var_forward(
+                        qp, cfg, qrt, labels, x * (1 + 2.0 ** -23))
+                        - logits).abs().max())
+            out[dev] = (logits.cpu(), {k: v.cpu() for k, v in taps.items()})
+        lerr = float((out["cpu"][0] - out["cuda"][0]).abs().max())
+        terr = {k: float((out["cpu"][1][k] - out["cuda"][1][k]).abs().max())
+                for k in out["cpu"][1]}
+        ltol = 1e-3 if q.enabled else 1e-4
+        if not (lerr <= ltol and all(e <= 1e-4 for e in terr.values())):
+            fail(f"teacher forcing: width-256 {mode} card vs CPU: logits max "
+                 f"err {lerr} (tol {ltol}), taps {terr} (tol 1e-4)")
+        print(f"teacher forcing: (b) width-256 {mode} var_forward card vs "
+              f"CPU: logits max err {lerr:.3e} (tol {ltol:g}; the CPU's "
+              f"logits move {step:.3e} when x moves by one ulp), capture "
+              f"taps " + ", ".join(f"{k} {e:.3e}" for k, e in terr.items())
+              + f" (tol 1e-4); on {card}")
+
+
+def _teacher_encoder(cfg, card: str):
+    """(c) The d16 VQVAE encoder and tokenizer at 256 px, batch 8, random
+    seeded weights and images in [-1, 1]: ``img_to_idxBl`` tokens ``[8,
+    pn^2]`` per scale and ``idxBl_to_var_input`` ``[8, 679, 32]``, ms per
+    batch; then at batch 2 the card's tokens against the CPU's under the
+    near-tie rule of ``vqvae.token_agreement`` (no token outside its
+    derived bound, under 2% differing).  TF32 is off for the
+    convolutions and the distance GEMM.  Returns the batch's (labels,
+    teacher-forcing input, target tokens) for training."""
+    from fpqvar_tpu_torch.models import vqvae as vq
+
+    batch = 8
+    vae = vq.init_vqvae_params(cfg.vae, seed=1, device="cuda")
+    side = cfg.patch_nums[-1] * cfg.vae.downsample
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    img = torch.rand((batch, 3, side, side), generator=gen,
+                     device="cuda") * 2.0 - 1.0
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen,
+                           device="cuda")
+
+    def tokenize():
+        idx = vq.img_to_idxBl(vae, cfg.vae, img)
+        return idx, vq.idxBl_to_var_input(vae["quantize"], cfg.vae, idx)
+
+    with torch.inference_mode():
+        tokenize()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            idx, x = tokenize()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        want = [(batch, pn * pn) for pn in cfg.patch_nums]
+        if [tuple(t.shape) for t in idx] != want or any(
+                int(t.min()) < 0 or int(t.max()) >= cfg.vae.vocab_size
+                for t in idx):
+            fail(f"teacher forcing: tokens {[tuple(t.shape) for t in idx]}, "
+                 f"expected {want} in [0, {cfg.vae.vocab_size})")
+        xshape = (batch, cfg.L - cfg.first_l, cfg.vae.z_channels)
+        if tuple(x.shape) != xshape or not bool(torch.isfinite(x).all()):
+            fail(f"teacher forcing: idxBl_to_var_input {tuple(x.shape)}, "
+                 f"expected {xshape} finite")
+        vae_cpu = _to(vae, "cpu")
+        f_card = vq.encode(vae, cfg.vae, img[:2])
+        idx_card = vq.f_to_idxBl(vae["quantize"], cfg.vae, f_card)
+        f_cpu = vq.encode(vae_cpu, cfg.vae, img[:2].cpu())
+        idx_cpu = vq.f_to_idxBl(vae_cpu["quantize"], cfg.vae, f_cpu)
+    ferr = float((f_card.cpu() - f_cpu).abs().max())
+    agree = vq.token_agreement(vae_cpu["quantize"], cfg.vae, f_card.cpu(),
+                               [t.cpu() for t in idx_card], f_cpu, idx_cpu)
+    if agree["beyond"] or agree["differ"] > 0.02 * agree["compared"]:
+        fail(f"teacher forcing: card vs CPU tokens outside the near-tie "
+             f"rule: {agree}")
+    print(f"teacher forcing: (c) d16 VQVAE img_to_idxBl + "
+          f"idxBl_to_var_input, batch {batch} at {side} px: "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms a batch; tokens "
+          f"{want[0]}..{want[-1]}, input {list(xshape)}; card vs CPU at "
+          f"batch 2: f max err {ferr:.3e}, tokens {agree['compared']} "
+          f"compared, {agree['differ']} differ (all near-ties), "
+          f"{agree['left_out']} left out after a difference; on {card}")
+    return labels, x.clone(), torch.cat(idx, dim=1).clone()
+
+
+def _train_cli(out: str):
+    cmd = [sys.executable, "-m", "fpqvar_tpu_torch.tools.train", "--depth",
+           "16", "--steps", "4", "--save-every", "2", "--out", out]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parent)
+    if res.returncode != 0:
+        fail(f"teacher forcing: {' '.join(cmd[1:])} exited "
+             f"{res.returncode}: {res.stderr[-2000:]}")
+    return res.stdout, time.perf_counter() - t0
+
+
+def _teacher_training(cfg, data, card: str) -> None:
+    """(d) VAR-d16 training on the encoder's batch 8 (labels, teacher-
+    forcing input, target tokens), mixed precision (bf16 forward off
+    float32 master params), AdamW at lr 3e-4, TF32 off: 8 steps on the
+    fixed batch, each step's label dropout from a generator seeded by the
+    step; the loss must fall and stay finite; step ms (median after the
+    first) and tokens/s.  Then the peak of device memory of one forward
+    and backward with and without ``remat`` (the ``remat`` peak must be
+    lower) and their gradients, ``torch.equal`` under
+    ``torch.use_deterministic_algorithms(True)``; a checkpoint of step 8,
+    one more step, and a fresh state (other seed) restored by
+    ``auto_resume`` taking the same step: params and loss ``torch.equal``
+    (deterministic algorithms on); one more step under torch.profiler
+    (device busy, idle share, the kernels that take the most time).
+    Last, ``tools/train.py --depth 16
+    --steps 4 --save-every 2`` twice into one directory: the second run
+    resumes at step 4 and adds nothing, ``metrics.jsonl`` keeps its
+    line."""
+    from fpqvar_tpu_torch.models.var import init_var_params
+    from fpqvar_tpu_torch.train import (auto_resume, make_manager,
+                                        make_train_state, save_train_state,
+                                        train_step)
+    from fpqvar_tpu_torch.train.trainer import (loss_fn, make_optimizer,
+                                                tree_leaves)
+
+    labels, x, targets = data
+    batch = {"label": labels, "x": x, "targets": targets}
+    tokens = targets.numel()
+    opt = make_optimizer(peak_lr=3e-4)
+    state = make_train_state(init_var_params(cfg, seed=0, device="cuda"), opt)
+
+    def dropout(step):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(100 + step)
+        return g
+
+    losses, times = [], []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, cfg, opt, batch, generator=dropout(i),
+                              mixed_precision=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    losses = [float(v) for v in losses]
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        fail(f"teacher forcing: d16 training losses {losses}")
+    step_ms = float(np.median(times[1:]))
+
+    def grads(remat: bool):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss_fn(state.params, cfg, None, labels, x, targets,
+                mixed_precision=True, remat=remat).backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        out = []
+        for p in tree_leaves(state.params):
+            out.append(p.grad)
+            p.grad = None
+        return out, peak
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        g_plain, peak_plain = grads(False)
+        g_remat, peak_remat = grads(True)
+        same = all((a is None and b is None) or (
+            a is not None and b is not None and torch.equal(a, b))
+            for a, b in zip(g_plain, g_remat))
+        if not same:
+            worst = max(float((a - b).abs().max()) for a, b in
+                        zip(g_plain, g_remat) if a is not None)
+            fail(f"teacher forcing: remat gradients differ from the plain "
+                 f"ones (max diff {worst})")
+        if not peak_remat < peak_plain:
+            fail(f"teacher forcing: remat peak {peak_remat} bytes not below "
+                 f"the plain peak {peak_plain}")
+        del g_plain, g_remat
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            t0 = time.perf_counter()
+            save_train_state(make_manager(ckpt), state)
+            t_save = time.perf_counter() - t0
+            state, m_ref = train_step(state, cfg, opt, batch,
+                                      generator=dropout(8),
+                                      mixed_precision=True)
+            ref = [p.detach().clone() for p in tree_leaves(state.params)]
+            del state
+            torch.cuda.empty_cache()
+            fresh = make_train_state(
+                init_var_params(cfg, seed=7, device="cuda"), opt)
+            t0 = time.perf_counter()
+            info, resumed, start = auto_resume(make_manager(ckpt), fresh)
+            t_load = time.perf_counter() - t0
+            if start != 8 or resumed.step != 8:
+                fail(f"teacher forcing: auto_resume gave step {start}: {info}")
+            resumed, m_res = train_step(resumed, cfg, opt, batch,
+                                        generator=dropout(8),
+                                        mixed_precision=True)
+            if not (torch.equal(m_res["loss"], m_ref["loss"]) and all(
+                    torch.equal(a, b) for a, b in
+                    zip(tree_leaves(resumed.params), ref))):
+                fail("teacher forcing: the resumed step differs from the "
+                     "uninterrupted one")
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    phase_profile("d16 mixed-precision", lambda: train_step(
+        resumed, cfg, opt, batch, generator=dropout(9),
+        mixed_precision=True), card, {k: 0 for k in COUNTERS},
+        what="train_step")
+    print(f"teacher forcing: (d) d16 train_step, batch 8 ({tokens} tokens), "
+          f"mixed precision, TF32 off: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; step ms "
+          f"{', '.join(f'{t:.1f}' for t in times)} (median after the first "
+          f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tokens/s); peak "
+          f"above the train state for one forward and backward: plain "
+          f"{peak_plain} bytes ({peak_plain / 1e9:.3f} GB), remat "
+          f"{peak_remat} ({peak_remat / 1e9:.3f} GB); remat gradients "
+          f"torch.equal to the plain ones; checkpoint of step 8 saved in "
+          f"{t_save:.2f} s, auto_resume in {t_load:.2f} s, the resumed step "
+          f"torch.equal to the uninterrupted one (deterministic algorithms "
+          f"on); on {card}")
+    del resumed, fresh, ref
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        first, t1 = _train_cli(out)
+        metrics = Path(out, "metrics.jsonl").read_text().splitlines()
+        steps = [json.loads(ln)["step"] for ln in metrics]
+        if "no ckpt found" not in first or "step 4/4" not in first or (
+                steps != [4]):
+            fail(f"teacher forcing: tools/train.py first run: {first[-800:]}"
+                 f" metrics steps {steps}")
+        second, t2 = _train_cli(out)
+        again = Path(out, "metrics.jsonl").read_text().splitlines()
+        if ("resume from step 4" not in second or "step 4/4" in second
+                or again != metrics):
+            fail(f"teacher forcing: tools/train.py second run: "
+                 f"{second[-800:]}")
+        ckpts = sorted(os.listdir(Path(out, "ckpt")))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"teacher forcing: (d) python -m fpqvar_tpu_torch.tools.train "
+          f"--depth 16 --steps 4 --save-every 2: first run {t1:.1f} s "
+          f"(checkpoints {ckpts}, metrics.jsonl {metrics[0]}), second run "
+          f"{t2:.1f} s resumed at step 4 and added nothing; on {card}")
+
+
+def phase_teacher(card: str):
+    """Phase 12, the teacher-forcing and training path at VAR-d16 (width
+    1024, 16 heads, depth 16, L = 680, the d16 VQVAE; random seeded
+    weights, no cut): K1-K5 at the forward's M = 5440, (a) the forward
+    under four recipes with their exact launches and stepwise vs masked,
+    (b) card vs CPU at width 256, (c) the encoder and tokenizer, (d)
+    training on the encoder's tokens, checkpoint, resume and the CLI.
+    Returns the forward's launch totals and the kernel rows."""
+    from fpqvar_tpu_torch.config import var_d16
+
+    cfg = var_d16()
+    rows = phase_teacher_kernels()
+    launches = _teacher_forward(cfg, card)
+    _stepwise_vs_masked(cfg, card)
+    _teacher_small_reference(card)
+    data = _teacher_encoder(cfg, card)
+    _teacher_training(cfg, data, card)
+    return launches, rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1556,6 +2113,9 @@ def main():
     phase_d36(card)
     done("d36-512")
     phase_transform(card)
+    done("transform")
+    tf_launches, tf_rows = phase_teacher(card)
+    done("teacher forcing and training")
     src = "fpqvar_tpu_torch/csrc/"
     kernels = {"kernels": [
         # K1 runs on the main path only at fc2 (int8's dual grid)
@@ -1583,6 +2143,16 @@ def main():
                     "scripts/int8_rate_probe.py:148",
                     probe_launches["K7"], k7_rows, timed="probe-4096"),
     ]}
+    # the teacher-forcing forward's launches of K1-K5 (phase 12) and their
+    # times at its M = 5440, beside the generation path's
+    for row, kern, timed in zip(kernels["kernels"],
+                                ("K1", "K2", "K3", "K4", "K5"),
+                                ("fc2", "fc1", "fc2", "fc1", "fc1")):
+        tf = _kernel_row(row["name"], row["source"], row["replaces"],
+                         tf_launches[kern], tf_rows[kern], timed=timed)
+        row["teacher_forcing"] = {k: v for k, v in tf.items()
+                                  if k not in ("name", "route", "source",
+                                               "replaces")}
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps(kernels))

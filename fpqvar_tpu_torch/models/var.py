@@ -1,4 +1,5 @@
-"""VAR next-scale-prediction transformer, the generation path.
+"""VAR next-scale-prediction transformer: generation and the teacher-forcing
+forward.
 
 Plain functions over the JAX package's params tree (block parameters
 stacked along a leading depth axis, weights (out, in)); the layer loop is a
@@ -8,7 +9,11 @@ quantized on append, or its whole prefix re-quantized every scale step,
 under a fake KV quantizer), or packed (int8 codes and float32 scales per
 (token, head), head-major) when the recipe has a KV codec.  The AdaLN
 modulations come from a per-block ``ada_lin`` or, for the 512 px models,
-one ``shared_ada_lin`` plus a per-block ``ada_gss``.
+one ``shared_ada_lin`` plus a per-block ``ada_gss``.  The teacher-forcing
+forward (:func:`var_forward`) runs all L tokens at once under the
+block-triangular mask of :func:`attn_bias_for_masking`; ``run_blocks`` can
+also return the inputs of each block's four linears (``capture``) and
+recompute each block on the backward pass (``remat``).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from fpqvar_tpu_torch.config import GenerateConfig, VARConfig
 from fpqvar_tpu_torch.models import vqvae as vq
@@ -208,7 +214,7 @@ def _dense_cache_update(k, v, qrt, cache, cur: int):
     return out
 
 
-def _q_then_lin(qrt, kind: str, xv, w, b=None):
+def _q_then_lin(qrt, kind: str, xv, w, b=None, taps=None):
     """Linear of one layer kind.  An :class:`IntPack` weight takes the int8
     linears of ``ops/int8_matmul.py``, which quantize the activation to int
     codes inside the GEMM call: the grouped GEMM over ``[B, T, K]`` with
@@ -217,8 +223,12 @@ def _q_then_lin(qrt, kind: str, xv, w, b=None):
     fc2's dual-grid format (K1 per group, K3 per channel), and the
     weights-only product for the ``bf16`` activation format.  Otherwise the
     kind's activation quantizer (if any) runs first, then the linear on the
-    float or packed weight."""
+    float or packed weight.  ``taps`` (a dict) receives the linear's
+    input under ``kind``: after the activation quantizer, or as it enters
+    an int8 linear (which quantizes inside the GEMM call)."""
     if isinstance(w, IntPack):
+        if taps is not None:
+            taps[kind] = xv
         fmt_a = qrt.act_fmts.get(kind) or w.fmt
         if fmt_a in DUAL_CODE_MULT:
             y = int8_linear_dual(xv, w, fmt_a)
@@ -228,6 +238,8 @@ def _q_then_lin(qrt, kind: str, xv, w, b=None):
     aq = qrt.act_q.get(kind) if qrt is not None else None
     if aq is not None:
         xv = aq(xv)
+    if taps is not None:
+        taps[kind] = xv
     return linear(xv, w, b)
 
 
@@ -240,12 +252,15 @@ def block_forward(
     cache: Optional[Dict[str, torch.Tensor]] = None,   # one block's leaves
     cur: int = 0,
     attn_bias: Optional[torch.Tensor] = None,
+    taps: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One AdaLN self-attention block.  With a cache (dense {"k","v"} [B,
     L, C], or packed {"kc","vc"} [B, H, L, c] int8 and {"ks","vs"} [B, H,
     L] f32 under the runtime's KV codec), this step's keys and values are
     written into rows ``[cur, cur + l)`` of ``cache`` in place and
-    attention runs over rows ``[0, cur + l)``."""
+    attention runs over rows ``[0, cur + l)``.  ``taps`` (a dict)
+    receives the inputs of ``mat_qkv``, ``proj``, ``fc1`` and ``fc2`` (see
+    ``_q_then_lin``)."""
     heads, hd = cfg.heads, cfg.head_dim
     b, l, c = x.shape
     gamma1, gamma2, scale1, scale2, shift1, shift2 = mod
@@ -256,7 +271,7 @@ def block_forward(
     if smooth:
         x1 = x1 * bp["mat_qkv_s"].to(x1.dtype)
     x1 = _rotate(qrt, x1)
-    qkv = _q_then_lin(qrt, "mat_qkv", x1, bp["mat_qkv_w"])
+    qkv = _q_then_lin(qrt, "mat_qkv", x1, bp["mat_qkv_w"], taps=taps)
     bias = torch.cat([bp["q_bias"], torch.zeros_like(bp["q_bias"]),
                       bp["v_bias"]])
     qkv = (qkv + bias.to(qkv.dtype)).reshape(b, l, 3, heads, hd)
@@ -274,7 +289,8 @@ def block_forward(
         if cache is not None:
             k, v = _dense_cache_update(k, v, qrt, cache, cur)
         oup = _attention(q, k, v, attn_bias)
-    proj_out = _q_then_lin(qrt, "proj", oup, bp["proj_w"], bp["proj_b"])
+    proj_out = _q_then_lin(qrt, "proj", oup, bp["proj_w"], bp["proj_b"],
+                           taps)
     x = x + (proj_out * gamma1).to(x.dtype)
 
     # ---- FFN branch
@@ -282,8 +298,9 @@ def block_forward(
     if smooth:
         x2 = x2 * bp["fc1_s"].to(x2.dtype)
     x2 = _rotate(qrt, x2)
-    h = gelu_tanh(_q_then_lin(qrt, "fc1", x2, bp["fc1_w"], bp["fc1_b"]))
-    out = _q_then_lin(qrt, "fc2", h, bp["fc2_w"], bp["fc2_b"])
+    h = gelu_tanh(_q_then_lin(qrt, "fc1", x2, bp["fc1_w"], bp["fc1_b"],
+                              taps))
+    out = _q_then_lin(qrt, "fc2", h, bp["fc2_w"], bp["fc2_b"], taps)
     return x + (out * gamma2).to(x.dtype)
 
 
@@ -331,19 +348,88 @@ def head_logits(params, cfg: VARConfig, x: torch.Tensor, cond_BD):
 
 
 def run_blocks(params, cfg: VARConfig, qrt, x, mod, cache=None, cur: int = 0,
-               attn_bias=None):
+               attn_bias=None, capture: bool = False, remat: bool = False):
     """All blocks in order; block i reads and writes ``cache[...][i]``
-    and, under mixed formats, runs with ``qrt.for_block(i)``."""
+    and, under mixed formats, runs with ``qrt.for_block(i)``.
+
+    Returns ``x``, or with ``capture`` ``(x, taps)``: the inputs of each
+    block's ``mat_qkv``, ``proj``, ``fc1`` and ``fc2`` stacked over depth
+    (``[depth, B, l, C]``, fc2's ``4C`` wide), as the JAX package's block
+    scan stacks them.  ``remat`` runs each block under
+    ``torch.utils.checkpoint``: the backward pass recomputes the block
+    from its input instead of keeping its activations."""
     blocks = params["blocks"]
     mixed = qrt is not None and qrt.mixed_act_q is not None
+    per_block = []
     for i in range(cfg.depth):
         ci = None
         if cache is not None:
             ci = {kn: leaf[i] for kn, leaf in cache.items()}
-        x = block_forward(x, block_params(blocks, i), mod[i],
-                          qrt.for_block(i) if mixed else qrt, cfg, ci,
-                          cur, attn_bias)
-    return x
+        args = (x, block_params(blocks, i), mod[i],
+                qrt.for_block(i) if mixed else qrt, cfg, ci, cur, attn_bias)
+        if not (capture or remat):
+            x = block_forward(*args)
+            continue
+        if remat:
+            # a block draws no random numbers: no RNG state to keep
+            x, taps = checkpoint(_block_with_taps, capture, *args,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            x, taps = _block_with_taps(capture, *args)
+        per_block.append(taps)
+    if not capture:
+        return x
+    return x, {kind: torch.stack([t[kind] for t in per_block])
+               for kind in per_block[0]}
+
+
+def _block_with_taps(capture: bool, *args):
+    """``block_forward(*args)`` and its taps (None without ``capture``)."""
+    taps = {} if capture else None
+    return block_forward(*args, taps=taps), taps
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forcing forward
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def attn_bias_for_masking(cfg: VARConfig, device) -> torch.Tensor:
+    """The block-triangular mask by scale, ``[1, 1, L, L]`` float32: 0
+    where the key's scale is not after the query's, ``-inf`` elsewhere.
+    Built once per (cfg, device)."""
+    d = lvl_1L(cfg)
+    bias = np.where(d[:, None] >= d[None, :], 0.0, -np.inf)
+    with torch.inference_mode(False):
+        return torch.from_numpy(bias[None, None].astype(np.float32)).to(
+            device)
+
+
+def var_forward(params, cfg: VARConfig, qrt, label_B: torch.Tensor,
+                x_BLCv_wo_first_l: torch.Tensor,
+                remat: bool = False) -> torch.Tensor:
+    """Teacher-forcing forward, logits ``[B, L, V]`` float32: the class
+    embedding plus ``pos_start`` for the first scale, ``word_embed`` of the
+    teacher-forcing input ``[B, L - first_l, Cvae]`` for the rest, level
+    and position embeddings, every block under the mask, the head.  No
+    label dropout (the trainer applies it).  The blocks run in the dtype
+    of the embeddings (bf16 params give a bf16 forward); ``remat`` as in
+    :func:`run_blocks`."""
+    b = x_BLCv_wo_first_l.shape[0]
+    device = x_BLCv_wo_first_l.device
+    cond_BD = params["class_emb"][label_B]
+    sos = (cond_BD[:, None, :] + params["pos_start"]).expand(
+        b, cfg.first_l, cfg.width)
+    we = params["word_embed"]
+    tok = linear(x_BLCv_wo_first_l.to(torch.float32), we["w"], we["b"])
+    x = torch.cat([sos, tok.to(sos.dtype)], dim=1)
+    x = (x + params["lvl_embed"][_lvl_index(cfg, device)][None]
+         + params["pos_1LC"])
+    mod = compute_modulations(params, cfg, cond_BD, qrt)
+    x = run_blocks(params, cfg, qrt, x, mod,
+                   attn_bias=attn_bias_for_masking(cfg, device), remat=remat)
+    return head_logits(params, cfg, x.to(torch.float32), cond_BD)
 
 
 # ---------------------------------------------------------------------------

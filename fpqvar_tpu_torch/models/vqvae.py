@@ -1,14 +1,15 @@
-"""Multi-scale VQVAE tokenizer, decode side.
+"""Multi-scale VQVAE tokenizer.
 
 Plain functions over a params tree in torch layout (convs OIHW, data NCHW),
-the same tree as the JAX package's ``models/vqvae.py``: the decoder, the
-residual-pyramid step of generation and ``decode``.  The encoder and the
-tokenization paths come with a later slice.
+the same tree as the JAX package's ``models/vqvae.py``: the encoder and
+the multi-scale tokenization (``img_to_idxBl``, ``f_to_idxBl``), the
+teacher-forcing input of training (``idxBl_to_var_input``), the decoder,
+the residual-pyramid step of generation and ``decode``.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -53,9 +54,30 @@ def attn_block(x: torch.Tensor, p) -> torch.Tensor:
     return x + conv2d(out, p["proj_out"], padding=0)
 
 
+def downsample2x(x: torch.Tensor, p) -> torch.Tensor:
+    """Pad the right and bottom by one, then a stride-2 3x3 conv."""
+    return conv2d(F.pad(x, (0, 1, 0, 1)), p, stride=2, padding=0)
+
+
 def upsample2x(x: torch.Tensor, p) -> torch.Tensor:
     x = x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
     return conv2d(x, p)
+
+
+def encoder_forward(params, cfg: VQVAEConfig, x: torch.Tensor) -> torch.Tensor:
+    nres = len(cfg.ch_mult)
+    h = conv2d(x, params["conv_in"])
+    for i, level in enumerate(params["down"]):
+        for j, blk in enumerate(level["block"]):
+            h = resnet_block(h, blk)
+            if level["attn"]:
+                h = attn_block(h, level["attn"][j])
+        if i != nres - 1:
+            h = downsample2x(h, level["downsample"])
+    h = resnet_block(h, params["mid"]["block_1"])
+    h = attn_block(h, params["mid"]["attn_1"])
+    h = resnet_block(h, params["mid"]["block_2"])
+    return conv2d(swish(group_norm(h, params["norm_out"])), params["conv_out"])
 
 
 def decoder_forward(params, cfg: VQVAEConfig, z: torch.Tensor) -> torch.Tensor:
@@ -116,6 +138,212 @@ def get_next_autoregressive_input(
     return f_hat, f_hat
 
 
+def code_scores(qparams, z_NC: torch.Tensor, using_znorm: bool) -> torch.Tensor:
+    """``[N, V]``: the squared distance ``|z|^2 + |e|^2 - 2 z.e`` of each
+    row of ``z_NC`` to each code (the nearest code has the least), or with
+    ``using_znorm`` the cosine of the normalized row and code (the nearest
+    has the greatest), in the dtype of ``z_NC``."""
+    emb = qparams["embedding"].to(z_NC.dtype)
+    if using_znorm:
+        z = z_NC / torch.linalg.vector_norm(z_NC, dim=-1, keepdim=True)
+        e = emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+        return z @ e.T
+    return (z_NC.square().sum(dim=1, keepdim=True)
+            + emb.square().sum(dim=1)[None, :] - 2.0 * (z_NC @ emb.T))
+
+
+def _nearest_code(qparams, z_NC: torch.Tensor, using_znorm: bool):
+    scores = code_scores(qparams, z_NC, using_znorm)
+    return scores.argmax(dim=1) if using_znorm else scores.argmin(dim=1)
+
+
+def _scale_input(cfg: VQVAEConfig, si: int, f_rest: torch.Tensor):
+    """The rows that scale ``si`` matches to codes, ``[B*pn*pn, C]``: the
+    residual area-downsampled to ``pn`` (below the last scale)."""
+    pn = cfg.patch_nums[si]
+    z = f_rest if si == len(cfg.patch_nums) - 1 else resize2d(
+        f_rest, (pn, pn), "area")
+    return z.permute(0, 2, 3, 1).reshape(-1, f_rest.shape[1])
+
+
+def _remove_scale(qparams, cfg: VQVAEConfig, si: int, f_rest: torch.Tensor,
+                  idx_Bl: torch.Tensor) -> torch.Tensor:
+    """The residual after scale ``si``'s tokens ``[B, pn*pn]``: minus
+    their embedding, bicubic-upsampled (below the last scale) and
+    phi-convolved."""
+    pns = cfg.patch_nums
+    sn, pn = len(pns), pns[si]
+    b, _, hh, ww = f_rest.shape
+    h = embed_idx(qparams, idx_Bl.reshape(b, pn, pn)).permute(0, 3, 1, 2)
+    h = h.to(f_rest.dtype)
+    if si != sn - 1:
+        h = resize2d(h, (hh, ww), "bicubic")
+    return f_rest - phi_conv(
+        h, qparams["phi"][phi_index(si, sn, cfg.share_quant_resi)],
+        cfg.quant_resi)
+
+
+def f_to_idxBl(qparams, cfg: VQVAEConfig,
+               f_BChw: torch.Tensor) -> List[torch.Tensor]:
+    """Multi-scale tokenization of an encoder feature map: at each scale
+    the nearest codes of the residual, whose embedding then leaves the
+    residual; tokens ``[B, pn*pn]`` per scale."""
+    b = f_BChw.shape[0]
+    f_rest = f_BChw
+    idx_list = []
+    for si, pn in enumerate(cfg.patch_nums):
+        idx = _nearest_code(qparams, _scale_input(cfg, si, f_rest),
+                            cfg.using_znorm).reshape(b, pn * pn)
+        f_rest = _remove_scale(qparams, cfg, si, f_rest, idx)
+        idx_list.append(idx)
+    return idx_list
+
+
+def scale_inputs_along(qparams, cfg: VQVAEConfig, f_BChw: torch.Tensor,
+                       idx_list: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The rows ``[B*pn*pn, C]`` that :func:`f_to_idxBl` matches to codes
+    at each scale when the earlier scales' tokens are ``idx_list``'s, in
+    the dtype of ``f_BChw``: to hold tokens of another implementation
+    against these codes' scores (float64 for a reference)."""
+    f_rest = f_BChw
+    out = []
+    for si in range(len(cfg.patch_nums)):
+        out.append(_scale_input(cfg, si, f_rest))
+        f_rest = _remove_scale(qparams, cfg, si, f_rest, idx_list[si])
+    return out
+
+
+#: float32's unit roundoff
+U32 = 2.0 ** -24
+
+
+def near_tie_bound(z: torch.Tensor, e_a: torch.Tensor, e_b: torch.Tensor,
+                   dz: torch.Tensor, using_znorm: bool) -> torch.Tensor:
+    """``[N]``: the score gap between codes ``e_a`` and ``e_b`` ``[N, C]``
+    below which two float32 tokenizers may order them differently for the
+    residual row ``z`` ``[N, C]`` (float64), when their two float32 rows
+    differ by at most ``dz`` ``[N]`` (L2).
+
+    Each side's score of each code has two errors: float32 rounding, at
+    most ``gamma = (C + 2) u`` times the sum of the magnitudes of its terms
+    (a C-term dot product and two C-term sums of squares, then two adds:
+    ``(|z| + |e|)^2`` for the squared distance; for the cosine of unit
+    rows, 2 for the dot product and the two norms), and the row's own
+    difference, at most ``2 |z - e| dz + dz^2`` for the squared distance
+    and ``2 dz / |z|`` for the cosine.  The two codes can swap places
+    where their gap is below both codes' errors on both sides."""
+    c = z.shape[1]
+    gamma = (c + 2) * U32 / (1 - (c + 2) * U32)
+    nz = torch.linalg.vector_norm(z, dim=1)
+    total = torch.zeros_like(nz)
+    for e in (e_a, e_b):
+        if using_znorm:
+            err = 4.0 * gamma + 2.0 * dz / nz
+        else:
+            ne = torch.linalg.vector_norm(e, dim=1)
+            dist = torch.linalg.vector_norm(z - e, dim=1)
+            err = gamma * (nz + ne) ** 2 + 2.0 * dist * dz + dz ** 2
+        total = total + 2.0 * err
+    return total
+
+
+def token_agreement(qparams, cfg: VQVAEConfig, f_ours: torch.Tensor,
+                    ours: List[torch.Tensor], f_theirs: torch.Tensor,
+                    theirs: List[torch.Tensor]) -> dict:
+    """Hold tokens ``ours`` (this module's, from the feature map
+    ``f_ours``) against another float32 tokenizer's ``theirs`` (from
+    ``f_theirs``), which may differ only at near-ties.
+
+    Scale by scale along ``ours``' tokens, in float64 on the CPU: the rows
+    each scale matches (:func:`scale_inputs_along`) from ``f_ours``, and
+    the two sides' row difference ``dz``: that of ``f_theirs``'s rows
+    along the same tokens, plus twice the float32 rounding of this
+    module's rows (measured, standing for both sides').  A token that
+    differs must score within :func:`near_tie_bound` of ours; ours must
+    score within it of the float64 best.  After an image's first
+    differing token its later scales (whose residuals then differ) are
+    left out.  Returns the counts ``compared``, ``differ``, ``left_out``
+    and ``beyond`` (tokens, differing or ours, outside the bound)."""
+    cpu = torch.device("cpu")
+    q64 = {"embedding": qparams["embedding"].to(cpu, torch.float64),
+           "phi": [{k: v.to(cpu, torch.float64) for k, v in p.items()}
+                   for p in qparams["phi"]]}
+    q32 = {"embedding": q64["embedding"].float(),
+           "phi": [{k: v.float() for k, v in p.items()} for p in q64["phi"]]}
+    hist = [t.to(cpu).long() for t in ours]
+    z64 = scale_inputs_along(q64, cfg, f_ours.to(cpu, torch.float64), hist)
+    z_theirs = scale_inputs_along(q64, cfg, f_theirs.to(cpu, torch.float64),
+                                  hist)
+    z32 = scale_inputs_along(q32, cfg, f_ours.to(cpu, torch.float32), hist)
+    emb = q64["embedding"]
+    b = hist[0].shape[0]
+    live = torch.ones(b, dtype=torch.bool)
+    out = {"compared": 0, "differ": 0, "left_out": 0, "beyond": 0}
+    for si, pn in enumerate(cfg.patch_nums):
+        a = hist[si].reshape(-1)
+        t = theirs[si].to(cpu).long().reshape(-1)
+        rows = live.repeat_interleave(pn * pn)
+        z = z64[si]
+        dz = (torch.linalg.vector_norm(z_theirs[si] - z, dim=1)
+              + 2.0 * torch.linalg.vector_norm(z32[si].double() - z, dim=1))
+        scores = code_scores(q64, z, cfg.using_znorm)
+        best = (scores.argmax(1) if cfg.using_znorm else scores.argmin(1))
+        s_a = scores.gather(1, a[:, None])[:, 0]
+        s_t = scores.gather(1, t[:, None])[:, 0]
+        s_b = scores.gather(1, best[:, None])[:, 0]
+        diff = rows & (a != t)
+        bad = diff & ((s_a - s_t).abs() > near_tie_bound(
+            z, emb[a], emb[t], dz, cfg.using_znorm))
+        bad |= rows & ((s_a - s_b).abs() > near_tie_bound(
+            z, emb[a], emb[best], dz, cfg.using_znorm))
+        out["compared"] += int(rows.sum())
+        out["left_out"] += int((~rows).sum())
+        out["differ"] += int(diff.sum())
+        out["beyond"] += int(bad.sum())
+        live &= ~diff.reshape(b, -1).any(dim=1)
+    return out
+
+
+def idxBl_to_var_input(qparams, cfg: VQVAEConfig,
+                       idx_list: List[torch.Tensor]) -> torch.Tensor:
+    """Teacher-forcing input of VAR training, ``[B, L - first_l, Cvae]``
+    float32: after each scale but the last, the running ``f_hat``
+    area-downsampled to the next scale."""
+    pns = cfg.patch_nums
+    sn = len(pns)
+    b = idx_list[0].shape[0]
+    c = cfg.z_channels
+    hw = pns[-1]
+    f_hat = torch.zeros((b, c, hw, hw), dtype=torch.float32,
+                        device=idx_list[0].device)
+    outs = []
+    for si in range(sn - 1):
+        pn = pns[si]
+        h = embed_idx(qparams, idx_list[si]).transpose(1, 2).reshape(
+            b, c, pn, pn)
+        h = resize2d(h, (hw, hw), "bicubic")
+        f_hat = f_hat + phi_conv(
+            h, qparams["phi"][phi_index(si, sn, cfg.share_quant_resi)],
+            cfg.quant_resi)
+        pn_next = pns[si + 1]
+        outs.append(resize2d(f_hat, (pn_next, pn_next), "area")
+                    .reshape(b, c, -1).transpose(1, 2))
+    return torch.cat(outs, dim=1)
+
+
+def encode(params, cfg: VQVAEConfig, img: torch.Tensor) -> torch.Tensor:
+    """Images ``[B, 3, H, W]`` in [-1, 1] -> the feature map ``f``
+    ``[B, Cvae, H/16, W/16]`` (``downsample`` = 16 for the published
+    VQVAE)."""
+    f = encoder_forward(params["encoder"], cfg, img)
+    return conv2d(f, params["quant_conv"])
+
+
+def img_to_idxBl(params, cfg: VQVAEConfig,
+                 img: torch.Tensor) -> List[torch.Tensor]:
+    return f_to_idxBl(params["quantize"], cfg, encode(params, cfg, img))
+
+
 def decode(params, cfg: VQVAEConfig, f_hat: torch.Tensor) -> torch.Tensor:
     """f_hat -> images in [-1, 1]."""
     z = conv2d(f_hat, params["post_quant_conv"])
@@ -162,8 +390,11 @@ def _attn_init(gen, device, c):
 
 
 def init_vqvae_params(cfg: VQVAEConfig, seed: int = 0, device="cuda"):
-    """Random decoder, quantizer and post-quant conv, in the JAX package's
-    tree layout (uniform +-1/sqrt(fan_in) convs, N(0, 0.02) codebook)."""
+    """Random VQVAE in the JAX package's tree layout (uniform
+    +-1/sqrt(fan_in) convs, N(0, 0.02) codebook).  The encoder and the
+    quant conv are drawn after the decoder, the quantizer and the
+    post-quant conv, so those keep the values that a seed gave them before
+    the encoder was ported."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     nres = len(cfg.ch_mult)
@@ -197,9 +428,34 @@ def init_vqvae_params(cfg: VQVAEConfig, seed: int = 0, device="cuda"):
         "phi": [_conv_init(gen, device, cfg.z_channels, cfg.z_channels, 3)
                 for _ in range(cfg.share_quant_resi)],
     }
+    post_quant_conv = _conv_init(gen, device, cfg.z_channels,
+                                 cfg.z_channels, 3)
+
+    enc = {"conv_in": _conv_init(gen, device, ch, 3, 3), "down": []}
+    in_mult = (1,) + tuple(cfg.ch_mult)
+    for i in range(nres):
+        cin, cout = ch * in_mult[i], ch * cfg.ch_mult[i]
+        level = {"block": [], "attn": []}
+        for _ in range(cfg.num_res_blocks):
+            level["block"].append(_resnet_init(gen, device, cin, cout))
+            cin = cout
+            if i == nres - 1:
+                level["attn"].append(_attn_init(gen, device, cout))
+        if i != nres - 1:
+            level["downsample"] = _conv_init(gen, device, cout, cout, 3)
+        enc["down"].append(level)
+    enc["mid"] = {
+        "block_1": _resnet_init(gen, device, cmid, cmid),
+        "attn_1": _attn_init(gen, device, cmid),
+        "block_2": _resnet_init(gen, device, cmid, cmid),
+    }
+    enc["norm_out"] = _gn_init(device, cmid)
+    enc["conv_out"] = _conv_init(gen, device, cfg.z_channels, cmid, 3)
     return {
+        "encoder": enc,
         "decoder": dec,
-        "post_quant_conv": _conv_init(gen, device, cfg.z_channels,
-                                      cfg.z_channels, 3),
+        "quant_conv": _conv_init(gen, device, cfg.z_channels,
+                                 cfg.z_channels, 3),
+        "post_quant_conv": post_quant_conv,
         "quantize": quant,
     }

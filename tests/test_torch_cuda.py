@@ -23,6 +23,12 @@ one bfloat16 gap, at one K chunk (K = 64), K = 4096, ragged M and N and
 pipeline, whose barriers hang the card if their phases are wrong (a wait
 longer than 4 s traps instead); run the file under ``timeout``.
 
+The teacher-forcing shapes: K1 to K5 at M = 8 * 680 = 5440 (K5 as ``[8,
+680, K]``), whose last row tile is half full; one VAR-d16 ``var_forward``
+at batch 8 under ``bf16``, ``int8``, ``packed`` and ``int8ch`` with each
+kernel's exact launches; one mixed-precision ``train_step`` at width 256
+against the CPU's.
+
 The engine's fused mode (CUDA graphs) at width 256 under ``int8`` (K5 and
 K1 captured): images ``torch.equal`` to the eager loop's for one generator
 and for one per row, a second call with other labels and generators
@@ -60,7 +66,8 @@ def cuda_device():
     (4096, 1024, 3072, 128), (4096, 4096, 1024, 128),   # d16 qkv, fc2
     (16, 1024, 1000, 128), (37, 640, 384, 128), (1, 128, 7, 128),
     (16, 1024, 1000, 256),                              # two chunks a group
-    (4096, 4096, 1024, 256), (200, 768, 130, 256)])     # N % 4 != 0
+    (4096, 4096, 1024, 256), (200, 768, 130, 256),      # N % 4 != 0
+    (5440, 4096, 1024, 128)])          # teacher-forcing fc2, ragged M tile
 def test_cuda_kernel_matches_plain(cuda_device, m, k, n, group):
     rng = np.random.default_rng(4)
     x = rng.standard_normal((m, k)).astype(np.float32)
@@ -115,6 +122,10 @@ BF16 = torch.bfloat16
     ("fp_e2", 16, 1024, 3072, BF16, 256),             # two chunks a group
     ("fp6_e2m3", 600, 2048, 1000, BF16, 256),
     ("fp_e2", 40, 512, 256, torch.float32, 256),
+    ("fp_e2", 5440, 1024, 3072, BF16, 128),           # teacher forcing
+    ("fp_e2", 5440, 1024, 1024, BF16, 128),           # (M = 8 * 680)
+    ("fp_e2", 5440, 1024, 4096, BF16, 128),
+    ("fp_e2", 5440, 4096, 1024, BF16, 128),
 ])
 def test_cuda_k2_matches_plain(cuda_device, fmt, m, k, n, dtype, group):
     rng = np.random.default_rng(5)
@@ -143,6 +154,7 @@ def test_cuda_k2_matches_plain(cuda_device, fmt, m, k, n, dtype, group):
     (1, 128, 7, torch.float32),
     (16, 4096, 1000, torch.float32),       # ragged M and N at K = 4096
     (300, 128, 700, torch.bfloat16),       # one K chunk
+    (5440, 4096, 1024, torch.float32),     # teacher-forcing fc2
 ])
 def test_cuda_k3_equals_plain(cuda_device, m, k, n, out_dtype):
     rng = np.random.default_rng(6)
@@ -171,6 +183,9 @@ def test_cuda_k3_equals_plain(cuda_device, m, k, n, out_dtype):
     ("fp_e1", 37, 640, 384, torch.float32),
     ("fp_e2", 300, 128, 700, torch.bfloat16),         # one K chunk
     ("fp_e2", 1, 128, 7, torch.bfloat16),
+    ("fp_e2", 5440, 1024, 3072, torch.bfloat16),      # teacher forcing
+    ("fp_e2", 5440, 1024, 1024, torch.bfloat16),
+    ("fp_e2", 5440, 1024, 4096, torch.bfloat16),
 ])
 def test_cuda_k4_equals_plain(cuda_device, fmt, m, k, n, dtype):
     rng = np.random.default_rng(7)
@@ -302,6 +317,9 @@ def test_cuda_k2_reuses_the_weight_tensor_map(cuda_device):
     (3, 33, 640, 384, torch.float32),
     (3, 1, 128, 7, torch.bfloat16),            # tiny
     (16, 1, 1024, 3072, torch.bfloat16),       # d16 qkv, first scale
+    (8, 680, 1024, 3072, torch.bfloat16),      # teacher forcing, all L
+    (8, 680, 1024, 1024, torch.bfloat16),
+    (8, 680, 1024, 4096, torch.bfloat16),
 ])
 def test_cuda_k5_matches_plain(cuda_device, b, t, k, n, out_dtype):
     _check_k5(cuda_device, b, t, k, n, out_dtype, 128)
@@ -621,3 +639,87 @@ def test_cuda_device_transform_matches_cpu(cuda_device, mode):
                  [(a.codes, b.codes), (a.scales, b.scales)])
         for x, y in pairs:
             assert torch.equal(x.cpu(), y), key
+
+
+#: port-kernel launches of one d16 teacher-forcing forward (16 blocks)
+TF_LAUNCHES = {"bf16": {}, "int8": {"nd_launches": 48, "launches": 32},
+               "packed": {"qm": 64},
+               "int8ch": {"fused_launches": 48, "ch_launches": 32}}
+
+
+def _tf_counts():
+    return {"launches": K.launches, "nd_launches": K.nd_launches,
+            "ch_launches": K.ch_launches,
+            "fused_launches": K.fused_launches, "qm": QM.launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(TF_LAUNCHES))
+def test_cuda_d16_teacher_forcing_launches(cuda_device, mode):
+    """One VAR-d16 ``var_forward`` at batch 8 (M = 5440 a linear) on
+    ``synth_device_params`` launches each kernel exactly as the recipe
+    routes 16 blocks, and gives finite float32 logits."""
+    from fpqvar_tpu_torch.config import bench_recipes, var_d16
+    from fpqvar_tpu_torch.models import var as V
+    from fpqvar_tpu_torch.quantize import recipe
+    from fpqvar_tpu_torch.quantize.runtime import build_runtime
+
+    cfg, q = var_d16(), bench_recipes()[mode]
+    galt = tuple(np.ones((cfg.depth, cfg.width), np.float32)
+                 for _ in range(2))
+    params = recipe.synth_device_params(cfg, q, seed=0, galt=galt)
+    qrt = build_runtime(q, cfg.depth, cfg.width, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    labels = torch.randint(0, 1000, (8,), generator=gen, device=cuda_device)
+    x = torch.randn((8, cfg.L - 1, 32), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    with torch.inference_mode():
+        before = _tf_counts()
+        logits = V.var_forward(params, cfg, qrt, labels, x)
+        torch.cuda.synchronize()
+        after = _tf_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: TF_LAUNCHES[mode].get(k, 0) for k in after}
+    assert logits.shape == (8, cfg.L, 4096) and logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_cuda_mixed_precision_train_step_matches_cpu(cuda_device):
+    """One mixed-precision ``train_step`` at width 256 on the card against
+    the same step on the CPU (same float32 params and batch, TF32 off):
+    bf16 rounds in other places on the two devices, so the loss agrees
+    within a relative 1e-3 and each leaf's update lies within three times
+    the L2 distance between the CPU's bf16 and float32 updates, plus 1e-3
+    of its size (the leaves that only decay)."""
+    import dataclasses
+
+    from fpqvar_tpu_torch.config import var_tiny
+    from fpqvar_tpu_torch.models import init_var_params
+    from fpqvar_tpu_torch.train import make_train_state, train_step
+    from fpqvar_tpu_torch.train.trainer import make_optimizer, tree_leaves
+
+    cfg = dataclasses.replace(var_tiny(), embed_dim=256, num_heads=4)
+    start = init_var_params(cfg, seed=4, device="cpu", adaln_gamma_std=0.02)
+    rng = np.random.default_rng(9)
+    batch = {"label": torch.from_numpy(rng.integers(0, 1000, 4)),
+             "x": torch.from_numpy(rng.standard_normal(
+                 (4, cfg.L - 1, cfg.vae.z_channels)).astype(np.float32)),
+             "targets": torch.from_numpy(rng.integers(0, 64, (4, cfg.L)))}
+
+    def step(device, mixed):
+        opt = make_optimizer(peak_lr=3e-3)
+        state = make_train_state(_tree_to(start, device), opt)
+        state, m = train_step(state, cfg, opt, _tree_to(batch, device),
+                              mixed_precision=mixed)
+        return float(m["loss"]), [p.detach().cpu() - p0 for p, p0 in
+                                  zip(tree_leaves(state.params),
+                                      tree_leaves(start))]
+
+    card_loss, card = step(cuda_device, True)
+    cpu_loss, cpu = step("cpu", True)
+    _, cpu_f32 = step("cpu", False)
+    assert abs(card_loss - cpu_loss) <= 1e-3 * cpu_loss
+    for a, b, f in zip(card, cpu, cpu_f32):
+        noise = float((b - f).norm())
+        assert float((a - b).norm()) <= 3 * noise + 1e-3 * float(b.norm())

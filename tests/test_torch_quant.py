@@ -206,7 +206,9 @@ def test_port_imports_no_jax(path):
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys, fpqvar_tpu_torch.models, fpqvar_tpu_torch.quantize, "
             "fpqvar_tpu_torch.ops.int8_matmul, "
-            "fpqvar_tpu_torch.ops.quant_matmul, fpqvar_tpu_torch.utils.bridge; "
+            "fpqvar_tpu_torch.ops.quant_matmul, fpqvar_tpu_torch.utils.bridge, "
+            "fpqvar_tpu_torch.train, fpqvar_tpu_torch.tools.train, "
+            "fpqvar_tpu_torch.utils.logging; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'fpqvar_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
