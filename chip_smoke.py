@@ -104,9 +104,28 @@ non-zero:
    under the near-tie rule; (d) mixed-precision training on those tokens
    (the loss falls), step ms and tokens/s, the peak memory with and
    without ``remat`` and their gradients, a checkpoint and ``auto_resume``
-   equal to the uninterrupted step, and the training CLI run twice.
+   equal to the uninterrupted step, and the training CLI run twice;
+13. offline pipeline, at VAR-d16 full width and depth in a temporary
+   directory removed at its end: (a) seeded d16 VAR and VQVAE trees under
+   the upstream torch keys, ``torch.save``d and read back through
+   ``load_torch_state_dict`` and the converters (keys =
+   ``expected_var_keys``, trees equal leaf for leaf, a ``bf16`` batch-8
+   generation ``torch.equal`` to the source trees'); (b)
+   ``capture_generation`` of 1 label and a 640-file ``CalibrationStore``,
+   ``capture_condition`` of 100 labels; (c) ``search_formats`` for fc1
+   and ``search_ada_formats`` (JAX's JSON schema, finite losses >= 0); (d)
+   ``train_galt`` for mat_qkv and fc1, 16 blocks, 50 epochs (every block's
+   best loss at most its loss at s = 1; seconds and ms a step); (e) bf16
+   cast, ``quantize_var_params`` under ``int8`` with (d)'s vectors,
+   ``save_params`` / ``load_params`` (the tree equal, bf16 leaves bf16),
+   the reloaded tree's batch-8 generation with exactly K1 320 + K5 480
+   launches and images ``torch.equal`` to the in-memory tree's, and a
+   ``fake`` generation under (c)'s mixed activation formats; (f) at width
+   256, card against CPU: capture tokens and taps, the search's pair
+   losses and choice, two GALT epochs within twice the CPU's own one-ulp
+   response.
 
-The phases run in the order 1-6, 10, 7-9, 11, 12.  Phases 4-6 and the
+The phases run in the order 1-6, 10, 7-9, 11, 12, 13.  Phases 4-6 and the
 launch gates of phases 7 and 9 run the eager loop (``fuse_steps=False``),
 whose every launch the wrappers' host counters see.
 
@@ -119,6 +138,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2058,6 +2078,515 @@ def phase_teacher(card: str):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the offline pipeline
+# ---------------------------------------------------------------------------
+
+#: port tree key -> upstream key suffix of each block's leaves (VAR-d16 has
+#: per-block ``ada_lin``)
+VAR_BLOCK_KEYS = {"mat_qkv_w": "attn.mat_qkv.weight", "q_bias": "attn.q_bias",
+                  "v_bias": "attn.v_bias",
+                  "scale_mul": "attn.scale_mul_1H11",
+                  "proj_w": "attn.proj.weight", "proj_b": "attn.proj.bias",
+                  "fc1_w": "ffn.fc1.weight", "fc1_b": "ffn.fc1.bias",
+                  "fc2_w": "ffn.fc2.weight", "fc2_b": "ffn.fc2.bias"}
+
+
+def _var_upstream(p, cfg) -> dict:
+    """A port VAR tree (per-block ``ada_lin``) under the upstream torch
+    keys, as CPU tensors."""
+    sd = {"word_embed.weight": p["word_embed"]["w"],
+          "word_embed.bias": p["word_embed"]["b"],
+          "class_emb.weight": p["class_emb"], "pos_start": p["pos_start"],
+          "pos_1LC": p["pos_1LC"], "lvl_embed.weight": p["lvl_embed"],
+          "head_nm.ada_lin.1.weight": p["head_nm"]["w"],
+          "head_nm.ada_lin.1.bias": p["head_nm"]["b"],
+          "head.weight": p["head"]["w"], "head.bias": p["head"]["b"]}
+    blocks = p["blocks"]
+    for i in range(cfg.depth):
+        for key, name in VAR_BLOCK_KEYS.items():
+            sd[f"blocks.{i}.{name}"] = blocks[key][i]
+        sd[f"blocks.{i}.ada_lin.1.weight"] = blocks["ada_lin"]["w"][i]
+        sd[f"blocks.{i}.ada_lin.1.bias"] = blocks["ada_lin"]["b"][i]
+    return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def _flat_dots(tree, prefix=""):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat_dots(v, f"{prefix}{k}."))
+    return out
+
+
+def _vqvae_upstream(vae) -> dict:
+    """A port VQVAE tree under the upstream torch keys (phi as the
+    partially shared ``quant_resi.qresi_ls``), as CPU tensors."""
+    sd = {}
+    for k, v in _flat_dots(vae).items():
+        k = re.sub(r"\.w$", ".weight", re.sub(r"\.b$", ".bias", k))
+        k = re.sub(r"(downsample|upsample)\.", r"\1.conv.", k)
+        k = k.replace("quantize.phi.", "quantize.quant_resi.qresi_ls.")
+        if k == "quantize.embedding":
+            k += ".weight"
+        sd[k] = v.detach().cpu().clone()
+    return sd
+
+
+def _same_leaves(a, b, where="") -> int:
+    """Fail unless two port trees hold the same structure, leaf types,
+    dtypes and bits; returns the number of bfloat16 tensors."""
+    from fpqvar_tpu_torch.ops.packing import IntPack, PackedTensor
+
+    if type(a) is not type(b):
+        fail(f"offline: {where}: {type(a).__name__} against "
+             f"{type(b).__name__}")
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            fail(f"offline: {where}: keys {sorted(a)} against {sorted(b)}")
+        return sum(_same_leaves(a[k], b[k], f"{where}/{k}") for k in a)
+    if isinstance(a, list):
+        if len(a) != len(b):
+            fail(f"offline: {where}: {len(a)} items against {len(b)}")
+        return sum(_same_leaves(x, y, f"{where}/{i}")
+                   for i, (x, y) in enumerate(zip(a, b)))
+    if isinstance(a, (IntPack, PackedTensor)):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(x, torch.Tensor):
+                _same_leaves(x, y, f"{where}.{f.name}")
+            elif x != y:
+                fail(f"offline: {where}.{f.name}: {x} against {y}")
+        return 0
+    if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b):
+        fail(f"offline: {where}: {a.dtype} {a.device} against {b.dtype} "
+             f"{b.device}, or other values")
+    return int(a.dtype == torch.bfloat16)
+
+
+def _eager_images(cfg, q, params, vae, labels, seed: int):
+    from fpqvar_tpu_torch.config import GenerateConfig
+    from fpqvar_tpu_torch.models import VARGenerator
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    imgs = VARGenerator(cfg, q, GenerateConfig(), device="cuda",
+                        fuse_steps=False).generate(params, vae, labels, gen)
+    torch.cuda.synchronize()
+    return imgs
+
+
+def _offline_checkpoint_in(cfg, tmp: str, card: str):
+    """(a) Seeded d16 VAR and VQVAE trees under the upstream keys,
+    ``torch.save``d, read back with ``load_torch_state_dict`` and the two
+    converters: the key set must be ``expected_var_keys``, the converted
+    trees equal to the source trees leaf for leaf, and a ``bf16`` batch-8
+    generation from them ``torch.equal`` to one from the source trees
+    (same generator seed).  Returns the converted (VAR, VQVAE) trees."""
+    from fpqvar_tpu_torch.models import init_var_params, init_vqvae_params
+    from fpqvar_tpu_torch.utils import checkpoint as C
+
+    src_var = init_var_params(cfg, seed=0, device="cuda",
+                              adaln_gamma_std=0.02)
+    src_vae = init_vqvae_params(cfg.vae, seed=1, device="cuda")
+    var_sd, vae_sd = _var_upstream(src_var, cfg), _vqvae_upstream(src_vae)
+    if set(var_sd) != set(C.expected_var_keys(cfg)):
+        fail("offline: the upstream VAR keys differ from expected_var_keys")
+    paths = {"var": os.path.join(tmp, "var_d16.pth"),
+             "vae": os.path.join(tmp, "vae_d16.pth")}
+    t0 = time.perf_counter()
+    torch.save(var_sd, paths["var"])
+    torch.save({"state_dict": vae_sd}, paths["vae"])
+    t_save = time.perf_counter() - t0
+    del var_sd, vae_sd
+    t0 = time.perf_counter()
+    var_p = C.convert_var_state_dict(C.load_torch_state_dict(paths["var"]),
+                                     cfg, "cuda")
+    vae_p = C.convert_vqvae_state_dict(
+        C.load_torch_state_dict(paths["vae"]), cfg.vae, "cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    _same_leaves(var_p, src_var, "converted VAR")
+    _same_leaves(vae_p, src_vae, "converted VQVAE")
+    q = _recipes()["bf16"]
+    labels = torch.arange(8, device="cuda") * 37
+    ours = _eager_images(cfg, q, var_p, vae_p, labels, seed=7)
+    theirs = _eager_images(cfg, q, src_var, src_vae, labels, seed=7)
+    if not torch.equal(ours, theirs):
+        fail("offline: the converted trees generate other images")
+    sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+    print(f"offline: (a) checkpoint in, depth {cfg.depth}: torch.save of the upstream VAR "
+          f"({sizes['var']} bytes) and VQVAE ({sizes['vae']} bytes) state "
+          f"dicts {t_save:.2f} s; load_torch_state_dict + convert to cuda "
+          f"{t_load:.2f} s; {len(C.expected_var_keys(cfg))} keys = "
+          f"expected_var_keys; trees equal leaf for leaf; bf16 batch-8 "
+          f"images torch.equal to the source trees'; on {card}")
+    del src_var, src_vae
+    return var_p, vae_p
+
+
+def _offline_calibration(cfg, var_p, vae_p, tmp: str, card: str):
+    """(b) ``capture_generation`` for 1 label (2 CFG rows) through the 10
+    scales, written with ``CalibrationStore.append_run`` (16 blocks x 10
+    steps x 4 kinds = 640 npz files), and ``capture_condition`` for 100
+    labels.  Returns the store and the condition."""
+    from fpqvar_tpu_torch.quantize.calibration import (
+        LAYER_KINDS, CalibrationStore, capture_condition, capture_generation)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    capture_generation(var_p, vae_p, cfg, [0], gen)    # warm-up
+    t0 = time.perf_counter()
+    taps = capture_generation(var_p, vae_p, cfg, [1], gen)
+    t_cap = time.perf_counter() - t0
+    raw = sum(a.nbytes for step in taps for a in step.values())
+    for si, (step, pn) in enumerate(zip(taps, cfg.patch_nums)):
+        for kind, a in step.items():
+            wide = 4 if kind == "fc2" else 1
+            want = (cfg.depth, 2, pn * pn, wide * cfg.width)
+            if a.shape != want or a.dtype != np.float32 or not np.isfinite(
+                    a).all():
+                fail(f"offline: capture {kind} step {si}: {a.shape} "
+                     f"{a.dtype}, expected {want} float32 finite")
+    store = CalibrationStore(os.path.join(tmp, "calib"))
+    t0 = time.perf_counter()
+    store.append_run(taps)
+    t_write = time.perf_counter() - t0
+    files = sorted(os.listdir(store.root))
+    disk = sum(os.path.getsize(os.path.join(store.root, f)) for f in files)
+    want = len(LAYER_KINDS) * cfg.depth * cfg.num_scales
+    if len(files) != want or store.steps("fc1", cfg.depth - 1) != \
+            cfg.num_scales:
+        fail(f"offline: the store holds {len(files)} files, expected {want}")
+    t0 = time.perf_counter()
+    cond = capture_condition(var_p, cfg, np.arange(100))
+    t_cond = time.perf_counter() - t0
+    if cond.shape != (100, cfg.width) or not np.isfinite(cond).all():
+        fail(f"offline: capture_condition {cond.shape}")
+    print(f"offline: (b) capture_generation, 1 label (2 CFG rows), "
+          f"{cfg.num_scales} scales: {t_cap:.2f} s (taps {raw} bytes raw "
+          f"float32); CalibrationStore.append_run: {t_write:.2f} s for "
+          f"{len(files)} npz files, {disk} bytes compressed; "
+          f"capture_condition of 100 labels {t_cond * 1e3:.1f} ms; on {card}")
+    return store, cond
+
+
+def _check_results(label: str, results, depth: int) -> None:
+    from fpqvar_tpu_torch.quantize import search as S
+
+    keys = {"block_idx", "weight_format", "activation_format", "loss"}
+    if len(results) != depth:
+        fail(f"offline: {label}: {len(results)} entries, expected {depth}")
+    for blk, r in enumerate(results):
+        if (set(r) != keys or r["block_idx"] != blk
+                or r["weight_format"] not in S.FP4_SPACE
+                or r["activation_format"] not in S.FP4_SPACE
+                or not isinstance(r["loss"], float)
+                or not (math.isfinite(r["loss"]) and r["loss"] >= 0)):
+            fail(f"offline: {label}: entry {r}")
+
+
+def _offline_search(cfg, var_p, store, cond, tmp: str, card: str):
+    """(c) ``search_formats`` for fc1 over the 16 blocks (``max_samples``
+    1000, as the JAX CLI) and ``search_ada_formats`` on the 100
+    conditions: JAX's JSON schema, a finite loss >= 0, the JSON round
+    trip.  Returns the fc1 results."""
+    from fpqvar_tpu_torch.quantize import search as S
+
+    t0 = time.perf_counter()
+    fc1 = S.search_formats(store, var_p["blocks"]["fc1_w"], "fc1",
+                           max_samples=1000, device="cuda")
+    t_fc1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ada = S.search_ada_formats(cond, var_p["blocks"]["ada_lin"]["w"],
+                               device="cuda")
+    t_ada = time.perf_counter() - t0
+    _check_results("search_formats fc1", fc1, cfg.depth)
+    _check_results("search_ada_formats", ada, cfg.depth)
+    path = os.path.join(tmp, "optimal_quantization_formats_fc1.json")
+    S.save_formats_json(path, fc1)
+    if S.load_formats_json(path) != fc1:
+        fail("offline: the formats JSON does not round-trip")
+
+    def hist(results):
+        pairs = [f"{r['weight_format']}/{r['activation_format']}"
+                 for r in results]
+        return ", ".join(f"{p} x{pairs.count(p)}" for p in sorted(set(pairs)))
+
+    rows = 2 * cfg.L
+    print(f"offline: (c) search_formats fc1, {cfg.depth} blocks x 9 pairs on "
+          f"{min(rows, 1000)} of {rows} rows: {t_fc1:.2f} s ({hist(fc1)}); "
+          f"search_ada_formats, {cfg.depth} blocks on 100 conditions: "
+          f"{t_ada:.2f} s ({hist(ada)}); losses finite >= 0; on {card}")
+    return fc1
+
+
+def _offline_galt(cfg, var_p, store, card: str):
+    """(d) ``train_galt`` for mat_qkv and fc1, 16 blocks, 50 epochs,
+    ``max_samples_per_step`` 256: every block's best loss at most its loss
+    at s = 1 (the mean over its steps, read by wrapping
+    ``train_galt_block``).  Returns (s_qkv, s_fc1)."""
+    from fpqvar_tpu_torch.ops.hadamard import block_hadamard_block
+    from fpqvar_tpu_torch.quantize import galt as G
+    from fpqvar_tpu_torch.quantize.recipe import ieee_f32
+
+    block_fn = G.train_galt_block
+    q_block = torch.as_tensor(block_hadamard_block(128, 42),
+                              dtype=torch.float32, device="cuda")
+    seen = []
+
+    def recorded(acts, weight, **kw):
+        s, best = block_fn(acts, weight, **kw)
+        w = weight.to(torch.float32)
+        ones = torch.ones(w.shape[-1], device="cuda")
+        with torch.no_grad(), ieee_f32():
+            base = 0.0
+            for a in acts:
+                base += float(G.quant_error(
+                    torch.from_numpy(a).cuda(), w, ones, q_block,
+                    G.make_quant_ste(4)))
+        seen.append((best, base / len(acts), [len(a) for a in acts]))
+        return s, best
+
+    out = []
+    G.train_galt_block = recorded
+    try:
+        for kind in ("mat_qkv", "fc1"):
+            seen.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = G.train_galt(store, var_p["blocks"][f"{kind}_w"], kind,
+                             epochs=50, max_samples_per_step=256,
+                             device="cuda")
+            secs = time.perf_counter() - t0
+            steps = cfg.depth * 50 * cfg.num_scales
+            if s.shape != (cfg.depth, cfg.width) or not np.isfinite(s).all():
+                fail(f"offline: train_galt {kind}: s {s.shape}")
+            worse = [i for i, (best, base, _) in enumerate(seen)
+                     if not best <= base]
+            if len(seen) != cfg.depth or worse:
+                fail(f"offline: train_galt {kind}: blocks {worse} end above "
+                     f"their loss at s = 1: {seen}")
+            gain = [best / base for best, base, _ in seen]
+            print(f"offline: (d) train_galt {kind}, {cfg.depth} blocks x 50 "
+                  f"epochs x {cfg.num_scales} steps (rows a step "
+                  f"{seen[0][2]}): {secs:.2f} s, {secs / steps * 1e3:.3f} ms "
+                  f"a step; best loss / loss at s = 1 per block "
+                  f"{min(gain):.4f}..{max(gain):.4f}; s in "
+                  f"[{s.min():.4f}, {s.max():.4f}]; on {card}")
+            out.append(s)
+    finally:
+        G.train_galt_block = block_fn
+    return tuple(out)
+
+
+def _offline_generate(cfg, var_p, vae_p, galt, fc1_results, tmp: str,
+                      card: str) -> dict:
+    """(e) The tree cast to bf16, ``quantize_var_params`` under ``int8``
+    with the GALT vectors of (d), ``save_params`` / ``load_params``: the
+    reloaded tree equal leaf for leaf (bf16 leaves bf16), and its batch-8
+    ``int8`` generation, with the counts set to 0 just before it and read
+    just after, launching exactly K1 320 and K5 480 and giving images
+    ``torch.equal`` to the in-memory tree's (same generator seed), finite
+    in [0, 1].  Then one ``fake`` generation with the mixed activation
+    formats of (c): finite images, no port kernel.  Returns the reloaded
+    generation's launch counts."""
+    from fpqvar_tpu_torch.quantize import quantize_var_params
+    from fpqvar_tpu_torch.quantize import search as S
+    from fpqvar_tpu_torch.quantize.recipe import to_bf16
+    from fpqvar_tpu_torch.utils import checkpoint as C
+
+    q = _recipes()["int8"]
+    bf16 = to_bf16(var_p)
+    t0 = time.perf_counter()
+    qp = quantize_var_params(bf16, cfg, q, galt=galt)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    path = os.path.join(tmp, "var_d16_int8.npz")
+    t0 = time.perf_counter()
+    C.save_params(path, qp)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = C.load_params(path, "cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    n_bf16 = _same_leaves(back, qp, "reloaded int8 tree")
+    if n_bf16 == 0:
+        fail("offline: the int8 tree holds no bf16 leaf")
+    labels = torch.arange(8, device="cuda") * 101
+    _eager_images(cfg, q, back, vae_p, labels, seed=9)     # warm-up
+    reset_counts()
+    imgs = _eager_images(cfg, q, back, vae_p, labels, seed=9)
+    counts = read_counts()
+    blocks = cfg.depth * cfg.num_scales
+    want = {k: 0 for k in COUNTERS}
+    want.update(K1=blocks * 2, K5=blocks * 3)
+    if counts != want:
+        fail(f"offline: reloaded int8 generation launches {counts}, "
+             f"expected {want}")
+    ref = _eager_images(cfg, q, qp, vae_p, labels, seed=9)
+    if tuple(imgs.shape) != (8, 3, 256, 256) or not torch.equal(imgs, ref):
+        fail("offline: the reloaded tree generates other images than the "
+             "in-memory tree")
+    if not bool(torch.isfinite(imgs).all()) or not (
+            float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0):
+        fail("offline: reloaded int8 images not finite in [0, 1]")
+    mixed = S.formats_to_mixed_config(fc1_results)
+    qf = _recipes()["fake"].replace(mixed_act_formats=mixed)
+    fp = quantize_var_params(bf16, cfg, qf, galt=galt)
+    reset_counts()
+    fimgs = _eager_images(cfg, qf, fp, vae_p, labels, seed=9)
+    fcounts = read_counts()
+    if any(fcounts.values()) or not bool(torch.isfinite(fimgs).all()):
+        fail(f"offline: mixed-format fake generation: launches {fcounts}, "
+             f"finite {bool(torch.isfinite(fimgs).all())}")
+    print(f"offline: (e) bf16 cast + quantize_var_params int8 with the GALT "
+          f"vectors {t_quant:.2f} s; save_params {os.path.getsize(path)} "
+          f"bytes in {t_save:.2f} s, load_params to cuda {t_load:.2f} s "
+          f"(tree equal leaf for leaf, {n_bf16} bf16 leaves bf16); reloaded "
+          f"int8 batch-8 generation: launches "
+          + ", ".join(f"{k} {n}" for k, n in counts.items() if n)
+          + f", images torch.equal to the in-memory tree's, finite in "
+          f"[0, 1]; fake with mixed activation formats {mixed}: images "
+          f"finite, no port kernel; on {card}")
+    return counts
+
+
+def _offline_small_reference(card: str) -> None:
+    """(f) Width 256 (phase 4's model), card against CPU:
+    ``capture_generation`` at top_k=1 (the same tokens at every scale,
+    taps within 1e-4); ``_pair_loss`` of the nine fp4 pairs on block 0's
+    fc1 taps within a relative 1e-4, and the same chosen pair unless the
+    CPU's two best lie closer than that; two epochs of ``train_galt_block``
+    on that block, ``s`` and the best loss within the larger of 1e-4 and
+    twice the CPU's own response to a one-ulp change of the activations
+    (up or down), printed beside."""
+    from fpqvar_tpu_torch.config import GenerateConfig, var_tiny
+    from fpqvar_tpu_torch.models import init_var_params, init_vqvae_params
+    from fpqvar_tpu_torch.quantize import calibration as CAL
+    from fpqvar_tpu_torch.quantize import galt as G
+    from fpqvar_tpu_torch.quantize import search as S
+
+    cfg = dataclasses.replace(var_tiny(), embed_dim=256, num_heads=4)
+    params = init_var_params(cfg, seed=4, device="cpu", adaln_gamma_std=0.02)
+    vae = init_vqvae_params(cfg.vae, seed=5, device="cpu")
+    sample = CAL.sample_with_top_k_top_p
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tokens = []
+
+        def recorded(logits, *args, **kw):
+            idx = sample(logits, *args, **kw)
+            tokens.append(idx.cpu())
+            return idx
+
+        CAL.sample_with_top_k_top_p = recorded
+        try:
+            taps = CAL.capture_generation(
+                _to(params, dev), _to(vae, dev), cfg, [3, 5, 7],
+                torch.Generator(device=dev).manual_seed(1),
+                GenerateConfig(top_k=1, top_p=0.0))
+        finally:
+            CAL.sample_with_top_k_top_p = sample
+        out[dev] = (taps, tokens)
+    (taps, tok), (ctaps, ctok) = out["cpu"], out["cuda"]
+    if len(tok) != cfg.num_scales or not all(
+            torch.equal(a, b) for a, b in zip(tok, ctok)):
+        fail("offline: width-256 capture: card and CPU sampled other tokens")
+    terr = max(float(np.abs(a[k] - b[k]).max())
+               for a, b in zip(taps, ctaps) for k in a)
+    if not terr <= 1e-4:
+        fail(f"offline: width-256 capture taps differ by {terr} (tol 1e-4)")
+
+    acts = [t["fc1"][0].reshape(-1, cfg.width) for t in taps]
+    w = params["blocks"]["fc1_w"][0]
+    x = np.concatenate(acts)
+    losses = {}
+    for wn, wf in S.FP4_SPACE.items():
+        for an, af in S.FP4_SPACE.items():
+            cpu = S._pair_loss(torch.from_numpy(x), w, wf, af, 128)
+            card_l = S._pair_loss(torch.from_numpy(x).cuda(), w.cuda(), wf,
+                                  af, 128)
+            losses[(wn, an)] = (cpu, card_l)
+    lerr = max(abs(c - g) / c for c, g in losses.values())
+    if not lerr <= 1e-4:
+        fail(f"offline: width-256 _pair_loss card vs CPU rel err {lerr}")
+    order = sorted(losses, key=lambda k: losses[k][0])
+    best_cpu = order[0]
+    best_card = min(losses, key=lambda k: losses[k][1])
+    near = (losses[order[1]][0] - losses[order[0]][0]) <= \
+        1e-4 * losses[order[0]][0]
+    if best_card != best_cpu and not near:
+        fail(f"offline: width-256 search: card picks {best_card}, CPU "
+             f"{best_cpu}")
+
+    up, down = np.float32(1 + 2.0 ** -23), np.float32(1 - 2.0 ** -24)
+    s_cpu, l_cpu = G.train_galt_block(acts, w, epochs=2, device="cpu")
+    s_card, l_card = G.train_galt_block(acts, w, epochs=2, device="cuda")
+    ulp = [G.train_galt_block([a * f for a in acts], w, epochs=2,
+                              device="cpu") for f in (up, down)]
+    s_ulp = max(float(np.abs(s - s_cpu).max()) for s, _ in ulp)
+    l_ulp = max(abs(l - l_cpu) / l_cpu for _, l in ulp)
+    s_err = float(np.abs(s_card - s_cpu).max())
+    l_err = abs(l_card - l_cpu) / l_cpu
+    s_tol, l_tol = max(1e-4, 2 * s_ulp), max(1e-4, 2 * l_ulp)
+    if not (s_err <= s_tol and l_err <= l_tol):
+        fail(f"offline: width-256 train_galt_block card vs CPU: s max err "
+             f"{s_err} (tol {s_tol}), best loss rel err {l_err} (tol "
+             f"{l_tol})")
+    print(f"offline: (f) width-256 card vs CPU: capture tokens identical at "
+          f"all {cfg.num_scales} scales, taps max err {terr:.3e} (tol 1e-4); "
+          f"_pair_loss of 9 fp4 pairs rel err {lerr:.3e} (tol 1e-4), chosen "
+          f"{best_card} (CPU {best_cpu}); train_galt_block 2 epochs: s max "
+          f"err {s_err:.3e} (tol {s_tol:.3e}; the CPU's s moves "
+          f"{s_ulp:.3e} when the activations move by one ulp), best loss "
+          f"rel err {l_err:.3e} (tol {l_tol:.3e}; one ulp {l_ulp:.3e}); "
+          f"on {card}")
+
+
+def phase_offline(card: str) -> dict:
+    """Phase 13, the offline pipeline at VAR-d16 full width and depth
+    (width 1024, 16 heads, depth 16, L = 680; random seeded weights) in a
+    temporary directory removed at its end: (a) checkpoint in, (b)
+    calibration capture and store, (c) format search, (d) GALT training,
+    (e) transform, persist, reload and generate, (f) card against CPU at
+    width 256.  Returns the reloaded generation's launch counts."""
+    from fpqvar_tpu_torch.config import var_d16
+
+    cfg = var_d16()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+    stages = {}
+
+    def stage(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        stages[name] = time.perf_counter() - t0
+        return res
+
+    try:
+        var_p, vae_p = stage("(a)", _offline_checkpoint_in, cfg, tmp, card)
+        store, cond = stage("(b)", _offline_calibration, cfg, var_p, vae_p,
+                            tmp, card)
+        fc1 = stage("(c)", _offline_search, cfg, var_p, store, cond, tmp,
+                    card)
+        galt = stage("(d)", _offline_galt, cfg, var_p, store, card)
+        counts = stage("(e)", _offline_generate, cfg, var_p, vae_p, galt,
+                       fc1, tmp, card)
+        del var_p, vae_p
+        torch.cuda.empty_cache()
+        stage("(f)", _offline_small_reference, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("offline: stage seconds " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stages.items()) + f" on {card}")
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2116,6 +2645,8 @@ def main():
     done("transform")
     tf_launches, tf_rows = phase_teacher(card)
     done("teacher forcing and training")
+    offline_launches = phase_offline(card)
+    done("offline pipeline")
     src = "fpqvar_tpu_torch/csrc/"
     kernels = {"kernels": [
         # K1 runs on the main path only at fc2 (int8's dual grid)
@@ -2153,6 +2684,9 @@ def main():
         row["teacher_forcing"] = {k: v for k, v in tf.items()
                                   if k not in ("name", "route", "source",
                                                "replaces")}
+    # the offline pipeline's reloaded int8 generation (phase 13)
+    for row, kern in zip(kernels["kernels"], COUNTERS):
+        row["offline_launches"] = offline_launches[kern]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps(kernels))

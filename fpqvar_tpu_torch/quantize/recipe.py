@@ -156,7 +156,7 @@ def quantize_var_params(
 
 
 @contextlib.contextmanager
-def _ieee_f32():
+def ieee_f32():
     """Float32 matmuls in float32 whatever ``allow_tf32`` says (TF32
     rounds the operands to 10 mantissa bits)."""
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -187,7 +187,7 @@ def _rotate_f32(blocks: dict, cfg: VARConfig, qcfg: QuantConfig,
              else H.random_hadamard_matrix(cfg.width, qcfg.rotation_seed))
         qmat = torch.as_tensor(q, dtype=torch.float32, device=dev)
     out = dict(blocks)
-    with _ieee_f32():
+    with ieee_f32():
         for key, s in zip(_ROTATED_KEYS, scales):
             w = blocks[key].to(torch.float32)
             if s is not None:
@@ -260,13 +260,14 @@ def synth_device_params(cfg: VARConfig, qcfg: QuantConfig, seed: int = 0,
     p = dict(p)
     p["blocks"] = transform_blocks_traced(p["blocks"], cfg, qcfg, galt)
     if qcfg.backend == "fake":
-        p = _to_bf16(p)
+        p = to_bf16(p)
     return p
 
 
-def _to_bf16(tree):
+def to_bf16(tree):
+    """Every float32 tensor of a (dict) tree cast to bfloat16."""
     if isinstance(tree, dict):
-        return {k: _to_bf16(v) for k, v in tree.items()}
+        return {k: to_bf16(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor) and tree.dtype == torch.float32:
         return tree.to(torch.bfloat16)
     return tree

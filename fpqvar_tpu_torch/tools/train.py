@@ -28,31 +28,14 @@ import time
 import numpy as np
 import torch
 
-from fpqvar_tpu_torch.config import (PATCH_NUMS_256, PATCH_NUMS_512,
-                                     VARConfig, VQVAEConfig, var_tiny)
+from fpqvar_tpu_torch.config import VARConfig
 from fpqvar_tpu_torch.models.var import init_var_params
+from fpqvar_tpu_torch.tools._common import add_model_flags, model_config
 from fpqvar_tpu_torch.train import (auto_resume, dist_infinite_batches,
                                     make_manager, make_train_state,
                                     save_train_state, train_step)
 from fpqvar_tpu_torch.train.trainer import make_optimizer, warmup_cosine_decay
 from fpqvar_tpu_torch.utils.logging import MetricLogger
-
-
-def add_model_flags(p: argparse.ArgumentParser, default_depth: int = 30):
-    p.add_argument("--depth", type=int, default=default_depth,
-                   help="transformer depth (width/heads derive from it)")
-    p.add_argument("--resolution", type=int, default=256, choices=[256, 512])
-    p.add_argument("--tiny", action="store_true",
-                   help="depth-2 6x6 smoke config (ignores "
-                        "--depth/--resolution)")
-
-
-def model_config(args) -> VARConfig:
-    if args.tiny:
-        return var_tiny()
-    pns = PATCH_NUMS_512 if args.resolution == 512 else PATCH_NUMS_256
-    return VARConfig(depth=args.depth, shared_aln=(args.resolution == 512),
-                     patch_nums=pns, vae=VQVAEConfig(patch_nums=pns))
 
 
 def parse_args(argv=None):

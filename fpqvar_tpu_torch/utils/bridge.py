@@ -36,10 +36,22 @@ from fpqvar_tpu_torch.ops.packing import IntPack, PackedTensor
 _QUANT_LEAF = re.compile(r"(.*)/__(intpack|packed)_(codes|scales|meta)$")
 
 
-def unflatten(flat: dict) -> dict:
+def _bf16(arr, keep: bool):
+    """A ``__bf16`` uint16 view: widened to float32 numpy, or with
+    ``keep`` a ``torch.bfloat16`` tensor of the same bits."""
+    bits = np.asarray(arr).view(np.uint16)
+    if keep:
+        return torch.from_numpy(bits.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def unflatten(flat: dict, keep_bf16: bool = False) -> dict:
     """The flat dict of ``save_params`` back to a nested tree (lists from
     all-digit keys, empty containers, bfloat16 views, the codes / scales /
-    meta triplets of IntPack and PackedTensor leaves)."""
+    meta triplets of IntPack and PackedTensor leaves).  bfloat16 leaves
+    and scales are widened to float32, or with ``keep_bf16`` kept as
+    ``torch.bfloat16`` tensors (``utils/checkpoint.load_params``)."""
     tree: dict = {}
     packs: dict = {}
 
@@ -54,16 +66,14 @@ def unflatten(flat: dict) -> dict:
         if m:
             packs.setdefault((m.group(1), m.group(2)), {})[m.group(3)] = val
         elif key.endswith("/__bf16"):
-            arr = np.asarray(val).view(np.uint16).astype(np.uint32) << 16
-            insert(key[: -len("/__bf16")].split("/"), arr.view(np.float32))
+            insert(key[: -len("/__bf16")].split("/"), _bf16(val, keep_bf16))
         else:
             insert(key.split("/"), val)
     for (key, kind), parts in packs.items():
         meta = json.loads(bytes(np.asarray(parts["meta"])).decode())
         scales = np.asarray(parts["scales"])
         if meta.get("scales_bf16", False):
-            scales = (scales.view(np.uint16).astype(np.uint32) << 16
-                      ).view(np.float32)
+            scales = _bf16(scales, keep_bf16)
         leaf = SimpleNamespace(
             codes=parts["codes"], scales=scales, fmt=meta["fmt"],
             shape=tuple(meta["shape"]), group_size=meta["group_size"])
@@ -92,6 +102,8 @@ def _is_quant_leaf(x) -> bool:
 
 
 def _tensor(arr, device) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.contiguous().to(device)
     return torch.from_numpy(np.array(arr, order="C")).to(device)
 
 
@@ -111,14 +123,19 @@ def to_torch(tree, device="cuda"):
         if _is_quant_leaf(node):
             meta = (node.fmt, tuple(node.shape), int(node.group_size))
             codes = np.asarray(node.codes)
-            scales = np.asarray(node.scales, np.float32)
+            scales = node.scales            # float32, or kept bfloat16
+            if not isinstance(scales, torch.Tensor):
+                scales = np.asarray(scales, np.float32)
+            scales = _tensor(scales, device)
             if hasattr(node, "nibble_packed"):
                 return PackedTensor(
                     _tensor(codes, device),
-                    _tensor(np.swapaxes(scales, -1, -2), device),
-                    *meta, bool(node.nibble_packed))
+                    scales.transpose(-1, -2).contiguous(), *meta,
+                    bool(node.nibble_packed))
             return IntPack(_tensor(np.swapaxes(codes, -1, -2), device),
-                           _tensor(scales, device), *meta)
+                           scales, *meta)
+        if isinstance(node, torch.Tensor):
+            return _tensor(node, device)
         arr = np.asarray(node)
         if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
             arr = (arr.view(np.uint16).astype(np.uint32) << 16).view(

@@ -37,6 +37,12 @@ transform (``transform_blocks_traced``) on the card against the CPU's:
 rotated weights within ``test_torch_transform``'s bound of two float32
 sums, and the quantize stage bit-equal given the same rotated weights.
 
+The offline pipeline: one GALT step and the format search's nine fp4
+pair losses at width 256, card against CPU (the GALT step within twice
+the CPU's own response to a one-ulp change of its input); a bf16 tree
+through ``save_params`` / ``load_params`` on the card keeps its bf16
+leaves; a VAR-d16 fc1 ``IntPack`` round trip stays ``torch.equal``.
+
 The tests are marked ``cuda`` and skip without a CUDA device.  The file
 imports no JAX, so it also runs where JAX is not installed:
 
@@ -723,3 +729,89 @@ def test_cuda_mixed_precision_train_step_matches_cpu(cuda_device):
     for a, b, f in zip(card, cpu, cpu_f32):
         noise = float((b - f).norm())
         assert float((a - b).norm()) <= 3 * noise + 1e-3 * float(b.norm())
+
+
+def _galt_inputs(width=256, rows=(2, 8, 18)):
+    """Width-256 activations of three scale steps and an fc1 weight."""
+    rng = np.random.default_rng(21)
+    acts = [rng.standard_normal((r, width)).astype(np.float32) for r in rows]
+    w = (rng.standard_normal((4 * width, width)) * 0.02).astype(np.float32)
+    return acts, w
+
+
+@pytest.mark.cuda
+def test_cuda_galt_step_matches_cpu(cuda_device):
+    """One GALT epoch of one step (``train_galt_block``) on the card
+    against the CPU: the loss before the update and ``s`` after it within
+    the larger of 1e-6 (relative, and absolute in ``s``: Adam's first step
+    moves each channel by ``lr g / (|g| + eps)``) and twice the CPU's own
+    response to a one-ulp change of the activations (a code at a near-tie
+    flips on one device only)."""
+    from fpqvar_tpu_torch.quantize import galt as G
+
+    acts, w = _galt_inputs()
+    card_s, card_l = G.train_galt_block(acts[:1], w, epochs=1,
+                                        device=cuda_device)
+    cpu_s, cpu_l = G.train_galt_block(acts[:1], w, epochs=1, device="cpu")
+    ulp_s, ulp_l = G.train_galt_block(
+        [acts[0] * np.float32(1 + 2.0 ** -23)], w, epochs=1, device="cpu")
+    s_tol = max(1e-6, 2 * float(np.abs(ulp_s - cpu_s).max()))
+    l_tol = max(1e-6, 2 * abs(ulp_l - cpu_l) / cpu_l)
+    assert float(np.abs(card_s - cpu_s).max()) <= s_tol
+    assert abs(card_l - cpu_l) <= l_tol * cpu_l
+
+
+@pytest.mark.cuda
+def test_cuda_pair_loss_matches_cpu(cuda_device):
+    """The search's loss of all nine fp4 pairs at width 256, card against
+    CPU, within a relative 1e-4 (IEEE float32 on both; sums in another
+    order)."""
+    from fpqvar_tpu_torch.quantize import search as S
+
+    acts, w = _galt_inputs()
+    x = np.concatenate(acts)
+    for wf in S.FP4_SPACE.values():
+        for af in S.FP4_SPACE.values():
+            card = S._pair_loss(torch.from_numpy(x).to(cuda_device),
+                                torch.from_numpy(w).to(cuda_device), wf, af,
+                                128)
+            cpu = S._pair_loss(torch.from_numpy(x), torch.from_numpy(w), wf,
+                               af, 128)
+            assert abs(card - cpu) <= 1e-4 * cpu, (wf, af)
+
+
+@pytest.mark.cuda
+def test_cuda_load_params_keeps_bf16(cuda_device, tmp_path):
+    """A bf16 tree saved from the card loads on the card with its bf16
+    leaves bf16 and ``torch.equal``."""
+    from fpqvar_tpu_torch.utils import checkpoint as C
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    tree = {"w": torch.randn((64, 128), generator=gen,
+                             device=cuda_device).to(torch.bfloat16),
+            "b": [torch.randn((7,), generator=gen, device=cuda_device)]}
+    C.save_params(str(tmp_path / "t.npz"), tree)
+    back = C.load_params(str(tmp_path / "t.npz"), cuda_device)
+    assert back["w"].dtype == torch.bfloat16 and back["w"].is_cuda
+    assert torch.equal(back["w"], tree["w"])
+    assert back["b"][0].dtype == torch.float32
+    assert torch.equal(back["b"][0], tree["b"][0])
+
+
+@pytest.mark.cuda
+def test_cuda_d16_intpack_save_load_equal(cuda_device, tmp_path):
+    """A VAR-d16 fc1 IntPack (``[16, 4096, 1024]``, packed on the card)
+    through ``save_params`` / ``load_params`` stays ``torch.equal``."""
+    from fpqvar_tpu_torch.utils import checkpoint as C
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    w = torch.randn((16, 4096, 1024), generator=gen, device=cuda_device)
+    pack = P.pack_int_codes(w * 0.02, "fp_e2")
+    C.save_params(str(tmp_path / "p.npz"), {"fc1_w": pack})
+    back = C.load_params(str(tmp_path / "p.npz"), cuda_device)["fc1_w"]
+    assert isinstance(back, P.IntPack)
+    assert (back.fmt, back.shape, back.group_size) == (
+        pack.fmt, pack.shape, pack.group_size)
+    assert back.codes.is_cuda and back.codes.shape == (16, 4096, 1024)
+    assert torch.equal(back.codes, pack.codes)
+    assert torch.equal(back.scales, pack.scales)

@@ -48,6 +48,7 @@ from fpqvar_tpu_torch.ops import quantizers as Q
 from fpqvar_tpu_torch.quantize import build_runtime, quantize_var_params
 from fpqvar_tpu_torch.utils.bridge import to_torch
 from test_torch_quant import _act, _bits
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 DTYPES = {"float32": (torch.float32, jnp.float32),

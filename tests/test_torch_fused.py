@@ -46,6 +46,7 @@ from fpqvar_tpu_torch.serving import GenerationServer
 from fpqvar_tpu_torch.utils.bridge import to_torch
 from test_torch_generate import LABELS, _jax_decode, _jax_params, _jax_vae
 from test_torch_serving import TINY
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = var_tiny()
 

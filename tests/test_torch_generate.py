@@ -64,6 +64,7 @@ from fpqvar_tpu_torch.ops.packing import IntPack, PackedTensor
 from fpqvar_tpu_torch.quantize import quantize_var_params
 from fpqvar_tpu_torch.utils.bridge import to_torch
 from test_torch_vqvae import _params as vqvae_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 LABELS = np.array([3, 5, 998])
 #: the sampler's logits bound by recipe (module docstring)

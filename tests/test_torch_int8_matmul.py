@@ -30,6 +30,7 @@ from fpqvar_tpu.ops.pallas import int8_matmul as JK
 
 from fpqvar_tpu_torch.ops import int8_matmul as K
 from fpqvar_tpu_torch.ops import packing as P
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _operands(seed, m, k, n):

@@ -28,6 +28,7 @@ from fpqvar_tpu_torch.config import bench_recipes
 from fpqvar_tpu_torch.ops import int8_matmul as K
 from fpqvar_tpu_torch.ops import packing as P
 from fpqvar_tpu_torch.quantize.runtime import build_runtime
+from torch_threads import one_torch_thread  # noqa: F401
 
 FORMATS = ["fp_e2", "fp_e3", "fp_e1", "fp6_e2m3"]
 DTYPES = {"float32": (torch.float32, jnp.float32),

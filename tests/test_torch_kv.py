@@ -46,6 +46,7 @@ from fpqvar_tpu_torch.ops import grids as G
 from fpqvar_tpu_torch.quantize import build_runtime
 from fpqvar_tpu_torch.quantize.runtime import make_kv_codec
 from fpqvar_tpu_torch.utils.bridge import to_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rows(seed, shape):

@@ -36,6 +36,7 @@ from fpqvar_tpu_torch.ops import quant_matmul as QM
 from fpqvar_tpu_torch.ops import quantizers as Q
 from fpqvar_tpu_torch.ops._checks import bf16_gap
 from test_torch_quant import _act, _bits
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}

@@ -50,6 +50,7 @@ from fpqvar_tpu_torch.quantize import quantize_var_params
 from fpqvar_tpu_torch.utils.bridge import to_torch
 from test_torch_generate import LABELS, _jax_decode, _jax_vae
 from test_torch_quant import _bits
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: the sampler's logits bound by case (module docstring)
 LOGITS_ATOL = {"int4_rtn_log2": 5e-3}

@@ -29,6 +29,7 @@ from fpqvar_tpu.utils import jit_cache
 
 from fpqvar_tpu_torch.ops import probe_gemm as PG
 from fpqvar_tpu_torch.tools import int8_rate_probe as probe_tool
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 WITNESS = 2 ** 24 + 2 ** 16 + 1

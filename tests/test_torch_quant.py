@@ -38,6 +38,7 @@ from fpqvar_tpu_torch.ops import packing as P
 from fpqvar_tpu_torch.ops.quantizers import snap_to_grid
 from fpqvar_tpu_torch.quantize import quantize_var_params
 from fpqvar_tpu_torch.utils.bridge import to_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -208,7 +209,13 @@ def test_port_import_leaves_jax_unloaded():
             "fpqvar_tpu_torch.ops.int8_matmul, "
             "fpqvar_tpu_torch.ops.quant_matmul, fpqvar_tpu_torch.utils.bridge, "
             "fpqvar_tpu_torch.train, fpqvar_tpu_torch.tools.train, "
-            "fpqvar_tpu_torch.utils.logging; "
+            "fpqvar_tpu_torch.utils.logging, fpqvar_tpu_torch.utils.checkpoint, "
+            "fpqvar_tpu_torch.quantize.calibration, "
+            "fpqvar_tpu_torch.quantize.search, fpqvar_tpu_torch.quantize.galt, "
+            "fpqvar_tpu_torch.tools.convert_checkpoint, "
+            "fpqvar_tpu_torch.tools.calibrate, "
+            "fpqvar_tpu_torch.tools.search_formats, "
+            "fpqvar_tpu_torch.tools.train_galt; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'fpqvar_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -42,6 +42,7 @@ from fpqvar_tpu_torch.serving import GenerationServer, row_seed
 from fpqvar_tpu_torch.tools import serving_bench
 from fpqvar_tpu_torch.utils.bridge import to_torch
 from test_torch_generate import _jax_params, _jax_vae, _recipe
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = VARConfig(
     depth=2, embed_dim=128, num_heads=2, patch_nums=(1, 2), num_classes=8,

@@ -59,6 +59,7 @@ from fpqvar_tpu_torch.quantize.runtime import build_runtime
 from fpqvar_tpu_torch.utils.bridge import to_torch
 from test_torch_vqvae import CONFIGS as VQ_CONFIGS
 from test_torch_vqvae import _params as vqvae_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: sha256 of the decoder, quantizer and post-quant conv leaves that
 #: ``init_vqvae_params(var_tiny().vae, seed, "cpu")`` drew before the

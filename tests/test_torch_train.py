@@ -61,6 +61,7 @@ from fpqvar_tpu_torch.train import trainer as T
 from fpqvar_tpu_torch.utils.bridge import to_torch
 from fpqvar_tpu_torch.utils.logging import (MetricLogger, SmoothedValue,
                                             Timer, profile_trace)
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = var_tiny()
 

@@ -41,6 +41,7 @@ from fpqvar_tpu_torch.ops import hadamard as H
 from fpqvar_tpu_torch.ops.packing import IntPack, PackedTensor
 from fpqvar_tpu_torch.quantize import recipe as R
 from fpqvar_tpu_torch.utils.bridge import to_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 U = 2.0 ** -24
 

@@ -37,6 +37,7 @@ from fpqvar_tpu_torch.models import var as V
 from fpqvar_tpu_torch.ops.packing import IntPack, PackedTensor
 from fpqvar_tpu_torch.quantize import build_runtime, quantize_var_params
 from fpqvar_tpu_torch.utils.bridge import to_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _logits(seed, rows=3, vocab=4096):

@@ -22,6 +22,7 @@ from fpqvar_tpu_torch.config import PATCH_NUMS_256, VQVAEConfig, var_tiny
 from fpqvar_tpu_torch.models import vqvae as vq
 from fpqvar_tpu_torch.ops import resize as R
 from fpqvar_tpu_torch.utils.bridge import to_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 _WIDE = dict(vocab_size=64, z_channels=8, ch=32, ch_mult=(1, 2, 2),
              num_res_blocks=2, patch_nums=(1, 2, 4))
