@@ -114,7 +114,7 @@ non-zero:
    ``capture_generation`` of 1 label and a 640-file ``CalibrationStore``,
    ``capture_condition`` of 100 labels; (c) ``search_formats`` for fc1
    and ``search_ada_formats`` (JAX's JSON schema, finite losses >= 0); (d)
-   ``train_galt`` for mat_qkv and fc1, 16 blocks, 50 epochs (every block's
+   ``train_galt`` for mat_qkv and fc1, 16 blocks, 10 epochs (every block's
    best loss at most its loss at s = 1; seconds and ms a step); (e) bf16
    cast, ``quantize_var_params`` under ``int8`` with (d)'s vectors,
    ``save_params`` / ``load_params`` (the tree equal, bf16 leaves bf16),
@@ -123,9 +123,29 @@ non-zero:
    ``fake`` generation under (c)'s mixed activation formats; (f) at width
    256, card against CPU: capture tokens and taps, the search's pair
    losses and choice, two GALT epochs within twice the CPU's own one-ulp
-   response.
+   response;
+14. evaluation, at VAR-d16 full width and depth in a temporary directory
+   removed at its end: (a) ``generate_eval_set`` with an eager ``int8``
+   generator on the ``evaluate`` CLI's W4A4 trees (classes 0-1, 8 images
+   each, batch 8; GALT vectors of ones in the reference's ``.pt`` format)
+   with exactly K1 640 + K5 960 launches, 16 PNGs, their npz, and PNG
+   resume (a complete set runs nothing; a deleted PNG runs exactly one
+   generation and comes back byte-equal); (b) the ``evaluate`` CLI, fused,
+   in a subprocess (whose PNGs must be byte-equal to (a)'s), then one class
+   at the protocol's default of 50 images at batch 50 (ms an image, peak
+   memory and the graph pool's bytes, each within a bound that cuDNN's
+   workspace would break) and an eager ``packed`` class with exactly K2
+   640; (c) Inception on the card against
+   the CPU at 256 and 512 px within a derived bound, features a second at
+   batch 64, the ``score`` CLI in a subprocess (PyTorch's default TF32
+   flags) saving features ``torch.equal`` to this process's, and
+   ``evaluate_all`` of 256 features against themselves (precision = recall
+   = 1) and against uniform noise (a larger FID); (d) ``ManifoldEstimator``
+   on 10,000 x 2,048 features with its seconds, and a 500-row subset
+   against float64 within the counted near-tie pairs; (e) a short
+   ``tools/quality_ladder.py`` run (finite FIDs and ISs, JAX's JSON keys).
 
-The phases run in the order 1-6, 10, 7-9, 11, 12, 13.  Phases 4-6 and the
+The phases run in the order 1-6, 10, 7-9, 11, 12, 13, 14.  Phases 4-6 and the
 launch gates of phases 7 and 9 run the eager loop (``fuse_steps=False``),
 whose every launch the wrappers' host counters see.
 
@@ -185,6 +205,8 @@ TF_SHAPES = (("qkv", 5440, 1024, 3072), ("proj", 5440, 1024, 1024),
 #: blocks, as a generation's scale step launches them, once)
 TF_LAUNCHES = {"bf16": {}, "int8": {"K5": 48, "K1": 32},
                "packed": {"K2": 64}, "int8ch": {"K4": 48, "K3": 32}}
+#: GALT epochs a kind in phase 13 (d) (the CLI's default is 50)
+OFFLINE_GALT_EPOCHS = 10
 #: the int8 rate probe's default shapes: (name, M, K, N)
 PROBE_SHAPES = (("probe-1920", 4096, 1920, 5760),
                 ("probe-4096", 4096, 4096, 4096))
@@ -979,8 +1001,10 @@ def phase_profile(mode: str, run, card: str, launches: dict,
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the busy time, the kernel counts and the idle
+    # share need no host-op trace, whose events (several a kernel) would
+    # slow both the traced host and the trace's processing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2327,13 +2351,15 @@ def _offline_search(cfg, var_p, store, cond, tmp: str, card: str):
 
 
 def _offline_galt(cfg, var_p, store, card: str):
-    """(d) ``train_galt`` for mat_qkv and fc1, 16 blocks, 50 epochs,
+    """(d) ``train_galt`` for mat_qkv and fc1, 16 blocks,
+    ``OFFLINE_GALT_EPOCHS`` epochs (the JAX CLI's 50 cut to fit the
+    script's time limit: every epoch runs the same host-bound steps),
     ``max_samples_per_step`` 256: every block's best loss at most its loss
     at s = 1 (the mean over its steps, read by wrapping
     ``train_galt_block``).  Returns (s_qkv, s_fc1)."""
     from fpqvar_tpu_torch.ops.hadamard import block_hadamard_block
     from fpqvar_tpu_torch.quantize import galt as G
-    from fpqvar_tpu_torch.quantize.recipe import ieee_f32
+    from fpqvar_tpu_torch.ops.precision import ieee_f32
 
     block_fn = G.train_galt_block
     q_block = torch.as_tensor(block_hadamard_block(128, 42),
@@ -2361,10 +2387,11 @@ def _offline_galt(cfg, var_p, store, card: str):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             s = G.train_galt(store, var_p["blocks"][f"{kind}_w"], kind,
-                             epochs=50, max_samples_per_step=256,
+                             epochs=OFFLINE_GALT_EPOCHS,
+                             max_samples_per_step=256,
                              device="cuda")
             secs = time.perf_counter() - t0
-            steps = cfg.depth * 50 * cfg.num_scales
+            steps = cfg.depth * OFFLINE_GALT_EPOCHS * cfg.num_scales
             if s.shape != (cfg.depth, cfg.width) or not np.isfinite(s).all():
                 fail(f"offline: train_galt {kind}: s {s.shape}")
             worse = [i for i, (best, base, _) in enumerate(seen)
@@ -2373,7 +2400,8 @@ def _offline_galt(cfg, var_p, store, card: str):
                 fail(f"offline: train_galt {kind}: blocks {worse} end above "
                      f"their loss at s = 1: {seen}")
             gain = [best / base for best, base, _ in seen]
-            print(f"offline: (d) train_galt {kind}, {cfg.depth} blocks x 50 "
+            print(f"offline: (d) train_galt {kind}, {cfg.depth} blocks x "
+                  f"{OFFLINE_GALT_EPOCHS} "
                   f"epochs x {cfg.num_scales} steps (rows a step "
                   f"{seen[0][2]}): {secs:.2f} s, {secs / steps * 1e3:.3f} ms "
                   f"a step; best loss / loss at s = 1 per block "
@@ -2587,6 +2615,394 @@ def phase_offline(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: evaluation
+# ---------------------------------------------------------------------------
+
+#: the evaluate CLI's W4A4 flags (its docstring's recipe) on the int8
+#: backend at VAR-d16
+EVAL_FLAGS = ["--depth", "16", "--quant", "--w_bit", "4", "--a_bit", "4",
+              "--weight_quant", "per_group", "--act_quant", "per_group",
+              "--activation_fp_quant", "--weight_fp_quant", "--act_fp_type",
+              "fp_e2", "--weight_fp_type", "fp_e2", "--fc2_fp_type",
+              "fp_e1m2_neg_e2m1_pos", "--rotate", "--block_rotate",
+              "--transform"]
+#: the top-level keys of the JAX ladder's JSON (scripts/quality_ladder.py)
+LADDER_KEYS = ["config", "outlier_hot_cold_ratio_after_training", "note",
+               "fid_noise_floor_same_set_split",
+               "fid_generation_floor_bf16_cross",
+               "fid_noise_control_uniform_images", "results", "wall_s"]
+#: card against CPU Inception features (tests/test_torch_cuda.py): ~94
+#: layers of up to 2048 * 9 float32 products each, sqrt(K) u ~ 8e-6 a
+#: layer compounding to ~1e-4 of the largest feature; probs within 1e-5
+INCEPTION_REL, PROBS_ATOL = 1e-4, 1e-5
+#: bounds on the batch-50 evaluate class's peak allocation and graph pool:
+#: 1.5x the 11.98 / 21.13 GB of the plain-route decode (PERF.md, PR 14);
+#: cuDNN's workspace in the decode took them to 39.63 / 50.35 GB
+EVAL_B50_PEAK_GB, EVAL_B50_POOL_GB = 18, 32
+U32 = 2.0 ** -24
+
+
+def _cli(module: str, args, what: str) -> str:
+    cmd = [sys.executable, "-m", f"fpqvar_tpu_torch.tools.{module}", *args]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                         cwd=Path(__file__).resolve().parent)
+    if res.returncode != 0:
+        fail(f"evaluation: {what}: {module} exited {res.returncode}: "
+             f"{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def _png_bytes(folder: str) -> dict:
+    return {n: Path(folder, n).read_bytes() for n in sorted(os.listdir(folder))
+            if n.endswith(".png")}
+
+
+def _eval_trees(tmp: str, backend: str):
+    """The evaluate CLI's configs and trees for EVAL_FLAGS on ``backend``
+    (its own functions), with GALT vectors of ones in ``tmp/best_s`` in
+    the reference's ``.pt`` format."""
+    from fpqvar_tpu_torch.tools import evaluate
+
+    best = os.path.join(tmp, "best_s")
+    if not os.path.isdir(best):
+        os.makedirs(best)
+        for kind in ("mat_qkv", "fc1"):
+            torch.save([torch.ones(1024) for _ in range(16)],
+                       os.path.join(best, f"{kind}_best_s_fp4.pt"))
+    flags = EVAL_FLAGS + ["--backend", backend, "--best-s-dir", best,
+                         "--out", os.path.join(tmp, "unused")]
+    args = evaluate.parse_args(flags)
+    cfg, qcfg, gen = evaluate.build_configs(args)
+    var_p, vae_p = evaluate.load_trees(args, cfg, qcfg)
+    return flags[:-2], cfg, qcfg, gen, var_p, vae_p
+
+
+def _eval_eager_set(tmp: str, card: str):
+    """(a) The eager int8 eval set: classes 0 and 1, 8 images each at
+    batch 8, with the counts set to 0 just before and read just after: K1
+    640 + K5 960; 16 PNGs and their npz; resume runs nothing, and a
+    deleted PNG of class 1 runs exactly one more generation that rewrites
+    it byte for byte."""
+    from fpqvar_tpu_torch.eval.imaging import create_npz_from_sample_folder
+    from fpqvar_tpu_torch.eval.pipeline import generate_eval_set
+    from fpqvar_tpu_torch.models import VARGenerator
+
+    flags, cfg, qcfg, gen_cfg, var_p, vae_p = _eval_trees(tmp, "int8")
+    out = os.path.join(tmp, "eager")
+    gen = VARGenerator(cfg, qcfg, gen_cfg, fuse_steps=False)
+    blocks = cfg.depth * cfg.num_scales
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    runs = generate_eval_set(gen, var_p, vae_p, out, num_img_per_class=8,
+                             classes=range(2), batch=8)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: 0 for k in COUNTERS}
+    want.update(K1=2 * 2 * blocks, K5=2 * 3 * blocks)
+    if runs != 2 or counts != want:
+        fail(f"evaluation: (a) eager int8 eval set: {runs} generations, "
+             f"launches {counts}, expected 2 and {want}")
+    pngs = _png_bytes(out)
+    if sorted(pngs) != sorted(f"class{c}_img{j}.png" for c in range(2)
+                              for j in range(8)):
+        fail(f"evaluation: (a) PNGs {sorted(pngs)}")
+    npz = create_npz_from_sample_folder(out, expected=16)
+    with np.load(npz) as d:
+        arr = d["arr_0"]
+    if arr.shape != (16, 256, 256, 3) or arr.dtype != np.uint8:
+        fail(f"evaluation: (a) npz {arr.shape} {arr.dtype}")
+    os.remove(npz)
+    reset_counts()
+    again = generate_eval_set(gen, var_p, vae_p, out, 8, range(2), batch=8)
+    if again != 0 or any(read_counts().values()):
+        fail(f"evaluation: (a) resume of a complete set ran {again} "
+             f"generations, launches {read_counts()}")
+    victim = os.path.join(out, "class1_img5.png")
+    os.remove(victim)
+    reset_counts()
+    again = generate_eval_set(gen, var_p, vae_p, out, 8, range(2), batch=8)
+    torch.cuda.synchronize()
+    redo = read_counts()
+    if (again != 1 or redo != {**want, "K1": 2 * blocks, "K5": 3 * blocks}
+            or Path(victim).read_bytes() != pngs["class1_img5.png"]):
+        fail(f"evaluation: (a) resume after deleting a PNG ran {again} "
+             f"generations, launches {redo}; rewritten PNG equal "
+             f"{Path(victim).read_bytes() == pngs['class1_img5.png']}")
+    print(f"evaluation: (a) eager int8 eval set, VAR-d16, classes 0-1 x 8 "
+          f"images at batch 8: {secs:.2f} s ({secs * 1e3 / 16:.1f} ms an "
+          f"image, PNG writing included); launches K1 {counts['K1']} + K5 "
+          f"{counts['K5']} (exact); 16 PNGs, npz [16, 256, 256, 3] uint8; "
+          f"resume ran nothing, and after a PNG of class 1 was deleted "
+          f"exactly one generation (K1 {redo['K1']} + K5 {redo['K5']}) "
+          f"rewrote it byte for byte; on {card}")
+    del gen, var_p
+    torch.cuda.empty_cache()
+    return counts, flags, out, arr
+
+
+def _eval_cli_and_packed(tmp: str, flags, eager_out: str, card: str):
+    """(b) The evaluate CLI, fused, in a subprocess on (a)'s trees: its
+    PNGs byte-equal to (a)'s; one class at the protocol's default (50
+    images at batch 50) with ms an image, peak memory and the graph pool's
+    bytes, each within its bound; then an eager packed generator for one
+    class of 8 with the counts set to 0 just before and read just after:
+    K2 640."""
+    from fpqvar_tpu_torch.eval.pipeline import generate_eval_set
+    from fpqvar_tpu_torch.models import VARGenerator
+
+    torch.cuda.empty_cache()
+    fused_out = os.path.join(tmp, "fused")
+    t0 = time.perf_counter()
+    out = _cli("evaluate", flags + ["--backend", "int8", "--out", fused_out,
+                                    "--classes", "0:2",
+                                    "--num-img-per-class", "8",
+                                    "--batch", "8"], "fused eval set")
+    secs = time.perf_counter() - t0
+    if _png_bytes(fused_out) != _png_bytes(eager_out):
+        fail("evaluation: (b) the fused CLI's PNGs differ from the eager "
+             "eval set's")
+    line8 = json.loads(out.split("evaluate: ", 1)[1].splitlines()[0])
+    print(f"evaluation: (b) evaluate CLI (fused, subprocess, {secs:.1f} s "
+          f"with the process start and the d16 quantize): 16 PNGs "
+          f"byte-equal to (a)'s; {json.dumps(line8)}; on {card}")
+    big = os.path.join(tmp, "batch50")
+    t0 = time.perf_counter()
+    out = _cli("evaluate", flags + ["--backend", "int8", "--out", big,
+                                    "--classes", "0:1"], "batch-50 class")
+    secs = time.perf_counter() - t0
+    line = json.loads(out.split("evaluate: ", 1)[1].splitlines()[0])
+    if len(_png_bytes(big)) != 50:
+        fail(f"evaluation: (b) batch-50 class wrote {len(_png_bytes(big))} "
+             "PNGs")
+    steady = (line["seconds"] - line["warmup_s"] - line["capture_s"]) / 50
+    if (line["peak_bytes"] > EVAL_B50_PEAK_GB * 1e9
+            or line["pool_bytes"] > EVAL_B50_POOL_GB * 1e9):
+        fail(f"evaluation: (b) batch-50 class: peak allocated "
+             f"{line['peak_bytes']} bytes, graph pool {line['pool_bytes']} "
+             f"bytes, above the bounds of {EVAL_B50_PEAK_GB} / "
+             f"{EVAL_B50_POOL_GB} GB (cuDNN workspace back in the decode?)")
+    print(f"evaluation: (b) evaluate CLI at the protocol's default (one "
+          f"class, 50 images, batch 50, fused int8): {secs:.1f} s in all; "
+          f"{line['seconds']:.2f} s generating ({line['ms_per_image']:.1f} ms "
+          f"an image with the warm-up and capture; {steady * 1e3:.1f} ms an "
+          f"image without them), warm-up {line['warmup_s']:.2f} s, capture "
+          f"{line['capture_s']:.2f} s, peak allocated {line['peak_bytes']} "
+          f"bytes ({line['peak_bytes'] / 1e9:.2f} GB), graph pool "
+          f"{line['pool_bytes']} bytes ({line['pool_bytes'] / 1e9:.2f} GB; "
+          f"bounds {EVAL_B50_PEAK_GB} / {EVAL_B50_POOL_GB} GB) of the "
+          f"card's {torch.cuda.get_device_properties(0).total_memory} "
+          f"bytes; on {card}")
+    pflags, cfg, qcfg, gen_cfg, var_p, vae_p = _eval_trees(tmp, "packed")
+    gen = VARGenerator(cfg, qcfg, gen_cfg, fuse_steps=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    runs = generate_eval_set(gen, var_p, vae_p, os.path.join(tmp, "packed"),
+                             8, range(1), batch=8)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: 0 for k in COUNTERS}
+    want["K2"] = 4 * cfg.depth * cfg.num_scales
+    if runs != 1 or counts != want:
+        fail(f"evaluation: (b) eager packed eval set: {runs} generations, "
+             f"launches {counts}, expected 1 and {want}")
+    print(f"evaluation: (b) eager packed eval set, one class of 8: launches "
+          f"K2 {counts['K2']} (exact); on {card}")
+    del gen, var_p, vae_p
+    torch.cuda.empty_cache()
+    return counts, line
+
+
+def _eval_inception(tmp: str, eager_out: str, arr, card: str):
+    """(c) Inception on the card against the CPU (4 of (a)'s images, 256 ->
+    299, and 2 random 512 px images), features a second at batch 64 (256
+    distinct images: (a)'s shifted by 0..15 columns), the
+    score CLI's saved features ``torch.equal`` to the in-process ones (a
+    fresh process keeps TF32 off), and ``evaluate_all`` of 256 features
+    against themselves (precision = recall = 1) and against uniform
+    noise (a larger FID)."""
+    from fpqvar_tpu_torch.eval import inception as I
+    from fpqvar_tpu_torch.eval.metrics import evaluate_all
+
+    card_p = I.init_inception_params(0, "cuda")
+    cpu_p = I.init_inception_params(0, "cpu")
+    imgs = torch.from_numpy(arr[:4].transpose(0, 3, 1, 2).copy())
+    rng = np.random.default_rng(14)
+    big = torch.from_numpy(rng.uniform(size=(2, 3, 512, 512))
+                           .astype(np.float32))
+    worst = {}
+    for hw, x in ((256, imgs.float() / 255.0), (512, big)):
+        cpu = I.inception_features(cpu_p, x)
+        got = I.inception_features(card_p, x.cuda())
+        for name, c, g in zip(("pool3", "spatial", "probs"), cpu, got):
+            err = float((g.cpu() - c).abs().max())
+            tol = (PROBS_ATOL if name == "probs"
+                   else INCEPTION_REL * float(c.abs().max()))
+            if not err <= tol:
+                fail(f"evaluation: (c) Inception {name} at {hw} px: card "
+                     f"vs CPU {err} > {tol}")
+            worst[f"{name}@{hw}"] = (err, tol)
+    del cpu_p
+    # 256 distinct images: (a)'s 16, each shifted by 0..15 columns
+    nhwc = np.concatenate([np.roll(arr, r, axis=2) for r in range(16)])
+    nchw = nhwc.transpose(0, 3, 1, 2)
+    I.extract_features_batched(card_p, nchw[:64])          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = I.extract_features_batched(card_p, nchw, batch=64)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"evaluation: (c) Inception card vs CPU (max err / bound): "
+          + ", ".join(f"{k} {e:.3g} / {t:.3g}" for k, (e, t) in worst.items())
+          + f"; features of 256 images (256 -> 299 px) at batch 64 in "
+          f"{secs:.3f} s = {256 / secs:.1f} images/s, so 50k features take "
+          f"{50000 / (256 / secs):.0f} s; on {card}")
+    ref_npz = os.path.join(tmp, "ref.npz")
+    np.savez(ref_npz, arr_0=arr[::-1].copy())
+    saved = os.path.join(tmp, "sample_features.npz")
+    t0 = time.perf_counter()
+    _cli("score", [ref_npz, eager_out, "--inception", "random",
+                   "--save-features", saved, "--json-out",
+                   os.path.join(tmp, "score.json")], "score")
+    secs = time.perf_counter() - t0
+    want = I.extract_features_batched(card_p, arr.transpose(0, 3, 1, 2))
+    with np.load(saved) as d:
+        for k, w in zip(("features", "spatial", "probs"), want):
+            if not torch.equal(torch.from_numpy(d[k]), torch.from_numpy(w)):
+                fail(f"evaluation: (c) the score CLI's {k} differ from the "
+                     "in-process features")
+    with open(os.path.join(tmp, "score.json")) as f:
+        scores = json.load(f)
+    print(f"evaluation: (c) score CLI (subprocess, --inception random, "
+          f"{secs:.1f} s): saved features, spatial and probs torch.equal to "
+          f"the in-process ones; {json.dumps(scores)}; on {card}")
+    t0 = time.perf_counter()
+    same = evaluate_all(feats[0], feats[0], sample_probs=feats[2])
+    t_same = time.perf_counter() - t0
+    if same["precision"] != 1.0 or same["recall"] != 1.0:
+        fail(f"evaluation: (c) features against themselves: {same}")
+    noise = rng.uniform(size=(256, 3, 256, 256)).astype(np.float32)
+    nf = I.extract_features_batched(card_p, noise, batch=64)
+    far = evaluate_all(feats[0], nf[0])
+    if not far["fid"] > same["fid"]:
+        fail(f"evaluation: (c) FID against noise {far['fid']} not above the "
+             f"self FID {same['fid']}")
+    print(f"evaluation: (c) evaluate_all of 256 features against themselves "
+          f"({t_same:.1f} s): {json.dumps(same)}; against 256 uniform-noise "
+          f"images: {json.dumps(far)}; on {card}")
+
+
+def _eval_manifold(card: str):
+    """(d) The manifold estimator on 10,000 x 2,048 random float32 features
+    on the card (seconds printed); on a 500-row subset, precision and
+    recall against a float64 numpy evaluation within the pairs that lie
+    within a float32 bound of a radius."""
+    from fpqvar_tpu_torch.eval.metrics import ManifoldEstimator
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    ref = torch.randn((10000, 2048), generator=gen, device="cuda")
+    sam = torch.randn((10000, 2048), generator=gen, device="cuda") * 1.05
+    est = ManifoldEstimator()
+    est.manifold_radii(ref[:1000])                          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_ref, r_sam = est.manifold_radii(ref), est.manifold_radii(sam)
+    prec, rec = est.evaluate_pr(ref, r_ref, sam, r_sam)
+    secs = time.perf_counter() - t0
+    a, b = ref[:500].double().cpu().numpy(), sam[:500].double().cpu().numpy()
+    sr, ss = est.manifold_radii(ref[:500]), est.manifold_radii(sam[:500])
+    p32, r32 = est.evaluate_pr(ref[:500], sr, sam[:500], ss)
+
+    def d2(x, y):       # float64: exact enough to decide the float32 ties
+        return ((x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+                - 2.0 * x @ y.T)
+
+    dab = d2(a, b)
+    rad_a = np.partition(d2(a, a), 3, axis=1)[:, 3]
+    rad_b = np.partition(d2(b, b), 3, axis=1)[:, 3]
+    p64 = float((dab <= rad_a[:, None]).any(0).mean())
+    r64 = float((dab <= rad_b[None, :]).any(1).mean())
+    na, nb = np.linalg.norm(a, axis=1), np.linalg.norm(b, axis=1)
+    # the float32 error of |a|^2 + |b|^2 - 2ab over D = 2048 terms, D u
+    # (|a| + |b|)^2, for the pair and for the radius's own pair
+    top = max(na.max(), nb.max())
+    bound = 2048 * U32 * ((na[:, None] + nb[None, :]) ** 2 + 4 * top ** 2)
+    tie_p = int((np.abs(dab - rad_a[:, None]) <= bound).any(0).sum())
+    tie_r = int((np.abs(dab - rad_b[None, :]) <= bound).any(1).sum())
+    if abs(p32 - p64) * 500 > tie_p or abs(r32 - r64) * 500 > tie_r:
+        fail(f"evaluation: (d) 500-row precision / recall {p32} / {r32} "
+             f"against float64 {p64} / {r64}, near-ties {tie_p} / {tie_r}")
+    print(f"evaluation: (d) ManifoldEstimator on 10,000 x 2,048 float32 "
+          f"features: radii of both sets and precision / recall in "
+          f"{secs:.2f} s (precision {prec:.4f}, recall {rec:.4f}); 500-row "
+          f"subset {p32:.4f} / {r32:.4f} against float64 {p64:.4f} / "
+          f"{r64:.4f} (near-tie pairs {tie_p} / {tie_r}); on {card}")
+
+
+def _eval_ladder(tmp: str, card: str):
+    """(e) The quality ladder, short: 50 steps, 128 eval images, one GALT
+    epoch, three stages: finite FIDs and ISs, JAX's JSON keys."""
+    from fpqvar_tpu_torch.tools import quality_ladder
+
+    path = os.path.join(tmp, "ladder.json")
+    out = quality_ladder.main(["--steps", "50", "--eval-n", "128",
+                               "--galt-epochs", "1", "--stages",
+                               "bf16,fp4_full,int4_rtn", "--out", path])
+    with open(path) as f:
+        doc = json.load(f)
+    vals = [v for r in out["results"].values() for v in r.values()]
+    if (list(doc) != LADDER_KEYS or list(out["results"]) != [
+            "bf16", "fp4_full", "int4_rtn"]
+            or not all(math.isfinite(v) for v in vals)):
+        fail(f"evaluation: (e) ladder JSON {list(doc)}: {out['results']}")
+    print(f"evaluation: (e) quality ladder (50 steps, 128 eval images, 1 "
+          f"GALT epoch): {json.dumps(out['results'])}, floors "
+          f"{out['fid_noise_floor_same_set_split']} (same-set split), noise "
+          f"control {out['fid_noise_control_uniform_images']}; wall "
+          f"{out['wall_s']} s; on {card}")
+
+
+def phase_eval(card: str) -> dict:
+    """Phase 14, evaluation at VAR-d16 full width and depth (random seeded
+    weights) in a temporary directory removed at its end: (a) the eager
+    int8 eval set, (b) the evaluate CLI fused and at batch 50, and an
+    eager packed class, (c) Inception and the score CLI, (d) the manifold
+    estimator, (e) a short quality ladder.  Returns each kernel's
+    launches in (a) (K1, K5) and (b) (K2)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    stages = {}
+
+    def stage(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        stages[name] = time.perf_counter() - t0
+        return res
+
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"evaluation: {torch.cuda.memory_reserved()} bytes reserved by "
+          f"this process before the phase; on {card}")
+    try:
+        counts, flags, eager_out, arr = stage("(a)", _eval_eager_set, tmp,
+                                              card)
+        pcounts, _ = stage("(b)", _eval_cli_and_packed, tmp, flags,
+                           eager_out, card)
+        stage("(c)", _eval_inception, tmp, eager_out, arr, card)
+        stage("(d)", _eval_manifold, card)
+        stage("(e)", _eval_ladder, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("evaluation: stage seconds " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stages.items()) + f" on {card}")
+    return {k: counts[k] + pcounts[k] for k in COUNTERS}
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2647,6 +3063,8 @@ def main():
     done("teacher forcing and training")
     offline_launches = phase_offline(card)
     done("offline pipeline")
+    eval_launches = phase_eval(card)
+    done("evaluation")
     src = "fpqvar_tpu_torch/csrc/"
     kernels = {"kernels": [
         # K1 runs on the main path only at fc2 (int8's dual grid)
@@ -2687,6 +3105,10 @@ def main():
     # the offline pipeline's reloaded int8 generation (phase 13)
     for row, kern in zip(kernels["kernels"], COUNTERS):
         row["offline_launches"] = offline_launches[kern]
+    # the evaluation phase's eager eval sets (phase 14: K1 and K5 in (a),
+    # K2 in (b))
+    for row, kern in zip(kernels["kernels"], COUNTERS):
+        row["eval_launches"] = eval_launches[kern]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps(kernels))

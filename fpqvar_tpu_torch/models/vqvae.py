@@ -16,12 +16,18 @@ import torch
 import torch.nn.functional as F
 
 from fpqvar_tpu_torch.config import VQVAEConfig
+from fpqvar_tpu_torch.ops.precision import conv2d_plain
 from fpqvar_tpu_torch.ops.resize import resize2d
 
 
 def conv2d(x: torch.Tensor, p, stride: int = 1, padding: int = 1):
+    """A convolution in ``x``'s dtype; float32 stays float32 (no TF32) on a
+    card whatever the process's flags say, through PyTorch's own
+    convolution rather than cuDNN (``ops/precision.py``
+    ``conv2d_plain``)."""
     b = p["b"].to(x.dtype) if "b" in p else None
-    return F.conv2d(x, p["w"].to(x.dtype), b, stride=stride, padding=padding)
+    return conv2d_plain(x, p["w"].to(x.dtype), b, stride=stride,
+                        padding=padding)
 
 
 def group_norm(x: torch.Tensor, p, num_groups: int = 32, eps: float = 1e-6):

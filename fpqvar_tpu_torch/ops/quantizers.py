@@ -126,12 +126,18 @@ def fake_quant_fp(x: torch.Tensor, fmt: str, *, granularity: str = "per_group",
 
 def fake_quant_dual(x: torch.Tensor, fmt: str, *,
                     granularity: str = "per_group",
-                    group_size: int = 128) -> torch.Tensor:
+                    group_size: int = 128,
+                    clipping_strength: Optional[float] = None) -> torch.Tensor:
     """Sign-split dual-grid quantization (the fc2 formats): ``x <= 0`` on
     the negative grid and ``x > 0`` on the positive one, each half with its
     own absmax scale; each half snaps the other half's zeros to 0, so
-    ``q_neg * scale_neg + q_pos * scale_pos`` is exact."""
+    ``q_neg * scale_neg + q_pos * scale_pos`` is exact.
+    ``clipping_strength`` first clamps ``x`` at that fraction of the whole
+    tensor's absmax."""
     neg_grid, pos_grid = G.DUAL_GRIDS[fmt]
+    if clipping_strength is not None:
+        cv = clipping_strength * x.abs().amax()
+        x = torch.clamp(x, -cv, cv)
     xg = _group(x, granularity, group_size)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     x_neg = torch.where(xg <= 0, xg, zero)

@@ -20,7 +20,7 @@ import torch
 
 from fpqvar_tpu_torch.ops.hadamard import (apply_block_hadamard,
                                            block_hadamard_block)
-from fpqvar_tpu_torch.quantize.recipe import ieee_f32
+from fpqvar_tpu_torch.ops.precision import ieee_f32
 from fpqvar_tpu_torch.quantize.search import as_f32
 from fpqvar_tpu_torch.quantize.ste import fp_quant_ste, int_sym_ste
 

@@ -22,7 +22,6 @@ and serving bench build theirs.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -33,6 +32,7 @@ from fpqvar_tpu_torch.ops import hadamard as H
 from fpqvar_tpu_torch.ops import grids as G
 from fpqvar_tpu_torch.ops import packing as P
 from fpqvar_tpu_torch.ops import quantizers as Q
+from fpqvar_tpu_torch.ops.precision import ieee_f32
 
 _WEIGHT_KEYS = ("mat_qkv_w", "proj_w", "fc1_w", "fc2_w")
 _ROTATED_KEYS = ("mat_qkv_w", "fc1_w")
@@ -153,18 +153,6 @@ def quantize_var_params(
                                          "w": wq(out["shared_ada_lin"]["w"])}
     out["blocks"] = blocks
     return out
-
-
-@contextlib.contextmanager
-def ieee_f32():
-    """Float32 matmuls in float32 whatever ``allow_tf32`` says (TF32
-    rounds the operands to 10 mantissa bits)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _rotate_f32(blocks: dict, cfg: VARConfig, qcfg: QuantConfig,

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from fpqvar_tpu_torch.ops import quantizers as Q
-from fpqvar_tpu_torch.quantize.recipe import ieee_f32
+from fpqvar_tpu_torch.ops.precision import ieee_f32
 
 #: the search space for fp4 in the JSON naming (e1m2/e2m1/e3m0), mapped
 #: to the port's format names

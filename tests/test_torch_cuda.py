@@ -43,6 +43,15 @@ the CPU's own response to a one-ulp change of its input); a bf16 tree
 through ``save_params`` / ``load_params`` on the card keeps its bf16
 leaves; a VAR-d16 fc1 ``IntPack`` round trip stays ``torch.equal``.
 
+Evaluation: Inception features on the card against the CPU at 256 and
+512 px (pool3 and spatial within ``INCEPTION_REL`` of their largest
+magnitude, probs within ``PROBS_ATOL``); the score CLI in a fresh process
+(cuDNN TF32 on by PyTorch's default) saving features ``torch.equal`` to
+this process's; an eager ``int8`` eval set at width 256 with exact K1 and
+K5 launches, and a fused one writing the same PNG bytes; the VQVAE
+decode unchanged by the TF32 flag, and ``conv2d_plain`` bit-equal to
+``F.conv2d`` with cuDNN and TF32 off while both TF32 flags are on.
+
 The tests are marked ``cuda`` and skip without a CUDA device.  The file
 imports no JAX, so it also runs where JAX is not installed:
 
@@ -815,3 +824,170 @@ def test_cuda_d16_intpack_save_load_equal(cuda_device, tmp_path):
     assert back.codes.is_cuda and back.codes.shape == (16, 4096, 1024)
     assert torch.equal(back.codes, pack.codes)
     assert torch.equal(back.scales, pack.scales)
+
+
+# ---------------------------------------------------------------------------
+# Evaluation: the eval set, Inception features and the score CLI
+# ---------------------------------------------------------------------------
+
+#: card against CPU Inception features: each of the ~94 layers sums up to
+#: K = 2048 * 9 float32 products, whose rounding (random-walk sqrt(K) u
+#: ~ 8e-6 a layer) compounds to ~1e-4 of the largest feature over the
+#: depth; probs (a softmax of logits of std ~3) within 1e-5
+INCEPTION_REL = 1e-4
+PROBS_ATOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [256, 512])
+def test_cuda_inception_matches_cpu(cuda_device, hw):
+    from fpqvar_tpu_torch.eval import inception as I
+
+    imgs = torch.from_numpy(np.random.default_rng(hw).uniform(
+        size=(2, 3, hw, hw)).astype(np.float32))
+    cpu = I.inception_features(I.init_inception_params(0, "cpu"), imgs)
+    card = I.inception_features(I.init_inception_params(0, cuda_device),
+                                imgs.to(cuda_device))
+    for name, c, g in zip(("pool3", "spatial", "probs"), cpu, card):
+        atol = (PROBS_ATOL if name == "probs"
+                else INCEPTION_REL * float(c.abs().max()))
+        assert float((g.cpu() - c).abs().max()) <= atol, name
+
+
+@pytest.mark.cuda
+def test_cuda_score_subprocess_features_equal(cuda_device, tmp_path):
+    """The score CLI in a fresh process (PyTorch's default flags: cuDNN
+    TF32 on) saves the features that the pinned float32 extraction gives
+    in this process, bit for bit."""
+    import os
+    import subprocess
+    import sys
+
+    from fpqvar_tpu_torch.eval import imaging as Im
+    from fpqvar_tpu_torch.eval import inception as I
+
+    imgs = np.random.default_rng(3).integers(0, 256, (6, 32, 32, 3),
+                                             dtype=np.uint8)
+    Im.save_uint8_png(imgs, str(tmp_path / "set"), 0)
+    np.savez(tmp_path / "ref.npz", arr_0=imgs[::-1].copy())
+    feats = str(tmp_path / "f.npz")
+    torch.cuda.empty_cache()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-m", "fpqvar_tpu_torch.tools.score",
+         str(tmp_path / "ref.npz"), str(tmp_path / "set"), "--inception",
+         "random", "--save-features", feats], cwd=repo,
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        want = I.extract_features_batched(
+            I.init_inception_params(0, cuda_device),
+            imgs.transpose(0, 3, 1, 2))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    with np.load(feats) as d:
+        for k, w in zip(("features", "spatial", "probs"), want):
+            assert torch.equal(torch.from_numpy(d[k]), torch.from_numpy(w)), k
+
+
+def _eval_counts():
+    return {"K1": K.launches, "K5": K.nd_launches}
+
+
+@pytest.mark.cuda
+def test_cuda_eval_set_launches_and_fused_pngs_equal(cuda_device, tmp_path):
+    """An eager ``int8`` eval set at width 256 (2 classes of 3 images at
+    batch 2: 4 generations) launches K1 and K5 exactly as 4 generations
+    route them; a fused generator writes the same PNG bytes; a complete
+    set runs nothing again."""
+    import os
+
+    from fpqvar_tpu_torch.eval.pipeline import generate_eval_set
+    from fpqvar_tpu_torch.models import VARGenerator
+
+    cfg, q, _, vae, build = _small_int8(cuda_device)
+    qp = build()
+    blocks = cfg.depth * cfg.num_scales
+    eager = VARGenerator(cfg, q, device=cuda_device, fuse_steps=False)
+    before = _eval_counts()
+    runs = generate_eval_set(eager, qp, vae, str(tmp_path / "eager"), 3,
+                             [4, 9], batch=2)
+    torch.cuda.synchronize()
+    after = _eval_counts()
+    assert runs == 4
+    assert {k: after[k] - before[k] for k in after} == {
+        "K1": 4 * 2 * blocks, "K5": 4 * 3 * blocks}
+    fused = VARGenerator(cfg, q, qrt=eager.qrt, device=cuda_device)
+    assert generate_eval_set(fused, qp, vae, str(tmp_path / "fused"), 3,
+                             [4, 9], batch=2) == 4
+    names = sorted(os.listdir(tmp_path / "eager"))
+    assert names == sorted(os.listdir(tmp_path / "fused")) and len(names) == 6
+    for n in names:
+        assert (open(tmp_path / "eager" / n, "rb").read()
+                == open(tmp_path / "fused" / n, "rb").read()), n
+    assert generate_eval_set(fused, qp, vae, str(tmp_path / "fused"), 3,
+                             [4, 9], batch=2) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_vqvae_decode_ignores_tf32_flag(cuda_device):
+    """PyTorch's default ``cudnn.allow_tf32 = True`` (a fresh process's)
+    must not change the VQVAE decode: its convolutions pin float32.
+    Before the pin, the evaluate CLI's decoded PNGs differed from the same
+    generation's in a process with TF32 off."""
+    from fpqvar_tpu_torch.config import var_d16
+    from fpqvar_tpu_torch.models import init_vqvae_params
+    from fpqvar_tpu_torch.models import vqvae as vq
+
+    cfg = var_d16().vae
+    vae = init_vqvae_params(cfg, seed=1, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    f_hat = torch.randn((2, cfg.z_channels, 16, 16), generator=gen,
+                        device=cuda_device)
+    prev = torch.backends.cudnn.allow_tf32
+    out = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cudnn.allow_tf32 = flag
+            with torch.inference_mode():
+                out[flag] = vq.decode(vae, cfg, f_hat)
+            assert torch.backends.cudnn.allow_tf32 is flag
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert torch.equal(out[False], out[True])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride,padding", [(1, 1), (2, 0), (1, 0)])
+def test_cuda_conv2d_plain_is_the_no_cudnn_route(cuda_device, stride,
+                                                 padding):
+    """With both TF32 flags on, ``conv2d_plain`` on the card equals
+    ``F.conv2d`` with cuDNN off and TF32 off (the route the decoder took
+    when it switched cuDNN off around each call) bit for bit, and leaves
+    every backend switch as it was."""
+    import torch.nn.functional as F
+
+    from fpqvar_tpu_torch.ops.precision import conv2d_plain
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((4, 128, 34, 34), generator=gen, device=cuda_device)
+    w = torch.randn((256, 128, 3, 3), generator=gen, device=cuda_device)
+    b = torch.randn(256, generator=gen, device=cuda_device)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+            want = F.conv2d(x, w, b, stride=stride, padding=padding)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        got = conv2d_plain(x, w, b, stride=stride, padding=padding)
+        assert (torch.backends.cudnn.enabled,
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == (True, True, True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    assert torch.equal(got, want)

@@ -215,7 +215,16 @@ def test_port_import_leaves_jax_unloaded():
             "fpqvar_tpu_torch.tools.convert_checkpoint, "
             "fpqvar_tpu_torch.tools.calibrate, "
             "fpqvar_tpu_torch.tools.search_formats, "
-            "fpqvar_tpu_torch.tools.train_galt; "
+            "fpqvar_tpu_torch.tools.train_galt, "
+            "fpqvar_tpu_torch.eval.metrics, fpqvar_tpu_torch.eval.inception, "
+            "fpqvar_tpu_torch.eval.png, fpqvar_tpu_torch.eval.imaging, "
+            "fpqvar_tpu_torch.eval.pipeline, "
+            "fpqvar_tpu_torch.quantize.outliers, "
+            "fpqvar_tpu_torch.quantize.baselines, "
+            "fpqvar_tpu_torch.tools.evaluate, fpqvar_tpu_torch.tools.score, "
+            "fpqvar_tpu_torch.tools.quality_ladder, "
+            "fpqvar_tpu_torch.tools.baseline_study, "
+            "fpqvar_tpu_torch.tools.conv_route_probe; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'fpqvar_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
