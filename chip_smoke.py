@@ -145,7 +145,32 @@ non-zero:
    against float64 within the counted near-tie pairs; (e) a short
    ``tools/quality_ladder.py`` run (finite FIDs and ISs, JAX's JSON keys).
 
-The phases run in the order 1-6, 10, 7-9, 11, 12, 13, 14.  Phases 4-6 and the
+15. distributed: K1, K2 and K3 at a d16 tp = 2 rank's shard shapes
+   (``TP2_SHAPES``, M = 4096) against their plain versions (K3 exactly),
+   timed as in phase 3; then two ranks on ``cuda:0`` over gloo (NCCL does not put two
+   ranks on one device), each a process of this script started with
+   torchrun's environment, at VAR-d16 full width and depth: each rank
+   builds the seeded trees on the card (``synth_device_params``), keeps
+   its shards (``parallel.shard_params``) and generates eagerly at batch 2
+   under ``bf16``, ``int8``, ``packed``, ``int8ch`` and ``int8kv`` on a tp
+   2 and a dp 2 mesh, with exact launches per rank (``DIST_PER_BLOCK``:
+   K1 800 under ``int8``, K2 640 under ``packed``, K3 320 at tp 2 and 800
+   at dp 2 under the per-channel recipes, K4 and K5 none) and each rank's
+   KV cache exactly half of the one-device cache; rank 0 runs the
+   one-device generation of the same trees and generators (one per row):
+   at dp 2 the images ``torch.equal`` to it where the one-device run is
+   itself row-invariant between 4 and 2 rows, else within its own change
+   between those batch sizes; at tp 2 the images ``torch.equal`` to it and
+   every scale's logits within ``TP2_LOGIT_REL`` of the largest logit; on
+   both meshes every token equal to it.  Then one float32 d16
+   ``train_step`` (batch 8, ``remat``) on each mesh against rank 0's
+   one-device step: the loss and every leaf's update within three times
+   that step's own response to its batch rows reversed (plus 1e-6 of the
+   loss, 1e-3 of the update).  Prints each generation's ms, the weight and cache bytes a
+   rank holds, and the calls, bytes and host seconds of each collective
+   (gloo through the host: no yardstick for NVLink).
+
+The phases run in the order 1-6, 10, 7-9, 11, 12, 13, 14, 15.  Phases 4-6 and the
 launch gates of phases 7 and 9 run the eager loop (``fuse_steps=False``),
 whose every launch the wrappers' host counters see.
 
@@ -3003,6 +3028,389 @@ def phase_eval(card: str) -> dict:
 
 
 
+#: the recipes of phase 15, each generated under tp 2 and under dp 2
+DIST_RECIPES = ("bf16", "int8", "packed", "int8ch", "int8kv")
+#: phase 15's batch (one label a dp rank) and its training batch
+DIST_BATCH, DIST_TRAIN_BATCH = 2, 8
+#: per-rank kernel launches per block forward under a mesh, by recipe and
+#: mesh, as JAX routes a mesh (int8_matmul.py:669-676, 706-719): the
+#: activation quantized first, then ``int8`` through K1 on all five GEMMs
+#: (qkv, proj, fc1, fc2's two halves), ``packed`` K2 on the four linears,
+#: the per-channel recipes K3 on the column splits (qkv, fc1) at tp 2,
+#: their row splits the plain int32 product, and K3 on all five at dp 2
+DIST_PER_BLOCK = {("int8", "tp2"): {"K1": 5}, ("int8", "dp2"): {"K1": 5},
+                  ("packed", "tp2"): {"K2": 4}, ("packed", "dp2"): {"K2": 4},
+                  ("int8ch", "tp2"): {"K3": 2}, ("int8ch", "dp2"): {"K3": 5},
+                  ("int8kv", "tp2"): {"K3": 2}, ("int8kv", "dp2"): {"K3": 5},
+                  ("bf16", "tp2"): {}, ("bf16", "dp2"): {}}
+#: phase 15's tp 2 limit on the logits of every scale, relative to the
+#: one-device run's largest logit, by recipe: tp 2 changes only the order
+#: of float32 sums (the row splits' partials, attention over a rank's
+#: heads).  On an H100 the largest change read 2.92e-5 of the largest
+#: logit under ``bf16`` (6.58e-5 of 2.256), 1.43e-5 under ``packed`` and
+#: 4.4-4.8e-6 under the int8 recipes (PERF.md, section 6); each limit is
+#: 4 times its reading, rounded up to a power of two
+TP2_LOGIT_REL = {"bf16": 2.0 ** -13, "packed": 2.0 ** -14,
+                 "int8": 2.0 ** -15, "int8ch": 2.0 ** -15,
+                 "int8kv": 2.0 ** -15}
+
+
+def _tree_bytes(tree) -> int:
+    from fpqvar_tpu_torch.ops.packing import IntPack, PackedTensor
+
+    total = 0
+    for leaf in _leaves(tree):
+        if isinstance(leaf, (IntPack, PackedTensor)):
+            total += leaf.codes.nbytes + leaf.scales.nbytes
+        elif isinstance(leaf, torch.Tensor):
+            total += leaf.nbytes
+    return total
+
+
+def _dist_generate(gen, params, vae, labels, record):
+    """One eager generation with per-row generators (seeds 10, 11, ...):
+    (images, ms, the sampler's tokens and logits per scale)."""
+    record.clear()
+    gens = [torch.Generator(device="cuda").manual_seed(10 + i)
+            for i in range(len(labels))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kw = {"gather": True} if gen.mesh is not None else {}
+    imgs = gen.generate(params, vae, labels, gens, **kw)
+    torch.cuda.synchronize()
+    return imgs, (time.perf_counter() - t0) * 1e3, list(record)
+
+
+def _dist_one_device(cfg, q, params, vae, labels, record):
+    """Rank 0's one-device reference: the batch, and each label alone with
+    its own generator (the rows a dp rank generates)."""
+    from fpqvar_tpu_torch.config import GenerateConfig
+    from fpqvar_tpu_torch.models import VARGenerator
+
+    gen = VARGenerator(cfg, q, GenerateConfig(), device="cuda",
+                       fuse_steps=False)
+    imgs, ms, rec = _dist_generate(gen, params, vae, labels, record)
+    rows = []
+    for i in range(len(labels)):
+        record.clear()
+        g = [torch.Generator(device="cuda").manual_seed(10 + i)]
+        rows.append(gen.generate(params, vae, labels[i:i + 1], g))
+    kv = sum(t.nbytes for t in gen.init_cache(len(labels)).values())
+    return {"images": imgs, "ms": ms, "rec": rec, "rows": torch.cat(rows),
+            "kv": kv}
+
+
+def _dist_gates(mode, mesh_name, imgs, rec, one) -> str:
+    """Rank 0's gates of one mesh generation against the one-device run
+    (phase 15's docstring); returns what they read."""
+    toks = [t for t, _ in rec]           # rank 0's rows come first
+    agree = sum(int((a == b[:a.shape[0]]).sum())
+                for a, (b, _) in zip(toks, one["rec"]))
+    total = sum(t.numel() for t in toks)
+    if agree != total:
+        fail(f"distributed {mode} {mesh_name}: {total - agree} of {total} "
+             f"tokens differ from the one-device run")
+    err = float((imgs - one["images"]).abs().max())
+    if mesh_name == "dp2":
+        own = float((one["rows"] - one["images"]).abs().max())
+        if own == 0.0:
+            if not torch.equal(imgs, one["images"]):
+                fail(f"distributed {mode} dp2: images differ from the "
+                     f"one-device run (max {err}), which is row-invariant")
+        elif err > own:
+            fail(f"distributed {mode} dp2: images differ by {err}, more than "
+                 f"the one-device run's own change between batch sizes, "
+                 f"{own}")
+        return (f"images vs one device max |d| {err} (one device's own "
+                f"change between 4 and 2 rows {own}); tokens "
+                f"{agree}/{total} equal")
+    # tp 2: every rank holds the whole batch, so its images depend on the
+    # (equal) tokens alone; the logits of every scale within the limit
+    if not torch.equal(imgs, one["images"]):
+        fail(f"distributed {mode} tp2: images differ from the one-device "
+             f"run (max {err}) although the tokens are equal")
+    top = max(float(b.abs().max()) for _, b in one["rec"])
+    per = [float((a - b).abs().max()) for (_, a), (_, b)
+           in zip(rec, one["rec"])]
+    bound = TP2_LOGIT_REL[mode] * top
+    if max(per) > bound:
+        fail(f"distributed {mode} tp2: logits differ by {max(per)} at scale "
+             f"{per.index(max(per))}, bound {bound}")
+    return (f"logits max |d| by scale {per} (largest {max(per) / top:.3g} "
+            f"of max|logit| {top}; bound {TP2_LOGIT_REL[mode]:.3g} of it = "
+            f"{bound:.3g}); tokens {agree}/{total} equal; images torch.equal")
+
+
+def _dist_train(cfg, meshes, rank, card):
+    """One float32 ``train_step`` of d16 (batch 8, ``remat``) on each mesh
+    against rank 0's one-device step and that step's own response to its
+    batch rows permuted (the noise floor of summing in another order)."""
+    from fpqvar_tpu_torch.models import init_var_params
+    from fpqvar_tpu_torch.parallel import gather_params, shard_params
+    from fpqvar_tpu_torch.train.trainer import (make_optimizer,
+                                                make_train_state,
+                                                train_step, tree_leaves)
+
+    rng = np.random.default_rng(15)
+    b = DIST_TRAIN_BATCH
+    batch = {"label": torch.from_numpy(rng.integers(0, cfg.num_classes, b)),
+             "x": torch.from_numpy(rng.standard_normal(
+                 (b, cfg.L - cfg.first_l, cfg.vae.z_channels))
+                 .astype(np.float32)),
+             "targets": torch.from_numpy(rng.integers(
+                 0, cfg.vae.vocab_size, (b, cfg.L)))}
+    batch = {k: v.to("cuda") for k, v in batch.items()}
+    opt = make_optimizer(peak_lr=1e-4)
+    p0 = init_var_params(cfg, seed=4, device="cuda", adaln_gamma_std=0.02)
+
+    def step(params, bt, mesh=None):
+        state = make_train_state(params, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, cfg, opt, bt, remat=True, mesh=mesh)
+        loss = float(m["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        out = state.params if mesh is None else gather_params(state.params,
+                                                              mesh)
+        return loss, [t.detach() for t in tree_leaves(out)], ms
+
+    ref = None
+    if rank == 0:
+        loss1, upd1, ms1 = step(p0, batch)
+        perm = torch.arange(b - 1, -1, -1, device="cuda")
+        lossp, updp, _ = step(p0, {k: v[perm] for k, v in batch.items()})
+        start = [t.detach() for t in tree_leaves(p0)]
+        noise = [float((a - c).norm()) for a, c in zip(updp, upd1)]
+        size = [float((a - s0).norm()) for a, s0 in zip(upd1, start)]
+        ref = (loss1, upd1, noise, size, abs(lossp - loss1))
+        del updp
+        torch.cuda.empty_cache()
+        print(f"distributed: d16 float32 train_step batch {b} one device "
+              f"{ms1:.1f} ms, loss {loss1}; rows reversed: loss {lossp}; "
+              f"on {card}")
+    for name, mesh in meshes.items():
+        rows = slice(mesh.dp_rank * b // mesh.dp,
+                     (mesh.dp_rank + 1) * b // mesh.dp)
+        loss, upd, ms = step(shard_params(p0, mesh),
+                             {k: v[rows] for k, v in batch.items()}, mesh)
+        if rank == 0:
+            loss1, upd1, noise, size, lnoise = ref
+            worst = max((float((a - c).norm())
+                         / max(3 * n + 1e-3 * sz, 1e-30), i)
+                        for i, (a, c, n, sz) in enumerate(
+                            zip(upd, upd1, noise, size)))
+            if abs(loss - loss1) > 3 * lnoise + 1e-6 * loss1:
+                fail(f"distributed train {name}: loss {loss} against "
+                     f"{loss1} (rows reversed moved it {lnoise})")
+            if worst[0] > 1.0:
+                fail(f"distributed train {name}: leaf {worst[1]}'s update "
+                     f"is {worst[0]:.3g} bounds from the one-device step's")
+            print(f"distributed: train_step {name} {ms:.1f} ms a rank, loss "
+                  f"{loss} (one device {loss1}, bound 3 * {lnoise} + 1e-6 * "
+                  f"loss); every leaf within 3 x the rows-reversed distance "
+                  f"+ 1e-3 of its update (worst {worst[0]:.3f}); on {card}")
+        del upd
+        torch.cuda.empty_cache()
+
+
+def _dist_rank(out_path: str) -> int:
+    """Phase 15's rank (started by ``phase_distributed``): the generations
+    and train steps of the docstring's phase 15 on this rank."""
+    import torch.distributed as dist
+
+    from fpqvar_tpu_torch.config import GenerateConfig, MeshConfig, var_d16
+    from fpqvar_tpu_torch.models import VARGenerator, init_vqvae_params
+    from fpqvar_tpu_torch.models import var as V
+    from fpqvar_tpu_torch.parallel import collectives as C
+    from fpqvar_tpu_torch.parallel import make_mesh, shard_params
+    from fpqvar_tpu_torch.quantize.recipe import synth_device_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    torch.cuda.set_device(0)
+    card = os.environ["CHIP_SMOKE_CARD"]
+    cfg = var_d16()
+    rng = np.random.default_rng(2)
+    galt = tuple(np.exp(0.1 * rng.standard_normal((cfg.depth, cfg.width)))
+                 .astype(np.float32) for _ in range(2))
+    vae = init_vqvae_params(cfg.vae, seed=1, device="cuda")
+    meshes = {"tp2": make_mesh(MeshConfig(1, 2), "cuda"),
+              "dp2": make_mesh(MeshConfig(2, 1), "cuda")}
+    labels = torch.tensor([3, 5], device="cuda")
+    record = []
+    sample = V.sample_with_top_k_top_p
+
+    def recording(logits, *a, **kw):
+        idx = sample(logits, *a, **kw)
+        record.append((idx, logits))
+        return idx
+
+    V.sample_with_top_k_top_p = recording
+    blocks = cfg.depth * cfg.num_scales
+    launches = {k: 0 for k in COUNTERS}
+    for mode in DIST_RECIPES:
+        q = _recipes()[mode]
+        params = synth_device_params(cfg, q, seed=0, galt=galt,
+                                     device="cuda")
+        full_bytes = _tree_bytes(params)
+        one = (_dist_one_device(cfg, q, params, vae, labels, record)
+               if rank == 0 else None)
+        for name, mesh in meshes.items():
+            local = shard_params(params, mesh)
+            gen = VARGenerator(cfg, q, GenerateConfig(), device="cuda",
+                               fuse_steps=False, mesh=mesh)
+            dist.barrier()
+            reset_counts()
+            C.reset_stats()
+            imgs, ms, rec = _dist_generate(gen, local, vae, labels, record)
+            counts = read_counts()
+            stats = {k: list(v) for k, v in C.stats.items()}
+            want = {k: 0 for k in COUNTERS}
+            want.update({k: n * blocks for k, n in
+                         DIST_PER_BLOCK[(mode, name)].items()})
+            if counts != want:
+                fail(f"distributed {mode} {name} rank {rank}: launches "
+                     f"{counts}, expected {want}")
+            for k, n in counts.items():
+                launches[k] += n
+            _images_ok(f"distributed {mode} {name}", imgs,
+                       (DIST_BATCH, 3, 256, 256))
+            kv = sum(t.nbytes for t in gen.init_cache(DIST_BATCH).values())
+            whole = sum(t.nbytes for t in V.init_kv_cache(
+                cfg, 2 * DIST_BATCH, gen.cache_dtype, "cuda",
+                gen.qrt.kv_codec).values())
+            if 2 * kv != whole:
+                fail(f"distributed {mode} {name}: rank cache {kv} bytes of "
+                     f"{whole}, not half")
+            coll = ", ".join(f"{k} {v[0]} calls {v[1]} bytes {v[2]:.3f} s"
+                             for k, v in stats.items() if v[0])
+            share = sum(v[2] for v in stats.values()) * 1e3 / ms
+            line = (f"distributed: {mode} {name} rank {rank}: {ms:.1f} ms a "
+                    f"batch-{DIST_BATCH} generation; launches "
+                    f"{ {k: n for k, n in counts.items() if n} }; KV cache "
+                    f"{kv} bytes of {whole}; weights {_tree_bytes(local)} "
+                    f"bytes of {full_bytes}; collectives {coll} ({share:.3f} "
+                    f"of the wall time; gloo through the host, no yardstick "
+                    f"for NVLink)")
+            if rank == 0:
+                line += ("; " + _dist_gates(mode, name, imgs, rec, one)
+                         + f"; one device {one['ms']:.1f} ms")
+            print(line + f"; on {card}", flush=True)
+            del local, gen, imgs, rec
+        del params, one
+        torch.cuda.empty_cache()
+    V.sample_with_top_k_top_p = sample
+    _dist_train(cfg, meshes, rank, card)
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(launches, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+#: a d16 tp = 2 rank's shards at the batch-8 last scale (M = 4096): name,
+#: M, K, N of the rank's GEMM (columns N / 2, or the K-slice K / 2)
+TP2_SHAPES = (("qkv-col", 4096, 1024, 1536), ("fc1-col", 4096, 1024, 2048),
+              ("proj-row", 4096, 512, 1024), ("fc2-row", 4096, 2048, 1024))
+
+
+def phase_mesh_kernels() -> dict:
+    """K1, K2 and K3 at a d16 tp = 2 rank's shard shapes against their
+    plain versions (K3, per channel, only on the column shards: the row
+    split is the plain int32 product), timed as in phase 3."""
+    from fpqvar_tpu_torch.ops import int8_matmul as K
+    from fpqvar_tpu_torch.ops import packing as P
+    from fpqvar_tpu_torch.ops import quant_matmul as QM
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    rows = {"K1": [], "K2": [], "K3": []}
+    for name, m, k, n in TP2_SHAPES:
+        ops = _k1_operands(m, k, n, gen) + (128,)
+        x = torch.randn((m, k), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        b_lib = torch.randn((k, n), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+        g = k // 128
+        rows["K1"].append(check_and_time(
+            "K1 tp2", {"shape": name, "M": m, "K": k, "N": n, "group": 128},
+            lambda: K.int8_group_gemm(*ops),
+            lambda: K.int8_group_gemm_ref(*ops),
+            lambda: K.int8_group_gemm_tolerance(*ops),
+            lambda: torch.matmul(x, b_lib),
+            m * k + m * g * 4 + n * k + g * n * 4 + m * n * 4, H100_INT8_OPS,
+            f"{K.K1_REL_TOL:g}*sum_g|sa*sw*part|", "bf16 torch.matmul"))
+        pw = P.pack(torch.randn((n, k), generator=gen, device="cuda") * 0.02,
+                    "fp_e2", 128)
+        pops = (x, pw.codes, pw.scales, "fp_e2", 128, pw.nibble_packed)
+        rows["K2"].append(check_and_time(
+            "K2 tp2", {"shape": name, "M": m, "K": k, "N": n,
+                       "fmt": "fp_e2", "x": "bfloat16"},
+            lambda: QM.packed_matmul(*pops),
+            lambda: QM.packed_matmul_ref(*pops),
+            lambda: QM.packed_matmul_tolerance(*pops),
+            lambda: torch.matmul(x, b_lib),
+            (x.numel() * 2 + pw.codes.numel() + pw.scales.numel() * 4
+             + m * n * 4), H100_BF16_FLOPS,
+            f"{QM.K2_REL_TOL:g}*sum_g|s|*sum_k|x*grid|", "bf16 torch.matmul"))
+        if name.endswith("col"):
+            ac, asc = P.quant_int_codes(x.float(), "fp_e2", k)
+            cw = P.pack_int_codes(torch.randn((n, k), generator=gen,
+                                              device="cuda") * 0.02,
+                                  "fp_e2", k)
+            cops = (ac, asc, cw.codes, cw.scales)
+            rows["K3"].append(check_and_time(
+                "K3 tp2", {"shape": name, "M": m, "K": k, "N": n,
+                           "out": "float32"},
+                lambda: K.int8ch_gemm(*cops), lambda: K.int8ch_gemm_ref(*cops),
+                None, lambda: torch.matmul(x, b_lib),
+                m * k + m * 4 + n * k + n * 4 + m * n * 4, H100_INT8_OPS,
+                "", "bf16 torch.matmul", int_mm=_int_mm(m, k, n, gen)))
+    return rows
+
+
+def phase_distributed(card: str) -> dict:
+    """Phase 15: two ranks on ``cuda:0`` over gloo (NCCL does not put two
+    ranks on one device), each a process of this script (``--dist-rank``,
+    torchrun's environment).  Returns rank 0's launches of the mesh
+    generations."""
+    import gc
+    import socket
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    out = os.path.join(tmp, "launches.json")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE="2", CHIP_SMOKE_CARD=card)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-rank", out],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        print("\n".join(line for line in text.splitlines()
+                        if line.startswith(("distributed", "chip_smoke"))))
+        if p.returncode != 0:
+            print(text[-4000:])
+            fail(f"distributed: rank {r} exited {p.returncode}")
+    with open(out) as f:
+        launches = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3027,6 +3435,8 @@ def _kernel_row(name, source, replaces, launches, rows, timed="fc1"):
 
 
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
+        return _dist_rank(sys.argv[2])
     t_start = time.perf_counter()
 
     def done(phase: str):
@@ -3065,6 +3475,9 @@ def main():
     done("offline pipeline")
     eval_launches = phase_eval(card)
     done("evaluation")
+    mesh_rows = phase_mesh_kernels()
+    dist_launches = phase_distributed(card)
+    done("distributed")
     src = "fpqvar_tpu_torch/csrc/"
     kernels = {"kernels": [
         # K1 runs on the main path only at fc2 (int8's dual grid)
@@ -3109,6 +3522,11 @@ def main():
     # K2 in (b))
     for row, kern in zip(kernels["kernels"], COUNTERS):
         row["eval_launches"] = eval_launches[kern]
+        # rank 0's launches of phase 15's mesh generations (K1, K2, K3)
+        # and the kernel at a tp = 2 rank's shard shapes
+        row["mesh_launches"] = dist_launches[kern]
+        if kern in mesh_rows:
+            row["mesh_shards"] = mesh_rows[kern]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps(kernels))

@@ -315,3 +315,17 @@ class GenerateConfig:
     top_p: float = 0.96
     more_smooth: bool = False
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The ``{dp, tp}`` process mesh of distributed generation and
+    training (``parallel/mesh.py``): ``dp`` splits the batch, ``tp`` the
+    attention heads, the FFN hidden width and the vocabulary."""
+
+    dp: int = 1
+    tp: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.tp

@@ -17,6 +17,12 @@ The loop keeps JAX's depth-2 pipeline: batch n's images are converted to
 uint8 on the device and copied to pinned host memory behind an event,
 batch n + 1 is dispatched, and only then is batch n waited for and its
 PNGs encoded, so the encoding overlaps the card's work.
+
+Under a ``{dp, tp}`` mesh (the generator's, ``VARGenerator(mesh=)``) every
+rank runs the same loop: batches are rounded to a multiple of dp, as in
+JAX, each generation's images are gathered over dp, rank 0 alone writes
+the PNGs, and rank 0's resume decision (a class complete on disk) is
+broadcast so that the ranks run the same generations.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from fpqvar_tpu_torch.eval.imaging import png_paths, save_uint8_png
+from fpqvar_tpu_torch.parallel import collectives as C
 from fpqvar_tpu_torch.eval.imaging import to_uint8_device
 
 
@@ -88,34 +95,44 @@ def generate_eval_set(
     ``num_img_per_class``) images of that class, sampled with the
     generator's ``GenerateConfig``.  Every batch runs at the full batch
     size, and the tail's extra rows are dropped.  Returns the number of
-    generations run (0 when every class was already on disk)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported yet (ROADMAP.md section 1, item "
-            "8: distributed); run on one device with mesh=None")
+    generations run (0 when every class was already on disk).  ``mesh``:
+    the generator's ``parallel.Mesh`` (module docstring); its params are
+    this rank's shards."""
     cfg = generator.cfg
     classes = classes if classes is not None else range(cfg.num_classes)
     batch = batch or num_img_per_class
+    writer = True
+    if mesh is not None:
+        if generator.mesh is not mesh:
+            raise ValueError("generate_eval_set's mesh must be the "
+                             "generator's")
+        batch = max(mesh.dp, batch - batch % mesh.dp)   # dp-divisible
+        writer = mesh.rank == 0
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.time()
     done = runs = 0
     pending = None
     rng = torch.Generator(device=generator.device)
     for ci in classes:
-        if class_complete(out_dir, ci, num_img_per_class):
+        complete = class_complete(out_dir, ci, num_img_per_class)
+        if mesh is not None:
+            complete = C.broadcast_flag(complete, generator.device)
+        if complete:
             continue
         produced = 0
         while produced < num_img_per_class:
             labels = torch.full((batch,), ci, dtype=torch.long,
                                 device=generator.device)
             rng.manual_seed(batch_seed(seed, ci * 1000 + produced))
-            imgs = generator.generate(params, vae_params, labels, rng)
+            imgs = generator.generate(params, vae_params, labels, rng,
+                                      gather=mesh is not None)
             runs += 1
             keep = min(batch, num_img_per_class - produced)
-            nxt = _Pending(imgs, ci, produced, keep)
-            if pending is not None:
-                pending.flush(out_dir)
-            pending = nxt
+            if writer:
+                nxt = _Pending(imgs, ci, produced, keep)
+                if pending is not None:
+                    pending.flush(out_dir)
+                pending = nxt
             produced += keep
         done += 1
         if done % log_every == 0:

@@ -14,9 +14,21 @@ Two modes, as the JAX package's engine has:
   so each generator yields the same values and ends in the same state as
   in the eager loop, and the images are the eager loop's, bit for bit.
   On the CPU the same static-buffer code runs without capture.
+
+Under a ``{dp, tp}`` mesh (``mesh=``, ``parallel/mesh.py``; the eager loop
+only) each rank holds its shards of the params tree (``shard_params``):
+dp splits the labels, each rank doubling its own rows for classifier-free
+guidance, and tp splits the linears, the head and attention's heads, the
+KV cache holding only the rank's rows and heads.  The sampling noise is
+the one-device run's: per-row generators are split with the labels, and
+one generator draws the whole batch's noise plan (``sampling.noise_plan``,
+the eager loop's draws in its order) of which each rank keeps its rows.
+``generate`` returns the rank's images, or with ``gather=True`` the whole
+batch's on every rank.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -27,6 +39,7 @@ from fpqvar_tpu_torch.config import GenerateConfig, QuantConfig, VARConfig
 from fpqvar_tpu_torch.models import var as V
 from fpqvar_tpu_torch.models import vqvae as vq
 from fpqvar_tpu_torch.models.sampling import Generators, noise_plan
+from fpqvar_tpu_torch.parallel import collectives as C
 from fpqvar_tpu_torch.quantize.runtime import QuantRuntime, build_runtime
 
 
@@ -68,17 +81,34 @@ class VARGenerator:
         compute_dtype=torch.bfloat16,
         device="cuda",
         fuse_steps: bool = True,
+        mesh=None,
     ):
         """``qrt``: a runtime already built for ``qcfg`` on ``device``
         (else one is built).  ``fuse_steps``: replay CUDA graphs of a whole
         generation (module docstring); ``False`` runs the eager loop,
-        whose launches the kernels' host counters see one by one."""
+        whose launches the kernels' host counters see one by one.
+        ``mesh``: a ``parallel.Mesh``; the params passed to ``generate``
+        are then this rank's shards.  The fused mode is not ported under
+        a mesh (ROADMAP.md section 1): ``fuse_steps=True`` with a mesh
+        raises ``NotImplementedError``.  JAX's ``shardings`` argument has
+        no counterpart: every split follows from ``mesh``."""
+        if mesh is not None and fuse_steps:
+            raise NotImplementedError(
+                "the fused mode (CUDA graphs) under a mesh is not ported "
+                "(ROADMAP.md section 1: fused mode under NCCL); pass "
+                "fuse_steps=False")
         self.cfg = cfg
         self.qcfg = qcfg
         self.gen = gen
         self.device = torch.device(device)
         self.qrt = (qrt if qrt is not None
                     else build_runtime(qcfg, cfg.depth, cfg.width, device))
+        if mesh is not None:
+            if cfg.heads % mesh.tp:
+                raise ValueError(f"{cfg.heads} heads do not split over "
+                                 f"tp={mesh.tp}")
+            self.qrt = dataclasses.replace(self.qrt, mesh=mesh)
+        self.mesh = mesh
         self.cache_dtype = cache_dtype
         self.compute_dtype = compute_dtype
         self.statics = V.GenStatics.all_steps(cfg)
@@ -91,14 +121,24 @@ class VARGenerator:
     def init_cache(self, batch: int) -> dict:
         """The KV cache of a ``batch``-label generation (CFG doubles the
         rows): dense in ``cache_dtype``, or packed under the recipe's KV
-        codec."""
-        return V.init_kv_cache(self.cfg, 2 * batch, self.cache_dtype,
-                               self.device, self.qrt.kv_codec)
+        codec.  Under a mesh, this rank's share, as JAX's
+        ``kv_cache_shardings``: ``batch / dp`` labels' rows and ``heads /
+        tp`` heads (the dense ``[depth, B, L, H*c]`` cache split on dims 1
+        and 3, the packed codes ``[depth, B, H, L, c]`` and scales
+        ``[depth, B, H, L]`` on dims 1 and 2)."""
+        dp, tp = (1, 1) if self.mesh is None else (self.mesh.dp,
+                                                   self.mesh.tp)
+        return self._cache(batch // dp, self.cfg.heads // tp)
+
+    def _cache(self, b: int, heads: int) -> dict:
+        return V.init_kv_cache(self.cfg, 2 * b, self.cache_dtype,
+                               self.device, self.qrt.kv_codec, heads)
 
     @torch.inference_mode()
     def generate(self, params, vae_params, label_B,
                  generator: Optional[Generators] = None,
-                 return_fhat: bool = False) -> torch.Tensor:
+                 return_fhat: bool = False,
+                 gather: bool = False) -> torch.Tensor:
         """Class-conditional generation -> images [B, 3, H, W] in [0, 1]
         (or the f32 ``f_hat`` [B, Cvae, pn, pn] with ``return_fhat``).
         Sampling noise comes from ``generator``: one ``torch.Generator`` for
@@ -111,13 +151,22 @@ class VARGenerator:
         few constants there once, and the first fused call for a batch size
         and params tree warms up and captures its graphs).  A fused call
         returns a copy of the graphs' output, so the next replay does not
-        overwrite it."""
+        overwrite it.
+
+        Under a mesh ``label_B`` is the whole batch (a multiple of dp) and
+        ``generator`` its one generator or its B generators, the same on
+        every rank; the call returns this rank's rows, or the whole batch
+        with ``gather``."""
         label_B = torch.as_tensor(label_B, dtype=torch.long,
                                   device=self.device)
         b = label_B.shape[0]
         if not (generator is None or isinstance(generator, torch.Generator)
                 or len(generator) == b):
             raise ValueError(f"{len(generator)} generators for {b} labels")
+        if self.mesh is not None:
+            out = self._mesh_steps(params, vae_params, label_B, generator,
+                                   return_fhat)
+            return C.gather_dp(out, self.mesh) if gather else out
         if not self.fuse_steps:
             f_hat = self._steps(params, vae_params["quantize"], label_B,
                                 generator=generator)
@@ -147,6 +196,29 @@ class VARGenerator:
         return dict(fz.stats) if fz is not None else {}
 
     # ------------------------------------------------------------------
+    def _mesh_steps(self, params, vae_params, label_B, generator,
+                    return_fhat: bool):
+        """This rank's rows of a mesh generation (``generate``)."""
+        m = self.mesh
+        b = label_B.shape[0]
+        if b % m.dp:
+            raise ValueError(f"{b} labels do not split over dp={m.dp}")
+        if generator is None:
+            raise ValueError("a mesh generation needs its generators: the "
+                             "ranks must draw the same noise")
+        bl = b // m.dp
+        rows = slice(m.dp_rank * bl, (m.dp_rank + 1) * bl)
+        noise = None
+        if isinstance(generator, torch.Generator):
+            noise = [tuple(None if t is None else t[rows] for t in pair)
+                     for pair in self._draw(b, generator)]
+            generator = None
+        else:
+            generator = list(generator)[rows]
+        f_hat = self._steps(params, vae_params["quantize"], label_B[rows],
+                            generator=generator, noise=noise)
+        return f_hat if return_fhat else self._decode(vae_params, f_hat)
+
     def _steps(self, params, vae_q, label_B, generator=None, noise=None):
         """Prepare, the KV cache and every scale -> f_hat [B, Cvae, pn,
         pn] f32; noise from ``generator``, or from a noise plan."""
@@ -157,7 +229,8 @@ class VARGenerator:
         x = x.to(self.compute_dtype)
         mod = mod.to(self.compute_dtype)
         lvl_pos = lvl_pos.to(self.compute_dtype)
-        cache = self.init_cache(b)
+        tp = 1 if self.mesh is None else self.mesh.tp
+        cache = self._cache(b, cfg.heads // tp)
         hw = cfg.patch_nums[-1]
         f_hat = torch.zeros((b, cfg.vae.z_channels, hw, hw),
                             dtype=torch.float32, device=self.device)

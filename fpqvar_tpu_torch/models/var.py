@@ -36,6 +36,7 @@ from fpqvar_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_dual
 from fpqvar_tpu_torch.ops.packing import DUAL_CODE_MULT, IntPack, PackedTensor
 from fpqvar_tpu_torch.ops.quant_matmul import packed_linear
 from fpqvar_tpu_torch.ops.quantizers import safe_scale
+from fpqvar_tpu_torch.parallel import collectives as C
 
 MAX_SCALE_MUL = math.log(100.0)
 #: 1/127 rounded to float32: under ``jit`` XLA turns ``a / 127.0`` into
@@ -46,16 +47,34 @@ INV_127 = float(np.float32(1.0) / np.float32(127.0))
 EXACT_F32_INT = 2 ** 24
 
 
-def linear(x: torch.Tensor, w, b=None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, b=None, mesh=None,
+           parallel: Optional[str] = None) -> torch.Tensor:
     """torch-layout linear: w is (out, in), a float tensor or a
-    :class:`PackedTensor` (through the packed GEMM, K2)."""
+    :class:`PackedTensor` (through the packed GEMM, K2).
+
+    With a ``mesh`` and ``parallel`` ("col" or "row"), ``w`` and ``b`` are
+    this rank's shards and the linear runs tensor-parallel on the whole,
+    replicated ``x``, returning the whole output: a float column split
+    takes the rank's output columns and all-gathers them over tp; a row
+    split takes the rank's K-slice of ``x`` and sums the float32 partial
+    products over tp (in float32 whatever ``x.dtype``, as one GEMM
+    accumulates); the bias is added as ``collectives.linear_out`` adds
+    it, before a column split's gather."""
     if isinstance(w, PackedTensor):
-        y = packed_linear(x, w)
-    else:
+        return packed_linear(x, w, mesh=mesh, parallel=parallel, b=b)
+    if mesh is None or parallel is None or mesh.tp <= 1:
         y = x @ w.to(x.dtype).T
-    if b is not None:
-        y = y + b.to(y.dtype)
-    return y
+        return y if b is None else y + b.to(y.dtype)
+    if parallel == "col":
+        y = C.copy_to_tp(x, mesh) @ w.to(x.dtype).T
+    else:
+        xl = C.take_slice(x, mesh).to(torch.float32)
+        y = C.sum_partials(xl @ w.to(torch.float32).T, mesh).to(x.dtype)
+    return C.linear_out(y, b, mesh, parallel, True)
+
+
+def _mesh_of(qrt):
+    return qrt.mesh if qrt is not None else None
 
 
 def layernorm_no_affine(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -225,22 +244,28 @@ def _q_then_lin(qrt, kind: str, xv, w, b=None, taps=None):
     kind's activation quantizer (if any) runs first, then the linear on the
     float or packed weight.  ``taps`` (a dict) receives the linear's
     input under ``kind``: after the activation quantizer, or as it enters
-    an int8 linear (which quantizes inside the GEMM call)."""
+    an int8 linear (which quantizes inside the GEMM call).
+
+    Under the runtime's ``mesh`` the linear runs tensor-parallel, as JAX's
+    ``_q_then_lin`` passes ``parallel``: a column split for ``mat_qkv``
+    and ``fc1``, a row split for ``proj`` and ``fc2``; the output comes
+    back whole on every rank of the tp row."""
+    mesh = _mesh_of(qrt)
+    par = "col" if kind in ("mat_qkv", "fc1") else "row"
     if isinstance(w, IntPack):
         if taps is not None:
             taps[kind] = xv
         fmt_a = qrt.act_fmts.get(kind) or w.fmt
         if fmt_a in DUAL_CODE_MULT:
-            y = int8_linear_dual(xv, w, fmt_a)
-        else:
-            y = int8_linear(xv, w, fmt_a)
-        return y if b is None else y + b.to(y.dtype)
+            return int8_linear_dual(xv, w, fmt_a, mesh=mesh, parallel=par,
+                                    b=b)
+        return int8_linear(xv, w, fmt_a, mesh=mesh, parallel=par, b=b)
     aq = qrt.act_q.get(kind) if qrt is not None else None
     if aq is not None:
         xv = aq(xv)
     if taps is not None:
         taps[kind] = xv
-    return linear(xv, w, b)
+    return linear(xv, w, b, mesh, par)
 
 
 def block_forward(
@@ -260,9 +285,16 @@ def block_forward(
     written into rows ``[cur, cur + l)`` of ``cache`` in place and
     attention runs over rows ``[0, cur + l)``.  ``taps`` (a dict)
     receives the inputs of ``mat_qkv``, ``proj``, ``fc1`` and ``fc2`` (see
-    ``_q_then_lin``)."""
+    ``_q_then_lin``).
+
+    Under the runtime's ``mesh`` the four linears run tensor-parallel
+    (``_q_then_lin``) on the replicated ``x``, and attention runs on this
+    rank's ``heads / tp`` heads only (the cache holds only those), its
+    output heads all-gathered over tp before ``proj``."""
     heads, hd = cfg.heads, cfg.head_dim
     b, l, c = x.shape
+    mesh = _mesh_of(qrt)
+    tp = mesh.tp if mesh is not None else 1
     gamma1, gamma2, scale1, scale2, shift1, shift2 = mod
     smooth = qrt is not None and qrt.transform
 
@@ -275,11 +307,15 @@ def block_forward(
     bias = torch.cat([bp["q_bias"], torch.zeros_like(bp["q_bias"]),
                       bp["v_bias"]])
     qkv = (qkv + bias.to(qkv.dtype)).reshape(b, l, 3, heads, hd)
+    if tp > 1:
+        qkv = C.take_slice(qkv, mesh, dim=3)        # this rank's heads
     q, k, v = qkv.unbind(2)
     if cfg.attn_l2_norm:
+        scale_mul = bp["scale_mul"].reshape(1, 1, heads, 1)
+        if tp > 1:
+            scale_mul = C.take_slice(scale_mul, mesh, dim=2)
         scale_mul = torch.exp(
-            bp["scale_mul"].to(torch.float32).clamp_max(MAX_SCALE_MUL)
-        ).reshape(1, 1, heads, 1)
+            scale_mul.to(torch.float32).clamp_max(MAX_SCALE_MUL))
         q = _l2norm(q) * scale_mul.to(q.dtype)
         k = _l2norm(k)
 
@@ -289,6 +325,8 @@ def block_forward(
         if cache is not None:
             k, v = _dense_cache_update(k, v, qrt, cache, cur)
         oup = _attention(q, k, v, attn_bias)
+    if tp > 1:
+        oup = C.gather_cols(oup, mesh)
     proj_out = _q_then_lin(qrt, "proj", oup, bp["proj_w"], bp["proj_b"],
                            taps)
     x = x + (proj_out * gamma1).to(x.dtype)
@@ -337,14 +375,16 @@ def compute_modulations(params, cfg: VARConfig, cond_BD: torch.Tensor,
     return mod.reshape(d, b, 6, c).permute(0, 2, 1, 3)[:, :, :, None, :]
 
 
-def head_logits(params, cfg: VARConfig, x: torch.Tensor, cond_BD):
-    """AdaLN before the head, then the head linear."""
+def head_logits(params, cfg: VARConfig, x: torch.Tensor, cond_BD,
+                mesh=None):
+    """AdaLN before the head, then the head linear (under a ``mesh``, the
+    vocabulary split over tp and the logits all-gathered)."""
     hn = params["head_nm"]
     ss = linear(F.silu(cond_BD), hn["w"], hn["b"])
     scale, shift = ss.reshape(ss.shape[0], 1, 2, cfg.width).unbind(2)
     h = layernorm_no_affine(x.to(torch.float32), cfg.norm_eps)
     h = h * (1.0 + scale) + shift
-    return linear(h, params["head"]["w"], params["head"]["b"])
+    return linear(h, params["head"]["w"], params["head"]["b"], mesh, "col")
 
 
 def run_blocks(params, cfg: VARConfig, qrt, x, mod, cache=None, cur: int = 0,
@@ -429,7 +469,8 @@ def var_forward(params, cfg: VARConfig, qrt, label_B: torch.Tensor,
     mod = compute_modulations(params, cfg, cond_BD, qrt)
     x = run_blocks(params, cfg, qrt, x, mod,
                    attn_bias=attn_bias_for_masking(cfg, device), remat=remat)
-    return head_logits(params, cfg, x.to(torch.float32), cond_BD)
+    return head_logits(params, cfg, x.to(torch.float32), cond_BD,
+                       _mesh_of(qrt))
 
 
 # ---------------------------------------------------------------------------
@@ -459,7 +500,7 @@ class GenStatics:
 
 
 def init_kv_cache(cfg: VARConfig, batch: int, dtype=torch.bfloat16,
-                  device="cuda", kv_codec=None):
+                  device="cuda", kv_codec=None, heads: Optional[int] = None):
     """Preallocated KV cache, written in place one scale step at a time.
 
     Dense: {"k","v"} in ``dtype`` at [depth, B, L, H*c].  Packed (a
@@ -468,12 +509,15 @@ def init_kv_cache(cfg: VARConfig, batch: int, dtype=torch.bfloat16,
     head-major as JAX's, so that attention reads ``[B, H, M, c]`` views.
     JAX splits the packed cache into one segment per scale because XLA
     would not update a large buffer in place; PyTorch does, so the port
-    keeps one buffer per leaf, as for the dense cache."""
+    keeps one buffer per leaf, as for the dense cache.  ``heads``: the
+    heads the cache holds (a tensor-parallel rank's ``cfg.heads / tp``;
+    default all)."""
+    heads = cfg.heads if heads is None else heads
     if kv_codec is None:
-        shape = (cfg.depth, batch, cfg.L, cfg.heads * cfg.head_dim)
+        shape = (cfg.depth, batch, cfg.L, heads * cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
-    lead = (cfg.depth, batch, cfg.heads, cfg.L)
+    lead = (cfg.depth, batch, heads, cfg.L)
     codes = lead + (cfg.head_dim,)
     return {"kc": torch.zeros(codes, dtype=torch.int8, device=device),
             "vc": torch.zeros(codes, dtype=torch.int8, device=device),
@@ -496,7 +540,8 @@ def scale_step(params, vae_qparams, cfg: VARConfig, qrt, gen: GenerateConfig,
     place."""
     b = x.shape[0] // 2
     x = run_blocks(params, cfg, qrt, x, mod, cache, st.cur)
-    logits = head_logits(params, cfg, x.to(torch.float32), cond_BD)
+    logits = head_logits(params, cfg, x.to(torch.float32), cond_BD,
+                         _mesh_of(qrt))
     t = gen.cfg * (st.si / (cfg.num_scales - 1))
     logits = (1.0 + t) * logits[:b] - t * logits[b:]
     sample_noise, blend_noise = noise if noise is not None else (None, None)

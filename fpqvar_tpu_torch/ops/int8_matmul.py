@@ -30,6 +30,11 @@ of K1, K5, K3 and K4.
 
 ``wonly_dot`` is the weights-only (``w4a16``) product, plain PyTorch as
 JAX's ``_wonly_dot`` is plain XLA.
+
+Under a ``{dp, tp}`` mesh (``int8_linear(mesh=, parallel=)``) the linears
+take JAX's ``shard_map`` routes on this rank's shard of the weight: the
+whole activation quantized first, then K1 (per group) or K3 (per channel)
+on the rank's columns or K-slice, never K5 or K4.
 """
 from __future__ import annotations
 
@@ -432,7 +437,88 @@ def wonly_dot(x, wc, ws, group_size: int):
 # Linears, routed as JAX's int8_linear / int8_linear_dual
 # ---------------------------------------------------------------------------
 
-def int8_linear(x, pw: P.IntPack, act_fmt: str = None):
+def _call(ac, asc, wc, ws, group_size: int):
+    """JAX's ``_call`` on codes quantized outside the GEMM -> f32: K3 per
+    channel (one scale group, JAX's ``_channel_dot``), K1 per group."""
+    if group_size == ac.shape[-1]:
+        return int8ch_gemm(ac, asc, wc, ws)
+    return int8_group_gemm(ac, asc, wc, ws, group_size)
+
+
+def _int_dot(ac, wc):
+    """The exact int32 product ``ac [M, K] . wc [N, K]^T`` of codes, as a
+    float matmul (``channel_dot_ref``'s rule for its exactness)."""
+    dt = torch.float32 if ac.shape[-1] <= EXACT_F32_K else torch.float64
+    return (ac.to(dt) @ wc.to(dt).T).to(torch.int32)
+
+
+def _mesh_codes_gemm(ac, asc, pw: P.IntPack, mesh, parallel: str):
+    """JAX's ``_shard_mapped``, then ``_call`` where it returns None, on
+    codes ``ac [M, K]`` of the whole activation and this rank's shard of
+    ``pw`` -> f32, the whole ``[M, N]`` output on every rank of the tp row
+    but for a column split:
+
+    - column split: the rank's columns ``[M, N / tp]`` (K1 per group, K3
+      per channel), which ``collectives.linear_out`` gathers;
+    - row split, per channel: the int32 product of the K-slices, summed
+      exactly over tp, then ``* asc * ws`` once (plain, as JAX's
+      ``dot_general``);
+    - row split, per group: K1 on the rank's K-slice and scale groups,
+      the f32 partials summed over tp;
+    - a replicated pack: the whole GEMM."""
+    from fpqvar_tpu_torch.parallel import collectives as C
+    from fpqvar_tpu_torch.parallel.mesh import linear_split
+
+    gs = pw.group_size
+    if parallel == "col" or not linear_split(pw, parallel, mesh.tp):
+        return _call(ac, asc, pw.codes, pw.scales, gs)
+    acl = C.take_slice(ac, mesh)
+    if gs == pw.shape[-1]:
+        p = C.int_sum(_int_dot(acl, pw.codes), mesh)
+        return (p.to(torch.float32) * asc) * pw.scales
+    return C.sum_partials(int8_group_gemm(acl, C.take_slice(asc, mesh),
+                                          pw.codes, pw.scales, gs), mesh)
+
+
+def _mesh_wonly(x2, pw: P.IntPack, mesh, parallel: str):
+    """JAX's ``_wonly_shard_mapped`` (then the whole product where it
+    returns None) -> f32: the rank's columns (gathered by
+    ``collectives.linear_out``), or the whole ``[M, N]`` output, the
+    K-slices' f32 partials summed over tp (per channel, scaled once after
+    the sum)."""
+    from fpqvar_tpu_torch.parallel import collectives as C
+    from fpqvar_tpu_torch.parallel.mesh import linear_split
+
+    gs, k = pw.group_size, pw.shape[-1]
+    if not linear_split(pw, parallel, mesh.tp):
+        return wonly_dot(x2, pw.codes, pw.scales, gs)
+    if parallel == "col":
+        return wonly_dot(C.copy_to_tp(x2, mesh), pw.codes, pw.scales, gs)
+    xl = C.take_slice(x2, mesh)
+    if gs == k:
+        xb = xl.to(torch.bfloat16).to(torch.float32)
+        p = C.sum_partials(xb @ pw.codes.to(torch.float32).T, mesh)
+        return p * pw.scales
+    return C.sum_partials(wonly_dot(xl, pw.codes, pw.scales, gs), mesh)
+
+
+def _mesh_out(out, x, pw: P.IntPack, b, mesh, parallel: str):
+    """A mesh route's f32 ``out`` in ``x.dtype``, with the bias and the
+    column gather of ``collectives.linear_out``, as ``[..., N]``."""
+    from fpqvar_tpu_torch.parallel import collectives as C
+    from fpqvar_tpu_torch.parallel.mesh import linear_split
+
+    y = C.linear_out(out.to(x.dtype), b, mesh, parallel,
+                     linear_split(pw, parallel, mesh.tp))
+    return y.reshape(x.shape[:-1] + (pw.shape[0],))
+
+
+def _with_bias(y, b):
+    return y if b is None else y + b.to(y.dtype)
+
+
+def int8_linear(x, pw: P.IntPack, act_fmt: str = None, *, mesh=None,
+                parallel: str = None, b=None):
     """The linear of an int8 weight pack on ``x [..., K]`` -> ``[..., N]``
     in ``x.dtype``, routed as JAX's ``int8_linear``:
 
@@ -446,37 +532,65 @@ def int8_linear(x, pw: P.IntPack, act_fmt: str = None):
     ``act_fmt`` defaults to the weight format.  The kernels walk the rows
     of ``[..., K]`` as one ``[M, K]`` matrix; the integer dots are exact,
     so this gives JAX's N-D results bit for bit on the per-channel route
-    and within the order of the f32 group sum on the grouped one."""
+    and within the order of the f32 group sum on the grouped one.
+
+    With a ``mesh`` (``parallel.Mesh``) and ``parallel`` ("col" or "row")
+    the linear runs tensor-parallel on this rank's shard of ``pw`` and
+    returns the whole output, as JAX's ``shard_map`` route: the whole
+    activation is quantized first (``quant_int_codes``), then the GEMM
+    runs on codes (:func:`_mesh_codes_gemm`: K1 per group, K3 per
+    channel, under any mesh), or the weights-only product
+    (:func:`_mesh_wonly`).
+
+    ``b``: the output's bias (under a column split, this rank's shard of
+    it), added in ``x.dtype``; under a mesh before the columns are
+    gathered (``collectives.linear_out``)."""
     n, k = pw.shape
     lead = x.shape[:-1]
+    if mesh is not None and parallel is not None:
+        x2 = x.reshape(-1, k)
+        if act_fmt == "bf16":
+            out = _mesh_wonly(x2, pw, mesh, parallel)
+        else:
+            ac, asc = P.quant_int_codes(x2, act_fmt or pw.fmt,
+                                        pw.group_size)
+            out = _mesh_codes_gemm(ac, asc, pw, mesh, parallel)
+        return _mesh_out(out, x, pw, b, mesh, parallel)
     if act_fmt == "bf16":
         out = wonly_dot(x, pw.codes, pw.scales, pw.group_size)
-        return out.to(x.dtype)
+        return _with_bias(out.to(x.dtype), b)
     fmt = act_fmt or pw.fmt
     if pw.group_size == k:
         out = fused_ch_gemm(x.reshape(-1, k).contiguous(), pw.codes,
                             pw.scales, fmt, x.dtype)
-        return out.reshape(lead + (n,))
+        return _with_bias(out.reshape(lead + (n,)), b)
     x3 = x.reshape((-1,) + x.shape[-2:]) if x.dim() > 2 else x.reshape(
         1, -1, k)
     ac, asc = P.quant_int_codes(x3, fmt, pw.group_size)
     out = int8_group_gemm_nd(ac, asc, pw.codes, pw.scales, pw.group_size,
                              x.dtype)
-    return out.reshape(lead + (n,))
+    return _with_bias(out.reshape(lead + (n,)), b)
 
 
-def int8_linear_dual(x, pw: P.IntPack, act_fmt: str):
+def int8_linear_dual(x, pw: P.IntPack, act_fmt: str, *, mesh=None,
+                     parallel: str = None, b=None):
     """fc2: dual-grid activation (separate negative/positive codes and
     scales) against single-grid weight codes.  Two GEMMs whose float32
     halves are summed before the cast to ``x.dtype``, as JAX sums them: K3
-    per channel (``group_size == K``), K1 per group."""
+    per channel (``group_size == K``), K1 per group; with a ``mesh``, each
+    half through :func:`_mesh_codes_gemm`, and ``b`` as in
+    :func:`int8_linear`."""
     n, k = pw.shape
     x2 = x.reshape(-1, k)
     cn, sn, cp, sp = P.quant_int_codes_dual(x2, act_fmt, pw.group_size)
+    if mesh is not None and parallel is not None:
+        out = (_mesh_codes_gemm(cn, sn, pw, mesh, parallel)
+               + _mesh_codes_gemm(cp, sp, pw, mesh, parallel))
+        return _mesh_out(out, x, pw, b, mesh, parallel)
     if pw.group_size == k:
         out = (int8ch_gemm(cn, sn, pw.codes, pw.scales)
                + int8ch_gemm(cp, sp, pw.codes, pw.scales))
     else:
         out = (int8_group_gemm(cn, sn, pw.codes, pw.scales, pw.group_size)
                + int8_group_gemm(cp, sp, pw.codes, pw.scales, pw.group_size))
-    return out.reshape(x.shape[:-1] + (n,)).to(x.dtype)
+    return _with_bias(out.reshape(x.shape[:-1] + (n,)).to(x.dtype), b)

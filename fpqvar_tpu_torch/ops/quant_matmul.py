@@ -24,6 +24,7 @@ product.  The JAX package's CPU fallback instead rounds ``grid * scale`` to
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -165,7 +166,21 @@ def packed_matmul(x, codes, scales, fmt: str, group_size: int = 128,
     return out
 
 
-def packed_linear(x, pw: P.PackedTensor):
+def _packed_call(x2, pw: P.PackedTensor):
+    """``x2 [M, K]`` times a packed weight (whole, or one rank's shard)
+    -> [M, N] f32: K2, or JAX's dequantize route for a format without a
+    decoder (the weight rounded once to ``x2.dtype``, one float32
+    product)."""
+    if pw.fmt in KERNEL_FMTS:
+        return packed_matmul(x2.contiguous(), pw.codes, pw.scales, pw.fmt,
+                             pw.group_size, pw.nibble_packed)
+    n, k = pw.scales.shape[-1], pw.codes.shape[-1]
+    w = P.dequantize(dataclasses.replace(pw, shape=(n, k)), x2.dtype)
+    return x2.to(torch.float32) @ w.to(torch.float32).T
+
+
+def packed_linear(x, pw: P.PackedTensor, *, mesh=None, parallel: str = None,
+                  b=None):
     """``x [..., K]`` times the packed ``[N, K]`` weight, returned in
     ``x.dtype`` as ``[..., N]``.
 
@@ -173,13 +188,32 @@ def packed_linear(x, pw: P.PackedTensor):
     Every other format takes the JAX package's own route for it
     (``_packed_call``), on every device: the weight dequantized to
     ``x.dtype`` (``grid * scale`` in float32, rounded once), then one
-    float32 product."""
+    float32 product.
+
+    With a ``mesh`` and ``parallel`` ("col" or "row") the product runs on
+    this rank's shard of ``pw`` (``quant_matmul.py``'s ``shard_map``
+    route): the rank's columns, all-gathered over tp, or its K-slice of
+    ``x`` and scale groups, the f32 partials summed over tp; a replicated
+    pack runs whole.  Every rank of the tp row gets the whole output.
+
+    ``b``: the output's bias (under a column split, this rank's shard of
+    it), added in ``x.dtype``; under a mesh before the columns are
+    gathered (``collectives.linear_out``)."""
     n, k = pw.shape
     x2 = x.reshape(-1, k)
-    if pw.fmt in KERNEL_FMTS:
-        out = packed_matmul(x2.contiguous(), pw.codes, pw.scales, pw.fmt,
-                            pw.group_size, pw.nibble_packed)
-    else:
-        w = P.dequantize(pw, x.dtype)
-        out = x2.to(torch.float32) @ w.to(torch.float32).T
-    return out.reshape(x.shape[:-1] + (n,)).to(x.dtype)
+    if mesh is not None and parallel is not None:
+        from fpqvar_tpu_torch.parallel import collectives as C
+        from fpqvar_tpu_torch.parallel.mesh import linear_split
+
+        split = linear_split(pw, parallel, mesh.tp)
+        if not split:
+            out = _packed_call(x2, pw)
+        elif parallel == "col":
+            out = _packed_call(C.copy_to_tp(x2, mesh), pw)
+        else:
+            out = C.sum_partials(_packed_call(C.take_slice(x2, mesh), pw),
+                                 mesh)
+        y = C.linear_out(out.to(x.dtype), b, mesh, parallel, split)
+        return y.reshape(x.shape[:-1] + (n,))
+    y = _packed_call(x2, pw).reshape(x.shape[:-1] + (n,)).to(x.dtype)
+    return y if b is None else y + b.to(y.dtype)

@@ -122,6 +122,9 @@ class QuantRuntime:
     rotation_block: Optional[torch.Tensor] = None   # 128x128, float32
     rotation_full: Optional[torch.Tensor] = None    # C x C, float32
     transform: bool = False
+    #: the ``parallel.Mesh`` of a distributed run: the block linears, the
+    #: head and attention run tensor-parallel on this rank's shards
+    mesh: Optional[object] = None
 
     def for_block(self, i: int) -> "QuantRuntime":
         """The runtime of block ``i`` under mixed formats."""

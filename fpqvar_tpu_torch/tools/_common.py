@@ -45,3 +45,45 @@ def var_params(args, cfg: VARConfig, device,
             C.load_torch_state_dict(args.var_ckpt), cfg, device)
     print(warning, file=sys.stderr)
     return init_var_params(cfg, seed=0, device=device)
+
+
+def add_dist_backend_flag(p: argparse.ArgumentParser):
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend of a multi-process run "
+                        "(default nccl on cuda, gloo on cpu; gloo lets "
+                        "two ranks share one card)")
+
+
+def init_distributed(args):
+    """Join the process group of a multi-process run and return
+    ``(rank, world, device)``: from ``--coordinator host:port`` with
+    ``--num-hosts`` ranks (this one ``--host-id``), as JAX's
+    ``jax.distributed.initialize``, or from ``torchrun``'s environment
+    (``env://``, when ``WORLD_SIZE`` > 1).  A single process returns
+    ``(0, 1, args.device)`` and joins nothing.  On a card, rank r takes
+    card ``LOCAL_RANK % device_count`` (``host_id`` without torchrun), so
+    ranks on one card share it."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.coordinator is None and world <= 1:
+        return 0, 1, torch.device(args.device)
+    device = torch.device(args.device)
+    backend = args.dist_backend or ("nccl" if device.type == "cuda"
+                                    else "gloo")
+    if args.coordinator is not None:
+        dist.init_process_group(backend,
+                                init_method=f"tcp://{args.coordinator}",
+                                world_size=args.num_hosts,
+                                rank=args.host_id)
+    else:
+        dist.init_process_group(backend, init_method="env://")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    return rank, world, device

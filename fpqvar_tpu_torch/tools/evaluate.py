@@ -7,12 +7,25 @@ of ``run.sh:4-25``), model size and resolution as flags.  Checkpoints:
 only), ``--packed-ckpt`` (a quantized npz of ``convert_checkpoint``), GALT
 vectors from ``--best-s-dir`` (npz or the reference's ``.pt``); without a
 checkpoint a seeded random init stands in (smoke mode).  Generation runs
-through the engine's fused mode (CUDA graphs), JAX's default.  Classes
-split across hosts with ``--host-id`` / ``--num-hosts``; ``--pack-npz``
-packs the PNGs into ``<out>.npz`` at the end.  Runs on ``cuda`` unless
-``--device cpu``.  One process and one device: ``--dp`` / ``--tp`` > 1
-and ``--coordinator`` raise ``NotImplementedError`` until the port's
-distributed layer exists.
+through the engine's fused mode (CUDA graphs), JAX's default.  Without
+``--classes`` or a process group, the classes split across hosts with
+``--host-id`` / ``--num-hosts``; ``--pack-npz`` packs the PNGs into
+``<out>.npz`` at the end.  Runs on ``cuda`` unless
+``--device cpu``.
+
+Distributed runs, one process a rank: ``--coordinator host:port`` joins
+``--num-hosts`` processes (this one ``--host-id``) as JAX's
+``jax.distributed.initialize``; ``torchrun`` sets the same through its
+environment.  ``--dp`` / ``--tp`` build the ``{dp, tp}`` mesh over those
+ranks (``dp * tp`` of them), shard the tree and generate through the eager
+loop (the fused mode is not ported under a mesh); rank 0 writes the PNGs.
+Without a mesh each rank generates its ``class_range_for_host`` share of
+the classes (of ``--classes`` when given, else of all), and rank 0 packs
+the whole set.  The backend is NCCL on cards and gloo on the CPU
+(``--dist-backend gloo`` lets two ranks share one card):
+
+    torchrun --nproc-per-node 2 -m fpqvar_tpu_torch.tools.evaluate \
+        --tiny --device cpu --tp 2 --out figs_tp2 --classes 0:2
 
     # the full FPQVAR W4A4 recipe on the int8 backend, VAR-d16
     python -m fpqvar_tpu_torch.tools.evaluate --depth 16 --quant \\
@@ -31,9 +44,12 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from fpqvar_tpu_torch.config import GenerateConfig, QuantConfig
-from fpqvar_tpu_torch.tools._common import (add_model_flags, model_config,
+from fpqvar_tpu_torch.tools._common import (add_dist_backend_flag,
+                                            add_model_flags,
+                                            init_distributed, model_config,
                                             var_params)
 
 
@@ -87,11 +103,14 @@ def parse_args(argv=None):
     p.add_argument("--top_p", type=float, default=0.96)
     p.add_argument("--host-id", type=int, default=0)
     p.add_argument("--num-hosts", type=int, default=1)
-    p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks of the mesh (eager loop)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks of the mesh (eager loop)")
     p.add_argument("--coordinator", type=str, default=None,
                    help="host:port of a multi-host run's coordinator "
-                        "(not ported yet)")
+                        "(tcp:// rendezvous of --num-hosts processes)")
+    add_dist_backend_flag(p)
     p.add_argument("--pack-npz", action="store_true",
                    help="pack PNGs to npz when generation finishes")
     p.add_argument("--device", default="cuda")
@@ -161,33 +180,46 @@ def load_trees(args, cfg, qcfg):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.dp * args.tp > 1 or args.coordinator:
-        raise NotImplementedError(
-            "data / tensor parallelism and multi-host runs are not ported "
-            "yet (ROADMAP.md section 1, item 8: distributed); run with "
-            "--dp 1 --tp 1 and no --coordinator (--host-id / --num-hosts "
-            "split the classes between independent runs)")
+    from fpqvar_tpu_torch.config import MeshConfig
     from fpqvar_tpu_torch.eval.pipeline import (class_range_for_host,
                                                 generate_eval_set)
     from fpqvar_tpu_torch.models import VARGenerator
+    from fpqvar_tpu_torch.parallel import make_mesh, shard_params
 
+    rank, world, device = init_distributed(args)
+    args.device = str(device)
+    mesh = None
+    if args.dp * args.tp > 1:
+        mesh = make_mesh(MeshConfig(dp=args.dp, tp=args.tp), device)
     cfg, qcfg, gen_cfg = build_configs(args)
     var_p, vae_p = load_trees(args, cfg, qcfg)
+    if mesh is not None:
+        var_p = shard_params(var_p, mesh)
 
     # the model config (the reference logs the module repr,
     # evaluate...py:133-136)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "config.json"), "w") as f:
-        json.dump({"model": vars(args), "L": cfg.L, "width": cfg.width}, f,
-                  indent=2, default=str)
+    if rank == 0:
+        with open(os.path.join(args.out, "config.json"), "w") as f:
+            json.dump({"model": vars(args), "L": cfg.L,
+                       "width": cfg.width}, f, indent=2, default=str)
 
-    generator = VARGenerator(cfg, qcfg, gen_cfg, device=args.device)
+    generator = VARGenerator(cfg, qcfg, gen_cfg, device=device, mesh=mesh,
+                             fuse_steps=mesh is None)
     if args.classes:
         a, b = args.classes.split(":")
-        classes = range(int(a), int(b))
+        every = range(int(a), int(b))
+    elif world > 1:
+        every = range(cfg.num_classes)
     else:
-        classes = class_range_for_host(cfg.num_classes, args.host_id,
-                                       args.num_hosts)
+        every = class_range_for_host(cfg.num_classes, args.host_id,
+                                     args.num_hosts)
+    classes = every
+    if mesh is None and world > 1:
+        # each rank of a distributed run without a mesh is one host: the
+        # classes split once, by rank
+        share = class_range_for_host(len(every), rank, world)
+        classes = every[share.start:share.stop]
     batch = args.batch or args.num_img_per_class
     cuda = generator.device.type == "cuda"
     if cuda:
@@ -196,7 +228,7 @@ def main(argv=None):
     runs = generate_eval_set(
         generator, var_p, vae_p, args.out,
         num_img_per_class=args.num_img_per_class, classes=classes,
-        seed=args.seed, batch=args.batch)
+        seed=args.seed, batch=args.batch, mesh=mesh)
     secs = time.perf_counter() - t0
     line = {"generations": runs, "batch": batch, "seconds": secs,
             "ms_per_image": secs * 1e3 / max(runs * batch, 1)}
@@ -205,12 +237,16 @@ def main(argv=None):
         line["peak_bytes"] = torch.cuda.max_memory_allocated(generator.device)
     print("evaluate: " + json.dumps(line), flush=True)
 
-    if args.pack_npz:
+    if world > 1:
+        dist.barrier()      # every rank's PNGs are on disk
+    if args.pack_npz and rank == 0:
         from fpqvar_tpu_torch.eval.imaging import create_npz_from_sample_folder
 
         npz = create_npz_from_sample_folder(
-            args.out, expected=len(list(classes)) * args.num_img_per_class)
+            args.out, expected=len(every) * args.num_img_per_class)
         print(f"packed: {npz}")
+    if world > 1:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -11,12 +11,23 @@ states are saved under ``<out>/ckpt`` every ``--save-every`` steps and at
 the last, and a run resumes from the newest there; metrics go to
 ``<out>/metrics.jsonl``.  Each step's label dropout draws from a generator
 seeded by ``--seed`` and the step, so a resumed run takes the steps an
-uninterrupted one would.  Runs on ``cuda`` unless ``--device cpu``.  One
-process and one device: the data- and tensor-parallel flags raise
-``NotImplementedError`` until the port's distributed layer exists.
+uninterrupted one would.  Runs on ``cuda`` unless ``--device cpu``.
+
+Distributed runs, one process a rank (``torchrun``, or ``--coordinator
+host:port`` with ``--num-hosts`` and ``--host-id`` as JAX's
+``jax.distributed.initialize``): ``--dp`` / ``--tp`` build the ``{dp,
+tp}`` mesh over the ``dp * tp`` ranks, which keep their shards of the
+train state (``train_step(mesh=)``).  Every rank draws the global batch of
+the index stream and keeps its dp rows (JAX's one-host layout, the batch
+split over dp), so a mesh run takes the one-device run's steps; rank 0
+writes the checkpoints (the one-device file) and the metrics.  The backend
+is NCCL on cards and gloo on the CPU (``--dist-backend gloo`` lets two
+ranks share one card).
 
     python -m fpqvar_tpu_torch.tools.train --depth 16 --steps 100 \\
         --bf16 --out runs/d16
+    torchrun --nproc-per-node 2 -m fpqvar_tpu_torch.tools.train --tiny \\
+        --device cpu --dp 2 --out runs/tiny_dp2
 """
 from __future__ import annotations
 
@@ -27,10 +38,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from fpqvar_tpu_torch.config import VARConfig
+from fpqvar_tpu_torch.config import MeshConfig, VARConfig
 from fpqvar_tpu_torch.models.var import init_var_params
-from fpqvar_tpu_torch.tools._common import add_model_flags, model_config
+from fpqvar_tpu_torch.parallel import make_mesh, shard_params
+from fpqvar_tpu_torch.tools._common import (add_dist_backend_flag,
+                                            add_model_flags,
+                                            init_distributed, model_config)
 from fpqvar_tpu_torch.train import (auto_resume, dist_infinite_batches,
                                     make_manager, make_train_state,
                                     save_train_state, train_step)
@@ -59,6 +74,7 @@ def parse_args(argv=None):
     p.add_argument("--coordinator", type=str, default=None)
     p.add_argument("--num-hosts", type=int, default=1)
     p.add_argument("--host-id", type=int, default=0)
+    add_dist_backend_flag(p)
     p.add_argument("--out", type=str, required=True, help="run directory")
     p.add_argument("--save-every", type=int, default=50)
     p.add_argument("--keep", type=int, default=3)
@@ -92,12 +108,13 @@ def load_data(args, cfg: VARConfig):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.dp > 1 or args.tp > 1 or args.coordinator or args.num_hosts > 1:
-        raise NotImplementedError(
-            "data / tensor parallelism and multi-host runs are not ported "
-            "yet (ROADMAP.md section 1, item 8: distributed); run with "
-            "--dp 1 --tp 1 and no --coordinator")
-    device = torch.device(args.device)
+    rank, world, device = init_distributed(args)
+    mesh = None
+    if world > 1 or args.dp * args.tp > 1:
+        mesh = make_mesh(MeshConfig(dp=args.dp, tp=args.tp), device)
+        if args.glb_batch % mesh.dp:
+            raise ValueError(f"--glb-batch {args.glb_batch} does not split "
+                             f"over dp={mesh.dp}")
     cfg = model_config(args)
     label, x, targets = load_data(args, cfg)
 
@@ -106,12 +123,15 @@ def main(argv=None):
         warmup_steps=max(1, round(args.warmup_frac * args.steps)),
         decay_steps=args.steps, end_value=0.001 * args.lr)
     optimizer = make_optimizer(wd=args.wd, schedule=sched)
-    state = make_train_state(
-        init_var_params(cfg, seed=args.seed, device=device), optimizer)
+    params = init_var_params(cfg, seed=args.seed, device=device)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+    state = make_train_state(params, optimizer)
 
     mngr = make_manager(os.path.join(args.out, "ckpt"), max_to_keep=args.keep)
-    info, state, start = auto_resume(mngr, state)
-    print("\n".join(info))
+    info, state, start = auto_resume(mngr, state, mesh)
+    if rank == 0:
+        print("\n".join(info))
 
     # resume the index stream at exactly the (epoch, iter) position step
     # `start` left off at
@@ -119,11 +139,15 @@ def main(argv=None):
     batches = dist_infinite_batches(
         1, 0, len(label), args.glb_batch, seed=args.seed, fill_last=True,
         start_ep=start // iters_per_ep, start_it=start % iters_per_ep)
-    logger = MetricLogger(os.path.join(args.out, "metrics.jsonl"))
+    logger = MetricLogger(os.path.join(args.out, "metrics.jsonl")
+                          if rank == 0 else None)
     drop_gen = torch.Generator(device=device)
     t0 = time.time()
     for it in range(start, args.steps):
         idx = next(batches)
+        if mesh is not None:        # this rank's dp rows
+            n = len(idx) // mesh.dp
+            idx = idx[mesh.dp_rank * n:(mesh.dp_rank + 1) * n]
         batch = {"label": torch.from_numpy(label[idx]).long().to(device),
                  "x": torch.from_numpy(x[idx]).to(device),
                  "targets": torch.from_numpy(targets[idx]).long().to(device)}
@@ -131,8 +155,9 @@ def main(argv=None):
         state, metrics = train_step(
             state, cfg, optimizer, batch, generator=drop_gen,
             mixed_precision=args.bf16, label_smoothing=args.label_smooth,
-            remat=args.remat)
-        if (it + 1) % args.log_every == 0 or it + 1 == args.steps:
+            remat=args.remat, mesh=mesh)
+        if rank == 0 and ((it + 1) % args.log_every == 0
+                          or it + 1 == args.steps):
             loss = float(metrics["loss"])
             logger.update(step=it + 1, loss=loss, lr=sched(it),
                           imgs_per_s=args.glb_batch * args.log_every
@@ -140,8 +165,11 @@ def main(argv=None):
             print(f"step {it + 1}/{args.steps} {logger}")
             t0 = time.time()
         if (it + 1) % args.save_every == 0 or it + 1 == args.steps:
-            save_train_state(mngr, state)
-    print(f"done: {args.steps} steps, ckpts in {args.out}/ckpt")
+            save_train_state(mngr, state, mesh)
+    if rank == 0:
+        print(f"done: {args.steps} steps, ckpts in {args.out}/ckpt")
+    if world > 1:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -20,9 +20,22 @@ Where the port departs from the JAX package, and why:
   gradient).
 - Label dropout draws from the caller's ``torch.Generator`` where JAX
   takes a key: the same rate, other masks.
+
+Under a ``{dp, tp}`` mesh (``train_step(mesh=)``, the layout of JAX's
+``scripts/train.py``) each rank holds its shards of the params
+(``parallel.shard_params``) and its dp rows of the batch.  The tp splits
+run through the autograd collectives of ``parallel/collectives.py``; the
+gradients are averaged over dp; the clip sees the global norm (the
+squares of sharded leaves summed over tp, replicated leaves counted
+once); the AdamW moments live beside their shards (sharded like their
+parameter, as JAX shards ``opt_state``); the loss comes back as the dp
+mean.  The label-dropout mask is drawn for the whole batch and each rank
+keeps its rows, so a mesh step equals the one-device step up to the order
+of float32 sums.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
@@ -32,6 +45,8 @@ import torch.nn.functional as F
 
 from fpqvar_tpu_torch.config import VARConfig
 from fpqvar_tpu_torch.models import var as V
+from fpqvar_tpu_torch.parallel import collectives as C
+from fpqvar_tpu_torch.quantize.runtime import QuantRuntime
 
 
 class TrainState(NamedTuple):
@@ -143,12 +158,21 @@ def tree_map(fn, tree):
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list, max_norm: float, mesh=None,
+                         sharded=None) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place: where the global norm is
     at least ``max_norm``, every gradient becomes ``(g / norm) *
     max_norm`` (``torch.nn.utils.clip_grad_norm_`` divides by ``norm +
-    1e-6`` instead).  No host sync.  Returns the norm."""
-    norm = torch.sqrt(sum(g.square().sum() for g in grads))
+    1e-6`` instead).  No host sync.  Returns the norm.  Under a ``mesh``,
+    ``sharded[i]`` says whether ``grads[i]`` is a tp shard: those squares
+    are summed over tp, the replicated ones counted once."""
+    if mesh is None or mesh.tp <= 1:
+        norm = torch.sqrt(sum(g.square().sum() for g in grads))
+    else:
+        sq = [sum((g.square().sum() for g, s in zip(grads, sharded)
+                   if s == part), torch.zeros((), device=grads[0].device))
+              for part in (True, False)]
+        norm = torch.sqrt(C.sum_partials(sq[0], mesh) + sq[1])
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -179,13 +203,19 @@ class Optimizer:
                                  weight_decay=self.wd, foreach=on_card)
 
     def update(self, opt: torch.optim.AdamW, leaves: list,
-               count: int) -> None:
+               count: int, mesh=None, sharded=None) -> None:
         """Clip the leaves' gradients, set the learning rate of update
-        ``count`` and step; the gradients are then released."""
+        ``count`` and step; the gradients are then released.  Under a
+        ``mesh`` the gradients are first averaged over dp, and the clip
+        takes the global norm (``sharded``: which leaves are tp
+        shards)."""
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        clip_by_global_norm_([p.grad for p in leaves], self.grad_clip)
+        grads = [p.grad for p in leaves]
+        if mesh is not None:
+            C.dp_mean_(grads, mesh)
+        clip_by_global_norm_(grads, self.grad_clip, mesh, sharded)
         for group in opt.param_groups:
             group["lr"] = self.lr(count)
         opt.step()
@@ -217,18 +247,26 @@ def loss_fn(
     params, cfg: VARConfig, qrt, label_B, x_teacher, targets,
     generator: Optional[torch.Generator] = None,
     label_smoothing: float = 0.0, mixed_precision: bool = False,
-    remat: bool = False,
+    remat: bool = False, mesh=None,
 ) -> torch.Tensor:
     """Teacher-forcing cross-entropy with classifier-free-guidance label
     dropout: with a ``generator``, each label becomes ``num_classes``
     with probability ``cfg.cond_drop_rate``.  ``mixed_precision`` runs the
     forward in bf16 off the float32 params (gradients flow back to them
     in float32); the loss is reduced in float32.  ``remat`` recomputes
-    each block on the backward pass."""
+    each block on the backward pass.  Under a ``mesh`` the rows are this
+    rank's dp share: the mask is drawn for the whole batch and the rank
+    keeps its rows, and the forward runs tensor-parallel."""
     if generator is not None and cfg.cond_drop_rate > 0:
-        drop = torch.rand(label_B.shape, generator=generator,
-                          device=label_B.device) < cfg.cond_drop_rate
-        label_B = torch.where(drop, cfg.num_classes, label_B)
+        n = label_B.shape[0]
+        dp, d = (1, 0) if mesh is None else (mesh.dp, mesh.dp_rank)
+        u = torch.rand((n * dp,), generator=generator,
+                       device=label_B.device)[d * n:(d + 1) * n]
+        label_B = torch.where(u < cfg.cond_drop_rate, cfg.num_classes,
+                              label_B)
+    if mesh is not None:
+        qrt = dataclasses.replace(
+            qrt if qrt is not None else QuantRuntime(), mesh=mesh)
     fwd = params
     if mixed_precision:
         fwd = tree_map(_bf16, params)
@@ -243,18 +281,28 @@ def train_step(
     batch: Dict[str, torch.Tensor], qrt=None,
     generator: Optional[torch.Generator] = None,
     mixed_precision: bool = False, label_smoothing: float = 0.0,
-    remat: bool = False,
+    remat: bool = False, mesh=None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step on ``batch`` = {"label": [B], "x": [B, L -
     first_l, Cvae], "targets": [B, L]}.  The params are updated in place;
     the loss comes back as a device tensor (reading it waits for the
-    device)."""
+    device).  Under a ``mesh`` (module docstring) ``state`` holds this
+    rank's shards and ``batch`` its dp rows; the loss is the dp mean."""
     leaves = tree_leaves(state.params)
     loss = loss_fn(state.params, cfg, qrt, batch["label"], batch["x"],
                    batch["targets"], generator=generator,
                    label_smoothing=label_smoothing,
-                   mixed_precision=mixed_precision, remat=remat)
+                   mixed_precision=mixed_precision, remat=remat, mesh=mesh)
     loss.backward()
-    optimizer.update(state.opt_state, leaves, state.step)
+    sharded = None
+    if mesh is not None:
+        from fpqvar_tpu_torch.parallel.mesh import param_specs
+
+        sharded = [s is not None for s in tree_leaves(
+            param_specs(state.params, mesh))]
+    optimizer.update(state.opt_state, leaves, state.step, mesh, sharded)
+    loss = loss.detach()
+    if mesh is not None:
+        C.dp_mean_([loss], mesh)
     return (TrainState(state.params, state.opt_state, state.step + 1),
-            {"loss": loss.detach()})
+            {"loss": loss})

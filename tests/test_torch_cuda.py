@@ -52,6 +52,13 @@ K5 launches, and a fused one writing the same PNG bytes; the VQVAE
 decode unchanged by the TF32 flag, and ``conv2d_plain`` bit-equal to
 ``F.conv2d`` with cuDNN and TF32 off while both TF32 flags are on.
 
+The shards of a d16 tensor-parallel rank (tp = 2): K1 and K2 on both
+ranks' column shards (qkv N = 1536, fc1 N = 2048) and row shards (proj K =
+512, fc2 K = 2048) within their tolerances, K3 on the column shards
+``torch.equal`` to its plain version and, concatenated, to the whole
+product, and the row split's sum of two K1 halves within twice K1's bound
+of the whole K1.
+
 The tests are marked ``cuda`` and skip without a CUDA device.  The file
 imports no JAX, so it also runs where JAX is not installed:
 
@@ -98,6 +105,124 @@ def test_cuda_kernel_matches_plain(cuda_device, m, k, n, group):
     ref = K.int8_group_gemm_ref(ac, asc, pw.codes, pw.scales, group)
     tol = K.int8_group_gemm_tolerance(ac, asc, pw.codes, pw.scales, group)
     assert bool(((ours - ref).abs() <= tol).all())
+
+
+#: the shards a d16 tp = 2 rank holds: (linear, split, K, N) of the whole
+#: weight; the rank's K1 / K2 operands are its columns or its K-slice
+TP2_SHARDS = [("qkv", "col", 1024, 3072), ("fc1", "col", 1024, 4096),
+              ("proj", "row", 1024, 1024), ("fc2", "row", 4096, 1024)]
+
+
+def _tp2_operands(x, pack, split, rank):
+    """A tp = 2 rank's operands: its shard of ``pack`` (``parallel.mesh``'s
+    split) and the whole activation ``x`` (codes and scales) or its
+    K-slice."""
+    from fpqvar_tpu_torch.parallel.mesh import Mesh, pack_dims, shard_tensor
+
+    mesh = Mesh(dp=1, tp=2, rank=rank)
+    cd, sd = pack_dims("fc1_w" if split == "col" else "fc2_w",
+                       _stacked(pack), 2)
+    codes = shard_tensor(pack.codes[None], cd, mesh)[0]
+    scales = shard_tensor(pack.scales[None], sd, mesh)[0]
+    if split == "row":
+        x = tuple(shard_tensor(t, 1, mesh) for t in x)
+    return x, codes, scales
+
+
+def _stacked(pack):
+    import dataclasses
+
+    return dataclasses.replace(pack, codes=pack.codes[None],
+                               scales=pack.scales[None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1024, 4096])
+@pytest.mark.parametrize("name,split,k,n", TP2_SHARDS)
+def test_cuda_k1_tp2_shards_match_plain(cuda_device, name, split, k, n, m):
+    """K1 at a d16 tp = 2 rank's shard shapes (columns N / 2, or the
+    K-slice K / 2 with its scale groups), both ranks, within K1's
+    tolerance; M = 1024 is a batch-2 last scale, 4096 a batch-8 one."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((n, k)) * 0.02)
+                         .astype(np.float32))
+    ac = P.quant_int_codes(x.to(cuda_device), "fp_e2", 128)
+    pw = P.pack_int_codes(w.to(cuda_device), "fp_e2", 128)
+    for rank in range(2):
+        (a, sa), wc, ws = _tp2_operands(ac, pw, split, rank)
+        assert wc.shape == ((n // 2, k) if split == "col" else (n, k // 2))
+        ours = K.int8_group_gemm(a, sa, wc, ws, 128)
+        ref = K.int8_group_gemm_ref(a, sa, wc, ws, 128)
+        tol = K.int8_group_gemm_tolerance(a, sa, wc, ws, 128)
+        assert bool(((ours - ref).abs() <= tol).all()), (name, rank)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,split,k,n", TP2_SHARDS)
+def test_cuda_k2_tp2_shards_match_plain(cuda_device, name, split, k, n):
+    """K2 (bf16 x, e2m1 nibbles) at a d16 tp = 2 rank's shard shapes, both
+    ranks, within K2's tolerance."""
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.standard_normal((1024, k)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((n, k)) * 0.02)
+                         .astype(np.float32))
+    pw = P.pack(w.to(cuda_device), "fp_e2", 128)
+    for rank in range(2):
+        (xs,), codes, scales = _tp2_operands((x.to(cuda_device, BF16),), pw,
+                                             split, rank)
+        ops = (xs, codes, scales, "fp_e2", 128, True)
+        ours = QM.packed_matmul(*ops)
+        assert ours.shape == (1024, n // 2 if split == "col" else n)
+        tol = QM.packed_matmul_tolerance(*ops)
+        assert bool(((ours - QM.packed_matmul_ref(*ops)).abs()
+                     <= tol).all()), (name, rank)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1024, 4096])
+@pytest.mark.parametrize("n", [3072, 4096])           # qkv, fc1 columns
+def test_cuda_k3_tp2_column_shards_equal_plain(cuda_device, n, m):
+    """K3 on a tp = 2 rank's columns of a per-channel qkv / fc1 (N / 2 =
+    1536, 2048) equals its plain version, and the two ranks' columns
+    equal the whole product's."""
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.standard_normal((m, 1024)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((n, 1024)) * 0.02)
+                         .astype(np.float32))
+    ac, asc = P.quant_int_codes(x.to(cuda_device), "fp_e2", 1024)
+    pw = P.pack_int_codes(w.to(cuda_device), "fp_e2", 1024)
+    whole = K.int8ch_gemm(ac, asc, pw.codes, pw.scales)
+    parts = []
+    for rank in range(2):
+        (a, sa), wc, ws = _tp2_operands((ac, asc), pw, "col", rank)
+        parts.append(K.int8ch_gemm(a, sa, wc, ws))
+        assert torch.equal(parts[-1], K.int8ch_gemm_ref(a, sa, wc, ws))
+    assert torch.equal(torch.cat(parts, 1), whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1024, 4096])           # proj, fc2
+def test_cuda_k1_row_split_sum_matches_whole(cuda_device, k):
+    """The row split's sum of the two ranks' K1 halves against the whole
+    K1: each lies within its ``K1_REL_TOL`` bound of the exact sum, the
+    halves' bounds add up to the whole's, and the f32 add rounds once, so
+    ``|sum - whole| <= 2 * tol + ulp(sum)``."""
+    rng = np.random.default_rng(24)
+    x = torch.from_numpy(rng.standard_normal((1024, k)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((1024, k)) * 0.02)
+                         .astype(np.float32))
+    ac = P.quant_int_codes(x.to(cuda_device), "fp_e2", 128)
+    pw = P.pack_int_codes(w.to(cuda_device), "fp_e2", 128)
+    halves = []
+    for rank in range(2):
+        (a, sa), wc, ws = _tp2_operands(ac, pw, "row", rank)
+        halves.append(K.int8_group_gemm(a, sa, wc, ws, 128))
+    total = halves[0] + halves[1]
+    whole = K.int8_group_gemm(*ac, pw.codes, pw.scales, 128)
+    tol = K.int8_group_gemm_tolerance(*ac, pw.codes, pw.scales, 128)
+    ulp = total.abs() * 2.0 ** -23
+    assert bool(((total - whole).abs() <= 2 * tol + ulp).all())
 
 
 @pytest.mark.cuda

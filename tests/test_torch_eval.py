@@ -23,7 +23,8 @@ features, uint8 conversion and PNG I/O, the eval-set generator, and the
   port.
 - ``generate_eval_set`` at ``var_tiny`` with ``top_k=1`` (argmax): uint8
   images at most 1 level from JAX's, the same files, and the same resume
-  behaviour.
+  behaviour; under a dp 2 mesh of two gloo ranks, the same files within
+  one level of the one-device set.
 """
 import dataclasses
 import json
@@ -58,6 +59,7 @@ from fpqvar_tpu_torch.models import VARGenerator
 from fpqvar_tpu_torch.tools import evaluate, score
 from fpqvar_tpu_torch.utils.bridge import to_torch
 from test_torch_generate import _jax_float_params, _jax_vae
+from torch_mesh_worker import run_cli_ranks, run_ranks
 from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -376,6 +378,16 @@ def _u8_folder(d):
     return {n: png.read_png(os.path.join(d, n)) for n in sorted(os.listdir(d))}
 
 
+def _assert_same_set(ours, theirs):
+    """The same PNG files, each within one uint8 level (a rank decodes
+    its own rows: the CPU's convolutions round differently for another
+    number of rows, and a value near a level's edge can round over it)."""
+    assert list(ours) == list(theirs)
+    for n in ours:
+        diff = np.abs(ours[n].astype(int) - theirs[n].astype(int))
+        assert diff.max() <= 1, n
+
+
 def test_generate_eval_set_matches_jax(tmp_path):
     """Two classes of 3 images at batch 2 (the tail sliced), ``top_k=1``
     so that no RNG enters; then resume: nothing runs again, and a deleted
@@ -410,8 +422,17 @@ def test_generate_eval_set_matches_jax(tmp_path):
     assert P.generate_eval_set(gen, tp, tvae, out, num_img_per_class=3,
                                classes=[3, 5], batch=2) == 2
     assert open(os.path.join(out, "class5_img1.png"), "rb").read() == before
-    with pytest.raises(NotImplementedError):
-        P.generate_eval_set(gen, tp, tvae, out, mesh=object())
+    # dp 2 on two gloo ranks: the same files, rank 0 writes them
+    mesh_out = str(tmp_path / "dp2")
+    res = run_ranks(2, dict(cfg=cfg, qcfg=QuantConfig(),
+                            gen_cfg=GenerateConfig(top_k=1, top_p=0.0),
+                            params=tp, vae=tvae, cases=[(
+                                "set", "eval_set", dict(
+                                    dp=2, tp=1, out_dir=mesh_out,
+                                    num_img_per_class=3, classes=[3, 5],
+                                    batch=2))]), str(tmp_path / "ranks"))
+    assert [r["set"] for r in res] == [4, 4]
+    _assert_same_set(_u8_folder(mesh_out), _u8_folder(out))
 
 
 def test_generate_eval_set_seeds_by_class_and_position(tmp_path):
@@ -460,10 +481,19 @@ def _jax_evaluate_args(argv):
         sys.argv = old
 
 
+def _retarget(argv, out):
+    """``argv`` with its ``--out`` replaced."""
+    i = argv.index("--out")
+    return argv[:i + 1] + [out] + argv[i + 2:]
+
+
 def test_evaluate_cli_flags_and_tiny_run(tmp_path):
-    """Every JAX flag with its default (the port adds ``--device``); a
-    tiny run on the CPU writes the PNGs, ``config.json`` with JAX's keys,
-    and the packed npz; the distributed flags raise."""
+    """Every JAX flag with its default (the port adds ``--device`` and
+    ``--dist-backend``); a tiny run on the CPU writes the PNGs,
+    ``config.json`` with JAX's keys, and the packed npz; ``--dp 2`` on two
+    gloo ranks writes the same PNGs (within one uint8 level), and two
+    ``--coordinator`` processes split the classes and write the same
+    files, byte for byte."""
     out = str(tmp_path / "figs")
     argv = ["--tiny", "--out", out, "--num-img-per-class", "2",
             "--classes", "0:2", "--batch", "2", "--pack-npz", "--quant",
@@ -472,7 +502,7 @@ def test_evaluate_cli_flags_and_tiny_run(tmp_path):
             "--weight_fp_quant", "--backend", "int8"]
     ours = vars(evaluate.parse_args(argv + ["--device", "cpu"]))
     theirs = vars(_jax_evaluate_args(argv))
-    assert set(ours) - set(theirs) == {"device"}
+    assert set(ours) - set(theirs) == {"device", "dist_backend"}
     assert {k: ours[k] for k in theirs} == theirs
     defaults = vars(evaluate.parse_args(["--out", out]))
     jdefaults = vars(_jax_evaluate_args(["--out", out]))
@@ -484,13 +514,47 @@ def test_evaluate_cli_flags_and_tiny_run(tmp_path):
     with open(os.path.join(out, "config.json")) as f:
         cfg = json.load(f)
     assert set(cfg) == {"model", "L", "width"}
-    assert set(cfg["model"]) - set(theirs) == {"device"}
+    assert set(cfg["model"]) - set(theirs) == {"device", "dist_backend"}
     with np.load(out + ".npz") as d:
         assert d["arr_0"].shape == (4, 6, 6, 3)
-    with pytest.raises(NotImplementedError):
-        evaluate.main(argv + ["--device", "cpu", "--dp", "2"])
-    with pytest.raises(NotImplementedError):
-        evaluate.main(argv + ["--device", "cpu", "--coordinator", "h:1"])
+    # --dp 2 on two gloo ranks (torchrun's environment): the same PNGs
+    dp2 = str(tmp_path / "dp2")
+    run_cli_ranks("fpqvar_tpu_torch.tools.evaluate",
+                  _retarget(argv, dp2) + ["--device", "cpu", "--dp", "2"], 2)
+    png_names = [f for f in os.listdir(out) if f.endswith(".png")]
+    pngs = {n: png.read_png(os.path.join(out, n)) for n in sorted(png_names)}
+    _assert_same_set({n: png.read_png(os.path.join(dp2, n))
+                      for n in sorted(png_names)}, pngs)
+    # two --coordinator processes split the classes: one each, byte-equal
+    # to the one-process run's, packed by rank 0
+    coord = str(tmp_path / "coord")
+    run_cli_ranks("fpqvar_tpu_torch.tools.evaluate",
+                  _retarget(argv, coord) + ["--device", "cpu"], 2,
+                  coordinator=True)
+    assert sorted(f for f in os.listdir(coord) if f.endswith(".png")) == \
+        sorted(png_names)
+    for n in png_names:
+        with open(os.path.join(coord, n), "rb") as f, \
+                open(os.path.join(out, n), "rb") as g:
+            assert f.read() == g.read(), n
+    with np.load(coord + ".npz") as d:
+        assert d["arr_0"].shape == (4, 6, 6, 3)
+
+
+def test_evaluate_cli_coordinator_writes_every_class(tmp_path):
+    """Two ``--coordinator`` processes without ``--classes`` split all of
+    the tiny config's classes once between them: every class's PNG is on
+    disk, and rank 0 packs the whole set."""
+    out = str(tmp_path / "all")
+    n = var_tiny().num_classes
+    run_cli_ranks("fpqvar_tpu_torch.tools.evaluate",
+                  ["--tiny", "--device", "cpu", "--out", out,
+                   "--num-img-per-class", "1", "--batch", "1",
+                   "--pack-npz"], 2, coordinator=True)
+    assert sorted(f for f in os.listdir(out) if f.endswith(".png")) == \
+        sorted(f"class{c}_img0.png" for c in range(n))
+    with np.load(out + ".npz") as d:
+        assert d["arr_0"].shape == (n, 6, 6, 3)
 
 
 def test_score_cli_matches_jax(tmp_path):

@@ -35,7 +35,9 @@ The same seeded numpy data and JAX-initialized params (``var_tiny``,
   never the newest, and the restore refuses another tree;
 - ``MetricLogger``'s JSONL lines, and ``profile_trace``'s Chrome trace;
 - ``tools/train.py --tiny --device cpu`` run twice: the second resumes at
-  the last step and adds nothing; the parallel flags raise.
+  the last step and adds nothing; with ``--dp 2``, ``--tp 2`` and
+  ``--coordinator`` on two gloo ranks it takes the one-device run's
+  steps.
 """
 import functools
 import json
@@ -61,6 +63,7 @@ from fpqvar_tpu_torch.train import trainer as T
 from fpqvar_tpu_torch.utils.bridge import to_torch
 from fpqvar_tpu_torch.utils.logging import (MetricLogger, SmoothedValue,
                                             Timer, profile_trace)
+from torch_mesh_worker import run_cli_ranks
 from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = var_tiny()
@@ -406,8 +409,29 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"],
-                                   ["--coordinator", "localhost:1234"]])
+                                   ["--coordinator", "--dp", "2"]])
 def test_train_cli_refuses_parallel_flags(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["--tiny", "--device", "cpu", "--out", str(tmp_path)]
-                 + flags)
+    """The parallel flags run: two gloo ranks of ``tools/train.py`` (from
+    torchrun's environment, or each given ``--coordinator``) take the
+    one-device run's steps: the same logged steps, each loss within a
+    relative 1e-6, and the final checkpoint's params within 1e-3 of the
+    three steps' size (float32 sums in another order; the step bound of
+    ``test_train_steps_match_jax``)."""
+    common = ["--tiny", "--device", "cpu", "--steps", "3", "--glb-batch",
+              "4", "--synthetic-n", "10", "--log-every", "1"]
+    cli.main(common + ["--out", str(tmp_path / "one")])
+    coordinator = flags[0] == "--coordinator"
+    run_cli_ranks("fpqvar_tpu_torch.tools.train",
+                  common + ["--out", str(tmp_path / "mesh")]
+                  + flags[coordinator:], 2, coordinator=coordinator)
+    one, mesh = ([json.loads(s) for s in (tmp_path / d / "metrics.jsonl")
+                  .read_text().splitlines()] for d in ("one", "mesh"))
+    assert [m["step"] for m in mesh] == [m["step"] for m in one] == [1, 2, 3]
+    for a, b in zip(mesh, one):
+        assert abs(a["loss"] - b["loss"]) <= 1e-6 * b["loss"]
+    ours, theirs = (torch.load(tmp_path / d / "ckpt" / "3" / "state.pt",
+                               weights_only=True)["params"]
+                    for d in ("mesh", "one"))
+    for a, b in zip(T.tree_leaves(ours), T.tree_leaves(theirs)):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * 3 * 1e-4)
