@@ -170,7 +170,22 @@ non-zero:
    rank holds, and the calls, bytes and host seconds of each collective
    (gloo through the host: no yardstick for NVLink).
 
-The phases run in the order 1-6, 10, 7-9, 11, 12, 13, 14, 15.  Phases 4-6 and the
+16. the user-facing CLIs, at VAR-d16 full width and depth: (a) the
+   native host library (``utils/native.py``, built with g++ from
+   ``csrc/fpq_native.cpp``; where this machine has no g++ or zlib.h the
+   phase says so and holds the numpy fallback instead): its build seconds,
+   both zlib versions, every function equal to the port's torch
+   counterparts on the card, PNGs equal to ``eval/png.py``'s and both
+   writers' images/s; (b) ``tools/latency_breakdown.main`` (``bf16`` and
+   ``int8``, batch 8, 3 rounds): per-stage ms of prepare, the ten scales
+   and the decode, every eager ``int8`` pass exactly K1 320 + K5 480,
+   finite stepwise images; (c) ``tools/serve.main`` (W4A4 on the int8
+   backend, 8 demo requests, ``max_batch`` 8) under torch.profiler: JAX's
+   PNG names, K1 320 + K5 480 for the warm-up and for each served batch's
+   replay, and pixels equal to the same requests through an eager
+   ``GenerationServer`` over the CLI's trees.
+
+The phases run in the order 1-6, 10, 7-9, 11, 12, 13, 14, 15, 16.  Phases 4-6 and the
 launch gates of phases 7 and 9 run the eager loop (``fuse_steps=False``),
 whose every launch the wrappers' host counters see.
 
@@ -3411,6 +3426,292 @@ def phase_distributed(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the user-facing CLIs and the native host library
+# ---------------------------------------------------------------------------
+
+#: latency_breakdown at VAR-d16, full width and depth (phase 16 (b))
+LATENCY_FLAGS = ["--preset", "d16", "--modes", "bf16,int8", "--batch", "8",
+                 "--rounds", "3"]
+#: the serve CLI at VAR-d16: W4A4 without GALT on the int8 backend (K1 at
+#: fc2, K5 elsewhere), one batch of 8 demo requests (phase 16 (c))
+SERVE_FLAGS = ["--depth", "16", "--recipe", "w4a4", "--no-transform",
+               "--backend", "int8", "--demo", "8", "--max-batch", "8"]
+#: K1 and K5 launches of one eager d16 int8 generation (160 block
+#: forwards: fc2 as two K1 GEMMs, qkv, proj and fc1 through K5)
+D16_INT8_LAUNCHES = {"K1": 320, "K5": 480}
+#: PNGs of the write-rate comparison: count and side
+PNG_RATE_SET = (64, 256)
+
+
+def _host_toolchain() -> tuple:
+    """``(g++ found, zlib.h found by it)`` on this machine."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return False, False
+    proc = subprocess.run([gxx, "-fsyntax-only", "-x", "c++", "-"],
+                          input="#include <zlib.h>\n", capture_output=True,
+                          text=True)
+    return True, proc.returncode == 0
+
+
+def _grid_probe(grid) -> np.ndarray:
+    """±0, ±1e30, the grid, its midpoints and their float32 neighbours,
+    and seeded Gaussians at the grid's scale (tests/test_torch_native.py's
+    inputs)."""
+    g = np.asarray(grid, np.float32)
+    mids = (g[1:] + g[:-1]) / 2
+    rng = np.random.default_rng(0)
+    return np.concatenate([
+        np.float32([0.0, -0.0, 1e30, -1e30]), g, mids,
+        np.nextafter(mids, np.float32(np.inf)),
+        np.nextafter(mids, np.float32(-np.inf)),
+        rng.standard_normal(2000).astype(np.float32) * np.abs(g).max(),
+    ]).astype(np.float32)
+
+
+def _png_idat(data: bytes) -> bytes:
+    """The inflated IDAT stream of a PNG file's bytes."""
+    import struct
+    import zlib
+
+    pos, out = 8, []
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            out.append(data[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    return zlib.decompress(b"".join(out))
+
+
+def _cli_native(tmp: str, card: str) -> None:
+    """(a) The native host library: built (or, where this machine has no
+    g++ or zlib.h, its numpy fallback, said so), every function equal to
+    the port's torch counterparts on the card (snap and encode on every
+    grid, the nibble pack of a d16 fc1 weight, uint8 conversion of a d16
+    batch), the PNG writer's files equal to ``eval/png.py``'s (bytes where
+    the two zlibs are one version, else inflated streams and pixels), and
+    both writers' rates."""
+    import zlib
+
+    from fpqvar_tpu_torch.eval import imaging as Im
+    from fpqvar_tpu_torch.eval import png
+    from fpqvar_tpu_torch.ops import grids as G
+    from fpqvar_tpu_torch.ops import packing as P
+    from fpqvar_tpu_torch.ops import quantizers as Q
+    from fpqvar_tpu_torch.utils import native
+
+    gxx, zlib_h = _host_toolchain()
+    ok = native.available()
+    print(f"cli: (a) native library: g++ {'found' if gxx else 'missing'}, "
+          f"zlib.h {'found' if zlib_h else 'missing'}; available {ok}, ABI "
+          f"{native.abi_version()}, first load in this process "
+          f"{native.build_seconds()} s (the g++ build); zlib: Python "
+          f"{zlib.ZLIB_RUNTIME_VERSION}, the library's "
+          f"{native.zlib_version()}")
+    if not ok:
+        if gxx and zlib_h:
+            fail("cli: (a) the native library did not build where g++ and "
+                 f"zlib.h exist:\n{native.build_error()}")
+        print("cli: (a) this machine lacks g++ or zlib.h: the checks below "
+              "hold the numpy fallback")
+    grids = {**G.GRIDS, "E1M2_NEG": G.E1M2_NEG, "E2M1_POS": G.E2M1_POS,
+             "E2M1_NEG": G.E2M1_NEG, "INT_NEG": G.INT_NEG,
+             "E2M3_POS": G.E2M3_POS}
+    for name, g in grids.items():
+        x = _grid_probe(g)
+        xc = torch.from_numpy(x).cuda()
+        if not (np.array_equal(native.snap_to_grid(x, g),
+                               Q.snap_to_grid(xc, g).cpu().numpy())
+                and np.array_equal(native.encode_to_grid(x, g),
+                                   P.encode_to_grid(xc, g).cpu().numpy())):
+            fail(f"cli: (a) snap / encode on {name} differ from the port's "
+                 "torch quantizers")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    w = torch.randn((4096, 1024), generator=gen, device="cuda") * 0.02
+    pt = P.pack(w, "fp_e2")
+    if not np.array_equal(native.pack_rows(P.unpack_codes(pt).cpu().numpy()),
+                          pt.codes.cpu().numpy()):
+        fail("cli: (a) pack_rows differs from ops/packing.py's layout")
+    k = torch.arange(256, device="cuda", dtype=torch.float32) / 255.0
+    vals = torch.cat([k, torch.nextafter(k, torch.full_like(k, 2.0)),
+                      torch.nextafter(k, torch.full_like(k, -1.0)),
+                      torch.tensor([-0.5, 1.5], device="cuda")])
+    imgs = vals[torch.randint(0, vals.numel(), (8, 3, 256, 256),
+                              generator=gen, device="cuda")]
+    if not np.array_equal(native.images_to_uint8(imgs.cpu().numpy()),
+                          Im.to_uint8_device(imgs).cpu().numpy()):
+        fail("cli: (a) images_to_uint8 differs from to_uint8_device")
+    n, side = PNG_RATE_SET
+    yy, xx = np.mgrid[0:side, 0:side].astype(np.float32) / side
+    rng = np.random.default_rng(16)
+    smooth = np.stack([np.stack([np.sin(6.3 * (xx * (1 + i % 5)) + c)
+                                 * np.cos(4.1 * yy + i) for c in range(3)],
+                                -1) for i in range(n)])
+    batch = np.clip((smooth + 1) * 127.5 + rng.normal(0, 4, smooth.shape),
+                    0, 255).astype(np.uint8)
+    rates = {}
+    for who in ("native", "png.py"):
+        d = os.path.join(tmp, f"png_{who}")
+        os.makedirs(d)
+        paths = [os.path.join(d, f"{i}.png") for i in range(n)]
+        t0 = time.perf_counter()
+        if who == "png.py":
+            png.write_png_batch(batch, paths)
+        elif not native.write_png_batch(batch, paths):
+            break
+        rates[who] = n / (time.perf_counter() - t0)
+    if ok:
+        same = native.zlib_version() == zlib.ZLIB_RUNTIME_VERSION
+        for i in range(n):
+            with open(os.path.join(tmp, "png_native", f"{i}.png"), "rb") as f:
+                ours = f.read()
+            with open(os.path.join(tmp, "png_png.py", f"{i}.png"), "rb") as f:
+                want = f.read()
+            if (ours != want if same else _png_idat(ours) != _png_idat(want)):
+                fail(f"cli: (a) PNG {i} differs from eval/png.py's "
+                     f"({'bytes' if same else 'inflated IDAT'})")
+            if not np.array_equal(png.decode_png(ours), batch[i]):
+                fail(f"cli: (a) PNG {i} does not decode to its pixels")
+        print(f"cli: (a) PNGs {'byte-equal' if same else 'IDAT-equal'} to "
+              f"eval/png.py's, pixels exact")
+    print(f"cli: (a) every function equal to the port's torch counterparts "
+          f"on the card ({len(grids)} grids, a [4096, 1024] fc1 pack, an "
+          f"[8, 3, 256, 256] batch); PNG write rate, {n} images of {side} "
+          f"px: " + ", ".join(f"{k} {v:.1f} images/s"
+                              for k, v in rates.items()) + f"; on {card}")
+
+
+def _cli_latency(card: str) -> dict:
+    """(b) ``tools/latency_breakdown.main`` at VAR-d16 (full width and
+    depth), ``bf16`` and ``int8`` at batch 8, 3 rounds: every stage key,
+    finite stepwise images, each eager ``int8`` pass exactly K1 320 + K5
+    480 and each ``bf16`` pass none.  Returns the port kernels' launches
+    over all stepwise passes."""
+    from fpqvar_tpu_torch.config import var_d16
+    from fpqvar_tpu_torch.tools import latency_breakdown as LB
+
+    out = LB.main(LATENCY_FLAGS)
+    keys = (["prepare"] + [f"scale{si}_pn{pn}" for si, pn in
+                           enumerate(var_d16().patch_nums)]
+            + ["vqvae_decode"])
+    totals = dict.fromkeys(COUNTERS, 0)
+    for mode in ("bf16", "int8"):
+        if list(out["per_stage_ms"][mode]) != keys:
+            fail(f"cli: (b) {mode} stages {list(out['per_stage_ms'][mode])}")
+        if not out["stepwise_images_finite"][mode]:
+            fail(f"cli: (b) {mode}: non-finite stepwise images")
+        want = D16_INT8_LAUNCHES if mode == "int8" else {}
+        for i, got in enumerate(out["launches_per_pass"][mode]):
+            if got != {k: want.get(k, 0) for k in got}:
+                fail(f"cli: (b) {mode} pass {i} launched {got}, expected "
+                     f"{want or 'none'}")
+            for k, v in got.items():
+                totals[k] += v
+    rows = out["per_stage_ms"]
+    print("cli: (b) per-stage ms, bf16 / int8 (ratio): " + "; ".join(
+        f"{k} {rows['bf16'][k]:.3f} / {rows['int8'][k]:.3f} "
+        f"({out['stage_ratio_vs_bf16']['int8'].get(k, float('nan')):.3f})"
+        for k in keys) + f"; stepwise sum {out['stepwise_sum_ms']}, fused "
+        f"{out['fused_call_ms']}; every int8 pass K1 320 + K5 480; on {card}")
+    return totals
+
+
+def _cli_serve(tmp: str, card: str) -> dict:
+    """(c) ``tools/serve.main`` at VAR-d16, W4A4 on the int8 backend, 8
+    demo requests at ``max_batch`` 8, under torch.profiler: JAX's 8 PNG
+    names; the host counters see K1 640 + K5 960 (the fused generator's
+    eager warm-up and its capture) and the profiler K1 320 + K5 480 for
+    the warm-up and for each served batch's replay (phase 10's count);
+    the PNGs' pixels equal ``to_uint8`` of the same requests through an
+    eager ``GenerationServer`` over the CLI's trees (exactly K1 320 + K5
+    480 a batch).  Returns the profiler's launches of K1 and K5."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fpqvar_tpu_torch.config import GenerateConfig
+    from fpqvar_tpu_torch.eval import imaging as Im
+    from fpqvar_tpu_torch.eval import png
+    from fpqvar_tpu_torch.models import VARGenerator
+    from fpqvar_tpu_torch.serving import GenerationServer
+    from fpqvar_tpu_torch.tools import serve
+    from fpqvar_tpu_torch.tools._common import model_config
+
+    out_dir = os.path.join(tmp, "served")
+    flags = SERVE_FLAGS + ["--out", out_dir]
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = serve.main(flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    host = read_counts()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = {k: sum(e.count for e in events
+                     if any(p in e.key for p in PORT_KERNELS[k]))
+              for k in D16_INT8_LAUNCHES}
+    want_host = {k: 2 * D16_INT8_LAUNCHES.get(k, 0) for k in COUNTERS}
+    if host != want_host:
+        fail(f"cli: (c) serve's host counters {host}, expected {want_host} "
+             "(one warm-up and one capture)")
+    for k, per in D16_INT8_LAUNCHES.items():
+        if device[k] != per * (1 + st["batches"]):
+            fail(f"cli: (c) the profiler saw {k} {device[k]} times, expected "
+                 f"{per} for the warm-up and each of {st['batches']} "
+                 "replays")
+    names = [f"class{i}_img{i}.png" for i in range(8)]
+    if sorted(os.listdir(out_dir)) != sorted(names):
+        fail(f"cli: (c) serve wrote {sorted(os.listdir(out_dir))}")
+    args = serve.parse_args(flags)
+    qcfg = serve.recipe(args)
+    cfg = model_config(args)
+    var_p, vae_p = serve.load_trees(args, cfg, qcfg)
+    reset_counts()
+    srv = GenerationServer(VARGenerator(cfg, qcfg, GenerateConfig(),
+                                        fuse_steps=False),
+                           var_p, vae_p, max_batch=8)
+    try:
+        imgs = [f.result() for f in [srv.submit(i, i) for i in range(8)]]
+        eager_batches = srv.stats()["batches"]
+    finally:
+        srv.stop()
+    eager = read_counts()
+    for k, per in D16_INT8_LAUNCHES.items():
+        if eager[k] != per * eager_batches:
+            fail(f"cli: (c) the eager server launched {k} {eager[k]} times "
+                 f"in {eager_batches} batches")
+    for i, (name, img) in enumerate(zip(names, imgs)):
+        got = png.read_png(os.path.join(out_dir, name))
+        if not np.array_equal(got, Im.to_uint8(img[None])[0]):
+            fail(f"cli: (c) {name} differs from the eager server's image")
+    print(f"cli: (c) serve {' '.join(SERVE_FLAGS)}: {st['batches']} "
+          f"batch(es), {wall:.2f} s under the profiler (build, quantize, "
+          f"warm-up and capture included); host counters {host}; profiler "
+          f"K1 {device['K1']}, K5 {device['K5']} (the warm-up and "
+          f"{st['batches']} replay(s): K1 320 + K5 480 each); 8 PNGs equal "
+          f"to the eager server's images; on {card}")
+    return device
+
+
+def phase_cli(card: str) -> tuple:
+    """Phase 16: (a) the native host library, (b) the latency breakdown
+    and (c) the serve CLI, in a temporary directory removed at its end.
+    Returns the launches of (b)'s stepwise passes and (c)'s serving."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        _cli_native(tmp, card)
+        latency = _cli_latency(card)
+        torch.cuda.empty_cache()
+        served = _cli_serve(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return latency, served
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3478,6 +3779,8 @@ def main():
     mesh_rows = phase_mesh_kernels()
     dist_launches = phase_distributed(card)
     done("distributed")
+    latency_launches, serve_launches = phase_cli(card)
+    done("cli (phase 16)")
     src = "fpqvar_tpu_torch/csrc/"
     kernels = {"kernels": [
         # K1 runs on the main path only at fc2 (int8's dual grid)
@@ -3527,6 +3830,11 @@ def main():
         row["mesh_launches"] = dist_launches[kern]
         if kern in mesh_rows:
             row["mesh_shards"] = mesh_rows[kern]
+        # phase 16: the latency breakdown's stepwise passes (host
+        # counters) and the serve CLI's run (the profiler: the warm-up and
+        # each served batch's replay)
+        row["latency_launches"] = latency_launches[kern]
+        row["serve_launches"] = serve_launches.get(kern, 0)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps(kernels))

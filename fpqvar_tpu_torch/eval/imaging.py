@@ -6,7 +6,10 @@ The JAX package's ``eval/imaging.py``: the reference's per-image PNG save
 (``create_npz_from_sample_folder``).  The uint8 conversion runs on the
 images' device with the native encoder's semantics (``clamp(x * 255, 0,
 255)`` in float32, then truncation), so only uint8 data crosses to the
-host; PNGs go through ``eval/png.py``.
+host.  PNGs go through the native host library's encoder
+(``utils/native.py``, a thread per image) where it is available, as in
+JAX, and otherwise through ``eval/png.py``, which writes the same bytes
+where Python's zlib is the library's.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from fpqvar_tpu_torch.eval import png
+from fpqvar_tpu_torch.utils import native
 
 
 def to_uint8_device(images: torch.Tensor) -> torch.Tensor:
@@ -45,8 +49,9 @@ def save_uint8_png(arr: np.ndarray, out_dir: str, class_id: int,
                    start_idx: int = 0) -> None:
     """Write [B, H, W, 3] uint8 images as PNGs, a thread per image."""
     os.makedirs(out_dir, exist_ok=True)
-    png.write_png_batch(arr, png_paths(out_dir, class_id, start_idx,
-                                       arr.shape[0]))
+    paths = png_paths(out_dir, class_id, start_idx, arr.shape[0])
+    if not native.write_png_batch(arr, paths):
+        png.write_png_batch(arr, paths)
 
 
 def save_images_png(images, out_dir: str, class_id: int,

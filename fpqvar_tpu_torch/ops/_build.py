@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 A ``csrc/<name>.cu`` with a plain C interface is compiled at first use with
-``nvcc`` for ``sm_90a`` and loaded with ctypes.  The libraries go to
+``nvcc`` for ``sm_90a`` and loaded with ctypes; the host library
+``csrc/fpq_native.cpp`` is compiled the same way with ``g++``
+(:func:`build_host`).  The libraries go to
 ``fpqvar_tpu_torch/_build/`` (listed in ``.gitignore``) where the package
 directory is writable, as in a checkout, and otherwise (an installed
 package) to ``$XDG_CACHE_HOME/fpqvar_tpu_torch/`` or
-``~/.cache/fpqvar_tpu_torch/``.  Every source exports
+``~/.cache/fpqvar_tpu_torch/``.  Every CUDA source exports
 ``int <name>(..., void* stream)``, which launches its kernel on ``stream``
 and returns the launch's ``cudaError_t``, and ``const char*
 <name>_error_string(int)``.  Only sources in the repository are built.
@@ -27,6 +29,8 @@ CSRC = _PKG / "csrc"
 PKG_BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
+HOST_LIBS = ("-lpthread", "-lz")
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -65,14 +69,13 @@ def build_dir() -> Path:
     return Path(cache) / "fpqvar_tpu_torch"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless this exact source (with the
-    shared headers ``csrc/*.cuh``) was built already; returns the shared
-    library's path.  Raises with nvcc's output if the build fails."""
-    src = CSRC / f"{name}.cu"
-    text = src.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def _compile(name: str, text: bytes, flags, command) -> Path:
+    """The library ``name`` in :func:`build_dir`, compiled by
+    ``command(out_path)`` unless the same sources (``text``) were built
+    with the same ``flags`` already.  The compiler's output is kept beside the
+    library as ``.log`` and in ``build_logs``; raises with it if the build
+    fails."""
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     where = build_dir()
     out = where / f"lib{name}-{digest[:12]}.so"
     log = out.with_suffix(".log")
@@ -82,16 +85,43 @@ def build(name: str) -> Path:
         return out
     where.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
+    cmd = command(str(tmp))
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
     build_logs[name] = proc.stdout
     if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
-                           f"{proc.returncode}\n{proc.stdout}")
+        raise RuntimeError(f"build failed: {name}: {os.path.basename(cmd[0])}"
+                           f" exit {proc.returncode}\n{proc.stdout}")
     log.write_text(proc.stdout)
     os.replace(tmp, out)
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless this exact source (with the
+    shared headers ``csrc/*.cuh``) was built already; returns the shared
+    library's path.  Raises with nvcc's output if the build fails."""
+    src = CSRC / f"{name}.cu"
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    nvcc = _nvcc()
+    return _compile(name, text, NVCC_FLAGS,
+                    lambda out: [nvcc, *NVCC_FLAGS, "-o", out, str(src)])
+
+
+def build_host(name: str) -> Path:
+    """Compile the host library ``csrc/<name>.cpp`` with ``g++`` (linked
+    against pthreads and zlib) unless this exact source was built already;
+    returns the shared library's path.  Raises with the compiler's output
+    if the build fails, or if there is no ``g++``."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the host library is built with "
+                           "g++ and zlib's headers")
+    src = CSRC / f"{name}.cpp"
+    return _compile(name, src.read_bytes(), HOST_FLAGS + HOST_LIBS,
+                    lambda out: [cxx, *HOST_FLAGS, "-o", out, str(src),
+                                 *HOST_LIBS])
 
 
 def load(name: str, argtypes) -> ctypes.CDLL:

@@ -253,9 +253,12 @@ def synth_device_params(cfg: VARConfig, qcfg: QuantConfig, seed: int = 0,
 
 
 def to_bf16(tree):
-    """Every float32 tensor of a (dict) tree cast to bfloat16."""
+    """Every float32 tensor of a tree (dicts and lists) cast to
+    bfloat16."""
     if isinstance(tree, dict):
         return {k: to_bf16(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_bf16(v) for v in tree]
     if isinstance(tree, torch.Tensor) and tree.dtype == torch.float32:
         return tree.to(torch.bfloat16)
     return tree

@@ -32,6 +32,10 @@ where JAX folds ``PRNGKey(5 or 6)`` with ``i``.  Runs on ``cuda`` unless
 ``--device cpu``.  ``--study-key K`` merges the result into ``--out``
 under ``K``, beside the card's name and power limit (``--out`` is the
 port's own study file, ``STUDY_quality_ladder_torch.json``, by default).
+``--vae-params PATH`` takes the VQVAE from an npz of ``save_params`` (of
+either package) in place of the seed-0 draw: with
+``tests/data/ladder_vqvae_jax_init.npz`` the ladder runs on JAX's own
+initial VQVAE.
 
     python -m fpqvar_tpu_torch.tools.quality_ladder --steps 900 \\
         --train-n 2048 --eval-n 2048 --plant-outliers 48 \\
@@ -139,6 +143,11 @@ def parse_args(argv=None):
                          "gives the reading; with more, every seed scores "
                          "the same images and the JSON gains "
                          "'inception_seed_sweep'")
+    ap.add_argument("--vae-params", type=str, default=None,
+                    help="the VQVAE tree from this npz (save_params' "
+                         "layout, e.g. JAX's initial draw in "
+                         "tests/data/ladder_vqvae_jax_init.npz) in place "
+                         "of the seed-0 random init")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
@@ -223,7 +232,12 @@ def main(argv=None):
     def log(msg):
         print(f"[{time.time() - t0:6.1f}s] {msg}", flush=True)
 
-    vae_p = init_vqvae_params(cfg.vae, seed=0, device=dev)
+    if args.vae_params:
+        from fpqvar_tpu_torch.utils.checkpoint import load_params
+
+        vae_p = load_params(args.vae_params, dev)
+    else:
+        vae_p = init_vqvae_params(cfg.vae, seed=0, device=dev)
     var_p = init_var_params(cfg, seed=1, device=dev)
     outlier_s = None
 

@@ -63,7 +63,14 @@ The tests are marked ``cuda`` and skip without a CUDA device.  The file
 imports no JAX, so it also runs where JAX is not installed:
 
     timeout 600 python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+The user-facing CLIs: ``serve`` in a fresh process at ``--tiny`` against
+a ``GenerationServer`` in this process; ``acceptance --tiny`` end to end
+and resumed; ``motivation_plots --plot mse --depth 2`` on the card
+against the CPU.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -73,6 +80,8 @@ from fpqvar_tpu_torch.ops import packing as P
 from fpqvar_tpu_torch.ops import probe_gemm as PG
 from fpqvar_tpu_torch.ops import quant_matmul as QM
 from fpqvar_tpu_torch.ops._checks import bf16_gap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -1116,3 +1125,101 @@ def test_cuda_conv2d_plain_is_the_no_cudnn_route(cuda_device, stride,
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
     assert torch.equal(got, want)
+
+
+def _read_pngs(folder, names):
+    from fpqvar_tpu_torch.eval import png
+
+    return [png.read_png(os.path.join(folder, n)) for n in names]
+
+
+@pytest.mark.cuda
+def test_cuda_serve_subprocess_matches_server(cuda_device, tmp_path):
+    """The serve CLI in a fresh process at ``--tiny`` (W4A4 without GALT
+    on the int8 backend: K1 and K5 inside the fused generator's graphs)
+    writes the PNGs of a ``GenerationServer`` over the CLI's own trees in
+    this process, pixel for pixel."""
+    import subprocess
+    import sys
+
+    from fpqvar_tpu_torch.config import GenerateConfig, var_tiny
+    from fpqvar_tpu_torch.eval import imaging as Im
+    from fpqvar_tpu_torch.models import VARGenerator
+    from fpqvar_tpu_torch.serving import GenerationServer
+    from fpqvar_tpu_torch.tools import serve
+
+    flags = ["--tiny", "--recipe", "w4a4", "--no-transform", "--backend",
+             "int8", "--demo", "4", "--max-batch", "2", "--out",
+             str(tmp_path / "served")]
+    res = subprocess.run([sys.executable, "-m", "fpqvar_tpu_torch.tools.serve",
+                          *flags], cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert "served 4 requests" in res.stdout
+    names = [f"class{i}_img{i}.png" for i in range(4)]
+    assert sorted(os.listdir(tmp_path / "served")) == names
+    args = serve.parse_args(flags)
+    qcfg = serve.recipe(args)
+    var_p, vae_p = serve.load_trees(args, var_tiny(), qcfg)
+    srv = GenerationServer(VARGenerator(var_tiny(), qcfg, GenerateConfig()),
+                           var_p, vae_p, max_batch=2)
+    try:
+        want = [Im.to_uint8(f.result()[None])[0]
+                for f in [srv.submit(i, i) for i in range(4)]]
+    finally:
+        srv.stop()
+    for got, w in zip(_read_pngs(tmp_path / "served", names), want):
+        np.testing.assert_array_equal(got, w)
+
+
+@pytest.mark.cuda
+def test_cuda_acceptance_tiny_end_to_end(cuda_device, tmp_path):
+    """``acceptance --tiny`` on the card: calibration, GALT, both legs
+    (fused), Inception features and the metrics; a smoke-mode pass with
+    JAX's artifacts, and a second run that resumes every stage."""
+    from fpqvar_tpu_torch.tools import acceptance
+
+    out = tmp_path / "acc"
+    v = acceptance.main(["--tiny", "--out", str(out)])
+    assert v["pass"] and v["smoke_mode"] and v["n_images"] == 8
+    for rel in ("best_s/mat_qkv_best_s_fp4.npz", "figs_fp4.npz",
+                "figs_fp16.npz", "features_fp4.npz", "ACCEPTANCE.json"):
+        assert (out / rel).exists(), rel
+    again = acceptance.main(["--tiny", "--out", str(out)])
+    assert again["metrics"] == v["metrics"]
+
+
+@pytest.mark.cuda
+def test_cuda_motivation_mse_matches_cpu(cuda_device, tmp_path):
+    """``motivation_plots --plot mse --depth 2`` (fc2 activations,
+    block-Hadamard rotated) on the card against the same study on the CPU,
+    on one store captured on the card: curves within a relative 1e-4 (the
+    rotation's float32 sums run in another order, which moves near-tie
+    codes; one flipped code moves a block's mean by a few 1e-7 of it)."""
+    from fpqvar_tpu_torch.config import (PATCH_NUMS_256, VARConfig,
+                                         VQVAEConfig)
+    from fpqvar_tpu_torch.models.var import init_var_params
+    from fpqvar_tpu_torch.models.vqvae import init_vqvae_params
+    from fpqvar_tpu_torch.quantize.calibration import (CalibrationStore,
+                                                       capture_generation)
+    from fpqvar_tpu_torch.tools import motivation_plots
+
+    cfg = VARConfig(depth=2, patch_nums=PATCH_NUMS_256,
+                    vae=VQVAEConfig(patch_nums=PATCH_NUMS_256))
+    var_p = init_var_params(cfg, seed=0, device=cuda_device)
+    vae_p = init_vqvae_params(cfg.vae, seed=1, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    store = CalibrationStore(str(tmp_path / "calib"))
+    store.append_run(capture_generation(var_p, vae_p, cfg, [1, 2], gen))
+    curves = {}
+    for dev in ("cuda", "cpu"):
+        curves[dev] = motivation_plots.main([
+            "--plot", "mse", "--tensor", "act", "--calib",
+            str(tmp_path / "calib"), "--depth", "2", "--kind", "fc2",
+            "--rotate", "--device", dev, "--out",
+            str(tmp_path / f"{dev}.json")])["curves"]
+    assert list(curves["cuda"]) == list(curves["cpu"])
+    for name, ys in curves["cpu"].items():
+        a, b = np.asarray(curves["cuda"][name]), np.asarray(ys)
+        assert np.all(np.isfinite(a)), name
+        np.testing.assert_allclose(a, b, rtol=1e-4, err_msg=name)

@@ -285,8 +285,8 @@ def test_ladder_stages_are_jax_recipes():
 
 def test_ladder_cli_flags():
     """JAX's flags and defaults (the port adds ``--study-key``,
-    ``--inception-seeds`` and ``--device``, default ``cuda``; ``--out``
-    names the port's own study file)."""
+    ``--inception-seeds``, ``--vae-params`` and ``--device``, default
+    ``cuda``; ``--out`` names the port's own study file)."""
     res = subprocess.run(
         [sys.executable, "-m", "fpqvar_tpu_torch.tools.quality_ladder",
          "--help"], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -299,12 +299,13 @@ def test_ladder_cli_flags():
              if w.startswith("--")}
     jflags = {w.split("=")[0].rstrip(",") for w in jres.stdout.split()
               if w.startswith("--")}
-    assert flags - jflags == {"--study-key", "--inception-seeds", "--device"}
+    assert flags - jflags == {"--study-key", "--inception-seeds",
+                              "--vae-params", "--device"}
     assert jflags <= flags
     args = quality_ladder.parse_args([])
     assert (args.depth, args.width, args.classes, args.train_n, args.steps,
             args.batch, args.eval_n, args.galt_epochs, args.plant_outliers,
             args.outlier_scale, args.plant_when, args.device) == (
         5, 256, 8, 2048, 700, 64, 256, 25, 16, 32.0, "post", "cuda")
-    assert (args.out, args.inception_seeds) == (
-        "STUDY_quality_ladder_torch.json", "42")
+    assert (args.out, args.inception_seeds, args.vae_params) == (
+        "STUDY_quality_ladder_torch.json", "42", None)
