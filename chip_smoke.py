@@ -8,8 +8,9 @@ non-zero:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
    limit from nvidia-smi and turns TF32 off for float32 matmuls and convs;
-2. build: compiles the port's CUDA kernels K1 to K7 from ``fpqvar_tpu_torch/
-   csrc`` with nvcc for sm_90a, one nvcc per source, all started together,
+2. build: compiles the port's CUDA kernels K1 to K7 and the quantizers
+   Q1 to Q3 from ``fpqvar_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
+   source, all started together,
    prints each kernel's build time, registers and spills, and counts the
    warpgroup MMA instructions (``HGMMA``, ``IGMMA``) in each library's SASS
    (``cuobjdump -sass``): K2 and K7 must hold ``HGMMA``, K1, K3, K4, K5
@@ -28,6 +29,14 @@ non-zero:
    equal theirs exactly, and K5 must also equal K1 followed by a cast; K4's
    two kernels (the row quantize and the s8 GEMM) are also timed apart
    under torch.profiler, and K7 is printed as a ratio to torch.matmul;
+   then the quantizers Q1 (fake quantization onto one grid or a dual
+   grid), Q2 (int8 value codes or grid indices and float32 scales) and Q3
+   (linear INT fake quantization) against their plain versions bit for
+   bit (int views) at the d16 last-scale shapes of their recipes, timed
+   beside a bytes-only bound (no library call computes them), and over
+   adversarial inputs on every grid and dual-grid half (normals,
+   midpoints, grid values, +-0, +-inf, NaN, +-1e30, denormal scales and
+   their neighbours; bfloat16 and float32; per group and per token);
 4. small reference: small generations (width 256, so every grouped linear
    has more than one scale group) under ``int8``, ``bf16``, ``packed``,
    ``w4a16p``, W6A6 on the packed backend, ``fake``, ``int8ch``,
@@ -41,7 +50,8 @@ non-zero:
    8 labels under ``int8``, ``bf16``, ``packed``, ``w4a16p``, ``int8ch``,
    ``int8chs``, ``int8chsnr``, ``w4a16``, ``int8kv``, ``int8att`` and the
    paper's ``fp4_kv6``, ``fp6_kv6`` and ``int4_rtn`` (the fake backend:
-   no kernel of the port); checks images and each recipe's kernel launch
+   Q1 or Q3 and no GEMM of the port); checks images and each recipe's kernel
+   launch
    counts and prints img/s, the host thread's CPU time inside each
    ``generate`` call, the KV cache's bytes and the peak of device memory
    the generations allocated above what was resident before them (weights
@@ -70,7 +80,8 @@ non-zero:
 9. d36-512: VAR-d36-512 at its full width and depth (shared AdaLN, L =
    2240, the 512 px VQVAE), random seeded weights, two generations of 2
    labels under ``bf16`` and ``fp4_kv6``: images ``[2, 3, 512, 512]``
-   finite in [0, 1], no port kernel launched; prints ms per generation,
+   finite in [0, 1], no GEMM of the port launched and Q1 exactly six
+   times a block forward under ``fp4_kv6``; prints ms per generation,
    img/s, the quantize time with the float64 host rotation apart and the
    device transform's time beside it (with the weights where the two
    differ counted), the KV cache's bytes and the peak of device memory;
@@ -94,8 +105,9 @@ non-zero:
    at the teacher-forcing forward's M = 5440 against their plain
    versions (K5 as ``[8, 680, K]``), timed as in phase 3; (a) one
    ``var_forward`` at batch 8 under ``bf16``, ``int8``, ``packed`` and
-   ``int8ch`` with its exact launches (K5 48 + K1 32, K2 64, K4 48 + K3
-   32, none) and ms, and the KV-cached scale loop against one masked
+   ``int8ch`` with its exact launches (K5 48 + K1 32 + Q2 64, K2 64 + Q1
+   64, K4 48 + K3 32 + Q2 16, none) and ms, and the KV-cached scale loop
+   against one masked
    ``run_blocks`` within a derived float32 bound; (b) width-256 logits
    and capture taps, card against CPU, within 1e-4 (the quantized
    recipes' logits within 1e-3: an activation code at a near-tie moves
@@ -118,9 +130,10 @@ non-zero:
    best loss at most its loss at s = 1; seconds and ms a step); (e) bf16
    cast, ``quantize_var_params`` under ``int8`` with (d)'s vectors,
    ``save_params`` / ``load_params`` (the tree equal, bf16 leaves bf16),
-   the reloaded tree's batch-8 generation with exactly K1 320 + K5 480
-   launches and images ``torch.equal`` to the in-memory tree's, and a
-   ``fake`` generation under (c)'s mixed activation formats; (f) at width
+   the reloaded tree's batch-8 generation with exactly K1 320 + K5 480 +
+   Q2 640 launches and images ``torch.equal`` to the in-memory tree's, and
+   a ``fake`` generation under (c)'s mixed activation formats (Q1 640); (f) at
+   width
    256, card against CPU: capture tokens and taps, the search's pair
    losses and choice, two GALT epochs within twice the CPU's own one-ulp
    response;
@@ -128,14 +141,15 @@ non-zero:
    removed at its end: (a) ``generate_eval_set`` with an eager ``int8``
    generator on the ``evaluate`` CLI's W4A4 trees (classes 0-1, 8 images
    each, batch 8; GALT vectors of ones in the reference's ``.pt`` format)
-   with exactly K1 640 + K5 960 launches, 16 PNGs, their npz, and PNG
+   with exactly K1 640 + K5 960 + Q2 1,280 launches, 16 PNGs, their npz, and
+   PNG
    resume (a complete set runs nothing; a deleted PNG runs exactly one
    generation and comes back byte-equal); (b) the ``evaluate`` CLI, fused,
    in a subprocess (whose PNGs must be byte-equal to (a)'s), then one class
    at the protocol's default of 50 images at batch 50 (ms an image, peak
    memory and the graph pool's bytes, each within a bound that cuDNN's
    workspace would break) and an eager ``packed`` class with exactly K2
-   640; (c) Inception on the card against
+   640 + Q1 640; (c) Inception on the card against
    the CPU at 256 and 512 px within a derived bound, features a second at
    batch 64, the ``score`` CLI in a subprocess (PyTorch's default TF32
    flags) saving features ``torch.equal`` to this process's, and
@@ -155,7 +169,9 @@ non-zero:
    under ``bf16``, ``int8``, ``packed``, ``int8ch`` and ``int8kv`` on a tp
    2 and a dp 2 mesh, with exact launches per rank (``DIST_PER_BLOCK``:
    K1 800 under ``int8``, K2 640 under ``packed``, K3 320 at tp 2 and 800
-   at dp 2 under the per-channel recipes, K4 and K5 none) and each rank's
+   at dp 2 under the per-channel recipes, K4 and K5 none; Q2 640 under
+   ``int8`` and ``int8ch``, 960 under ``int8kv``, Q1 640 under
+   ``packed``) and each rank's
    KV cache exactly half of the one-device cache; rank 0 runs the
    one-device generation of the same trees and generators (one per row):
    at dp 2 the images ``torch.equal`` to it where the one-device run is
@@ -178,11 +194,12 @@ non-zero:
    counterparts on the card, PNGs equal to ``eval/png.py``'s and both
    writers' images/s; (b) ``tools/latency_breakdown.main`` (``bf16`` and
    ``int8``, batch 8, 3 rounds): per-stage ms of prepare, the ten scales
-   and the decode, every eager ``int8`` pass exactly K1 320 + K5 480,
-   finite stepwise images; (c) ``tools/serve.main`` (W4A4 on the int8
+   and the decode, every eager ``int8`` pass exactly K1 320 + K5 480 + Q2
+   640, finite stepwise images; (c) ``tools/serve.main`` (W4A4 on the int8
    backend, 8 demo requests, ``max_batch`` 8) under torch.profiler: JAX's
-   PNG names, K1 320 + K5 480 for the warm-up and for each served batch's
-   replay, and pixels equal to the same requests through an eager
+   PNG names, K1 320 + K5 480 + Q2 640 for the warm-up and for each
+   served batch's replay, and pixels equal to the same requests through an
+   eager
    ``GenerationServer`` over the CLI's trees.
 
 The phases run in the order 1-6, 10, 7-9, 11, 12, 13, 14, 15, 16.  Phases 4-6 and the
@@ -215,7 +232,11 @@ H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES = 3.35e12         # HBM3 bandwidth, H100 SXM
 KERNEL_SOURCES = ("int8_group_gemm", "packed_dequant_gemm", "int8ch_gemm",
                   "fused_ch_gemm", "int8_nd_gemm", "int8_probe_gemm",
-                  "bf16_probe_gemm")
+                  "bf16_probe_gemm", "fake_quant_grid", "grid_codes",
+                  "fake_quant_int")
+#: the quantizer sources (one warp a group, no GEMM) and their kernels
+QUANT_SOURCES = {"fake_quant_grid": "Q1", "grid_codes": "Q2",
+                 "fake_quant_int": "Q3"}
 #: the sources whose GEMMs run on wgmma, and the SASS instruction of it
 WGMMA_SOURCES = {"int8_group_gemm": "IGMMA", "packed_dequant_gemm": "HGMMA",
                  "int8ch_gemm": "IGMMA", "fused_ch_gemm": "IGMMA",
@@ -231,20 +252,28 @@ K4_KERNELS = {"a": "fused_ch_quantize_kernel", "b": "FusedChRescale"}
 #: names: K1, K3, K4 (b) and K5 by their epilogues (K1 and K5 share one
 #: wgmma instantiation's fold, K3 and K4 (b) one's rescale, each under a
 #: type name of its own), K2's wgmma kernel (bf16 x) and its mma.sync one
-#: (f32 x), K4's two kernels apart; no key is a part of another's
+#: (f32 x), K4's two kernels apart; the quantizers Q1 (one grid, dual
+#: grid), Q2 (one grid, dual grid) and Q3 by their kernels' names; no key
+#: is a part of another's
 PORT_KERNELS = {"K1": ("GroupFold",),
                 "K2": ("rs_gemm_kernel", "packed_dequant_gemm_kernel"),
                 "K3": ("Int8ChRescale",), "K4 (a)": (K4_KERNELS["a"],),
-                "K4 (b)": (K4_KERNELS["b"],), "K5": ("NdGroupSum",)}
+                "K4 (b)": (K4_KERNELS["b"],), "K5": ("NdGroupSum",),
+                "Q1": ("fake_grid_kernel", "fake_dual_kernel"),
+                "Q2": ("grid_codes_kernel", "dual_codes_kernel"),
+                "Q3": ("fake_int_kernel",)}
 #: the block linears of the VAR-d16 teacher-forcing forward at batch 8, all
 #: L = 680 tokens of a row in one call: (name, M, K, N); M = 5440 = 42 *
 #: 128 + 64 ends in a half-filled row tile, and K5 takes it as [8, 680, K]
 TF_SHAPES = (("qkv", 5440, 1024, 3072), ("proj", 5440, 1024, 1024),
              ("fc1", 5440, 1024, 4096), ("fc2", 5440, 4096, 1024))
 #: each recipe's port-kernel launches per d16 teacher-forcing forward (16
-#: blocks, as a generation's scale step launches them, once)
-TF_LAUNCHES = {"bf16": {}, "int8": {"K5": 48, "K1": 32},
-               "packed": {"K2": 64}, "int8ch": {"K4": 48, "K3": 32}}
+#: blocks, as a generation's scale step launches them, once): the GEMMs
+#: and the activation quantizers (Q2 on int8's four linears and on
+#: int8ch's fc2, Q1 on packed's four)
+TF_LAUNCHES = {"bf16": {}, "int8": {"K5": 48, "K1": 32, "Q2": 64},
+               "packed": {"K2": 64, "Q1": 64},
+               "int8ch": {"K4": 48, "K3": 32, "Q2": 16}}
 #: GALT epochs a kind in phase 13 (d) (the CLI's default is 50)
 OFFLINE_GALT_EPOCHS = 10
 #: the int8 rate probe's default shapes: (name, M, K, N)
@@ -306,15 +335,41 @@ def profiled_ms(fn, keys: dict, reps: int = 20) -> dict:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
+    events = _device_events(prof)
     out = {}
     for label, key in keys.items():
         total = sum(_self_device_us(e) for e in events if key in e.key)
         out[label] = total / 1e3 / reps if total > 0 else None
     return out
+
+
+#: spin kernels that open every profiler window, before the work it
+#: measures: on the card torch.profiler was seen to drop a varying few of
+#: a window's first kernel records (once 4 of a generation's K2 launches;
+#: PERF.md, section 6), so each window starts on these
+#: (``torch.cuda._sleep``'s ``spin_kernel``) and a pause, and every count
+#: and sum leaves them out
+PAD_KERNELS = 1024
+PAD_KEY = "spin_kernel"
+
+
+def _open_window() -> None:
+    """Pad the start of a profiler window (``PAD_KERNELS``)."""
+    for _ in range(PAD_KERNELS):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
+def _device_events(prof) -> list:
+    """The CUDA kernels of a profiler window, its padding left out."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and PAD_KEY not in e.key]
 
 
 def _self_device_us(e) -> float:
@@ -771,6 +826,282 @@ def phase_k7():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 3, the quantizers Q1-Q3
+# ---------------------------------------------------------------------------
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal: float tensors compared as their int views (-0 is not
+    +0, and a NaN's bits count), codes as they are."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = torch.int16 if a.element_size() == 2 else torch.int32
+        a, b = a.contiguous().view(view), b.contiguous().view(view)
+    return torch.equal(a, b)
+
+
+def _bit_check(kern: str, what: str, got, want) -> float:
+    """Fail unless every output of a quantizer kernel is bit-equal to its
+    plain version's (NaN bits included); returns the largest |difference|
+    of the finite values (0 where bit-equal)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not _same_bits(a, b):
+            n = (int((a.float() != b.float()).sum())
+                 if a.shape == b.shape else -1)
+            fail(f"{kern} {what}: output {i} ({a.dtype} {tuple(a.shape)}) "
+                 f"differs from the plain version's ({b.dtype} "
+                 f"{tuple(b.shape)}) in {n} values: bit-equality required")
+        d = (a.float() - b.float()).abs()
+        d = d[torch.isfinite(d)]
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def check_quant(kern: str, name: str, note: str, run, plain,
+                nbytes: int) -> dict:
+    """Hold ``run()`` (a quantizer kernel through its public wrapper)
+    bit for bit to ``plain()``, then time both as ``check_and_time`` does
+    (20 back-to-back calls; 20 queued; the plain version 3 calls).  The
+    bound is bytes only: each input read once and each output written
+    once, ``nbytes``, at 3.35 TB/s; no single PyTorch call computes these
+    functions, so there is no library yardstick."""
+    err = _bit_check(kern, name, run(), plain())
+    ms = cuda_ms(run)
+    device_ms, host_ms = queued_ms(run)
+    plain_ms = cuda_ms(plain, reps=3)
+    bound = nbytes / H100_BYTES * 1e3
+    row = {"shape": name, "recipes": note, "bytes": nbytes,
+           "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+           "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bound, "bound_by": "bytes"}
+    print(f"kernels: {kern} {name:22s} ({note}): bit-equal to the plain "
+          f"version; kernel {ms:.4f} ms (queued: device {device_ms:.4f} "
+          f"ms, host {host_ms:.4f} ms a call), plain {plain_ms:.4f} ms, "
+          f"bound {bound * 1e3:.2f} us ({nbytes} bytes), "
+          f"{bound / device_ms:.3f} of it; library: none")
+    return row
+
+
+def _neighbours(v: torch.Tensor) -> torch.Tensor:
+    """``v`` and each value's two neighbours in its dtype (its bits +- 1)."""
+    view = torch.int16 if v.element_size() == 2 else torch.int32
+    bits = v.view(view)
+    return torch.cat([v, (bits + 1).view(v.dtype), (bits - 1).view(v.dtype)])
+
+
+def _led_groups(vals: torch.Tensor, lead, gs: int = 128) -> torch.Tensor:
+    """``vals`` in groups of ``gs`` whose first values are ``lead``."""
+    k = 0 if lead is None else lead.numel()
+    n = gs - k
+    reps = -(-vals.numel() // n)
+    body = vals.repeat(-(-reps * n // vals.numel()))[:reps * n].view(reps, n)
+    if lead is not None:
+        body = torch.cat([lead.expand(reps, k), body], dim=1)
+    return body.reshape(-1)
+
+
+def _adversarial(grid, dtype, gen, lead=None) -> torch.Tensor:
+    """``[rows, 1024]`` of ``dtype``: 65,536 normals scaled to the grid's
+    range; groups of 128 led by the grid's absmax (scale ~1) holding
+    every midpoint, grid value and +-0 with each one's neighbours;
+    groups holding +-inf, NaN, +-1e30 among them; groups of a denormal
+    scale."""
+    g = torch.tensor(np.asarray(grid, np.float32), device="cuda")
+    gmax = float(g.abs().max())
+    lead = torch.tensor([gmax, -gmax] if lead is None else lead,
+                        device="cuda").to(dtype)
+    normals = torch.randn(65536, generator=gen, device="cuda") * gmax / 3
+    exact = _neighbours(torch.cat([(g[1:] + g[:-1]) * 0.5, g, torch.tensor(
+        [0.0, -0.0], device="cuda")]).to(dtype))
+    wild = _neighbours(torch.tensor(
+        [math.inf, -math.inf, math.nan, 1e30, -1e30, 0.0, 1.0],
+        device="cuda").to(dtype))
+    x = torch.cat([normals.to(dtype), _led_groups(exact, lead),
+                   _led_groups(torch.cat([wild, exact]), None),
+                   _led_groups(wild.flip(0), None),
+                   (normals[:4096] * 1e-39).to(dtype)])
+    pad = -x.numel() % 1024
+    return torch.cat([x, x[:pad]]).view(-1, 1024)
+
+
+def _quant_sweep(gen) -> int:
+    """Q1-Q3 bit-equal to their plain versions on ``_adversarial`` inputs:
+    every grid of ``G.GRIDS`` (Q1 per group and per token, with the clamp
+    of the per-token fp4 formats; Q2's grid-index codes of ``pack`` and
+    of the KV codec; Q2's value codes per group and per token where the
+    format has them), both halves of every dual grid (Q1; Q2's codes), Q3
+    symmetric and asymmetric at 4, 6 and 8 bits per group and per token;
+    bfloat16 and float32.  Returns the number of checks."""
+    from fpqvar_tpu_torch.ops import grids as G
+    from fpqvar_tpu_torch.ops import packing as P
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+    from fpqvar_tpu_torch.ops import quantizers as Q
+
+    checks = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
+        for fmt, grid in G.GRIDS.items():
+            x = _adversarial(grid, dtype, gen)
+            for gran in ("per_group", "per_token"):
+                clip = (3.0 if gran == "per_token" and fmt.startswith("fp_e")
+                        else None)
+                kw = dict(granularity=gran, clip_abs=clip)
+                _bit_check("Q1", f"{fmt} {gran} {dt}",
+                           Q.fake_quant_fp(x, fmt, **kw),
+                           Q.fake_quant_fp_ref(x, fmt, **kw))
+            codes, scales = P.pack_codes_ref(x, fmt)
+            _bit_check("Q2", f"pack {fmt} {dt}", QK.pack_codes(x, fmt),
+                       (codes.to(torch.int8), scales))
+            rows = x.view(-1, 64)
+            _bit_check("Q2", f"KV grid index {fmt} {dt}",
+                       QK.grid_index_codes(rows, fmt),
+                       P.grid_index_codes_ref(rows, fmt))
+            checks += 4
+            for gs in ((128, 1024) if fmt in P.CODE_MULT else ()):
+                _bit_check("Q2", f"codes {fmt} group {gs} {dt}",
+                           P.quant_int_codes(x, fmt, gs),
+                           P.quant_int_codes_ref(x, fmt, gs))
+                checks += 1
+        for fmt, (neg, pos) in G.DUAL_GRIDS.items():
+            lead = [-float(np.abs(neg).max()), float(np.abs(pos).max())]
+            for grid in (neg, pos):
+                x = _adversarial(grid, dtype, gen, lead)
+                for gran in ("per_group", "per_token"):
+                    _bit_check("Q1", f"{fmt} {gran} {dt}",
+                               Q.fake_quant_dual(x, fmt, granularity=gran),
+                               Q.fake_quant_dual_ref(x, fmt,
+                                                     granularity=gran))
+                    checks += 1
+                for gs in ((128, 1024) if fmt in P.DUAL_CODE_MULT else ()):
+                    _bit_check("Q2", f"dual codes {fmt} group {gs} {dt}",
+                               P.quant_int_codes_dual(x, fmt, gs),
+                               P.quant_int_codes_dual_ref(x, fmt, gs))
+                    checks += 1
+        for n_bits in (4, 6, 8):
+            q_max = 2 ** (n_bits - 1) - 1
+            x = _adversarial(np.arange(-q_max - 1, q_max + 1), dtype, gen)
+            for asym in (False, True):
+                fn, ref = ((Q.fake_quant_int_asym, Q.fake_quant_int_asym_ref)
+                           if asym else (Q.fake_quant_int_sym,
+                                         Q.fake_quant_int_sym_ref))
+                kind = "asym" if asym else "sym"
+                for gran in ("per_group", "per_token"):
+                    _bit_check("Q3", f"int{n_bits} {kind} {gran} {dt}",
+                               fn(x, n_bits, granularity=gran),
+                               ref(x, n_bits, granularity=gran))
+                    checks += 1
+    return checks
+
+
+def phase_quant() -> dict:
+    """Q1, Q2 and Q3 against their plain versions, bit for bit, at the
+    shapes VAR-d16's last scale at batch 8 gives them (M = 2 * 8 * 256 =
+    4096 rows of 1024 or 4096; the KV cache's k or v ``[16, 256, 16,
+    64]``, quantized per row of 64; a weight ``[4096, 1024]``), timed,
+    then ``_quant_sweep``'s adversarial inputs over every grid.  Returns
+    each kernel's rows."""
+    from fpqvar_tpu_torch.ops import packing as P
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+    from fpqvar_tpu_torch.ops import quantizers as Q
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def act(shape, dtype=bf16, scale=3.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def nb(t):
+        return t.numel() * t.element_size()
+
+    m = 4096
+    x1, x4 = act((m, 1024)), act((m, 4096))
+    kv, kv32 = act((16, 256, 16, 64)), act((16, 256, 16, 64), f32)
+    w = act((m, 1024), f32, 0.02)
+    dual4, dual6 = "fp_e1m2_neg_e2m1_pos", "fp6_int_neg_e2m3_pos"
+    rows = {"Q1": [], "Q2": [], "Q3": []}
+
+    def q1(name, note, x, fmt, gran, dual=False):
+        fn, ref = ((Q.fake_quant_dual, Q.fake_quant_dual_ref) if dual
+                   else (Q.fake_quant_fp, Q.fake_quant_fp_ref))
+        rows["Q1"].append(check_quant(
+            "Q1", name, note, lambda: fn(x, fmt, granularity=gran),
+            lambda: ref(x, fmt, granularity=gran), 2 * nb(x)))
+
+    q1("qkv-fp_e2-g128", "packed, fp4_kv6: qkv, proj, fc1", x1, "fp_e2",
+       "per_group")
+    q1("fc2-e1m2/e2m1-g128", "packed, fp4_kv6: fc2", x4, dual4,
+       "per_group", dual=True)
+    q1("qkv-fp6_e2m3-token", "fp6_kv6: qkv, proj, fc1", x1, "fp6_e2m3",
+       "per_token")
+    q1("fc2-int/e2m3-token", "fp6_kv6: fc2", x4, dual6, "per_token",
+       dual=True)
+    q1("kv-fp6_e2m3-row64", "the _kv6 dense cache: k, v", kv, "fp6_e2m3",
+       "per_token")
+    q1("w-fp_e2-g128-f32", "search, GALT's STE, fake weights", w, "fp_e2",
+       "per_group")
+
+    def q2(name, note, x, run, plain, n_out):
+        rows["Q2"].append(check_quant("Q2", name, note, run, plain,
+                                      nb(x) + n_out))
+
+    q2("qkv-fp_e2-g128", "int8: qkv, proj, fc1", x1,
+       lambda: P.quant_int_codes(x1, "fp_e2", 128),
+       lambda: P.quant_int_codes_ref(x1, "fp_e2", 128),
+       x1.numel() + x1.numel() // 128 * 4)
+    q2("fc2-e1m2/e2m1-g128", "int8: fc2", x4,
+       lambda: P.quant_int_codes_dual(x4, dual4, 128),
+       lambda: P.quant_int_codes_dual_ref(x4, dual4, 128),
+       2 * (x4.numel() + x4.numel() // 128 * 4))
+    q2("fc2-e1m2/e2m1-token", "int8ch, int8kv, int8att: fc2", x4,
+       lambda: P.quant_int_codes_dual(x4, dual4, 4096),
+       lambda: P.quant_int_codes_dual_ref(x4, dual4, 4096),
+       2 * (x4.numel() + m * 4))
+    q2("kv-fp_e2-row64", "int8kv, int8att: the packed KV encode", kv,
+       lambda: P.quant_int_codes(kv, "fp_e2", 64),
+       lambda: P.quant_int_codes_ref(kv, "fp_e2", 64),
+       kv.numel() + kv.numel() // 64 * 4)
+
+    def pack_ref(x, fmt):
+        codes, scales = P.pack_codes_ref(x, fmt)
+        return codes.to(torch.int8), scales
+
+    q2("pack-fp_e2-g128-f32", "pack, pack_int_codes: weights", w,
+       lambda: QK.pack_codes(w, "fp_e2"), lambda: pack_ref(w, "fp_e2"),
+       w.numel() + w.numel() // 128 * 4)
+    q2("pack-fp8_e4m3-g128", "pack: a 255-value grid, bf16", x1,
+       lambda: QK.pack_codes(x1, "fp8_e4m3"),
+       lambda: pack_ref(x1, "fp8_e4m3"), x1.numel() + x1.numel() // 128 * 4)
+
+    def q3(name, note, x, n_bits, asym, gran):
+        fn, ref = ((Q.fake_quant_int_asym, Q.fake_quant_int_asym_ref) if asym
+                   else (Q.fake_quant_int_sym, Q.fake_quant_int_sym_ref))
+        rows["Q3"].append(check_quant(
+            "Q3", name, note, lambda: fn(x, n_bits, granularity=gran),
+            lambda: ref(x, n_bits, granularity=gran), 2 * nb(x)))
+
+    q3("qkv-sym-token", "int4_rtn: qkv, proj, fc1", x1, 4, False,
+       "per_token")
+    q3("fc2-asym-token", "int4_rtn: fc2", x4, 4, True, "per_token")
+    q3("kv-sym-row64-f32", "the int_sym dense cache (float32)", kv32, 4,
+       False, "per_token")
+    q3("w-sym-g128-f32", "int_sym_ste (GALT)", w, 4, False, "per_group")
+    t0 = time.perf_counter()
+    checks = _quant_sweep(gen)
+    print(f"kernels: Q1-Q3 bit-equal to their plain versions in {checks} "
+          f"adversarial checks (every grid and dual-grid half, bfloat16 and "
+          f"float32, per group and per token; normals, midpoints, grid "
+          f"values, +-0, +-inf, NaN, +-1e30, denormal scales and their "
+          f"neighbours; NaN bits included) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def _recipes() -> dict:
     """Every recipe by name: ``bench_recipes`` and ``paper_recipes``."""
     from fpqvar_tpu_torch.config import bench_recipes, paper_recipes
@@ -883,17 +1214,21 @@ COUNTERS = {"K1": ("int8_matmul", "launches"),
             "K4": ("int8_matmul", "fused_launches"),
             "K5": ("int8_matmul", "nd_launches"),
             "K6": ("probe_gemm", "int8_launches"),
-            "K7": ("probe_gemm", "bf16_launches")}
+            "K7": ("probe_gemm", "bf16_launches"),
+            "Q1": ("quant_kernels", "grid_launches"),
+            "Q2": ("quant_kernels", "codes_launches"),
+            "Q3": ("quant_kernels", "int_launches")}
 #: the recipes profiled after the main path (phase 6)
 PROFILED = ("int8", "bf16", "packed", "int8ch", "int8chs", "int8kv",
             "fp4_kv6", "fp6_kv6", "int4_rtn")
 
 
 def _counter_modules():
-    from fpqvar_tpu_torch.ops import int8_matmul, probe_gemm, quant_matmul
+    from fpqvar_tpu_torch.ops import (int8_matmul, probe_gemm,
+                                      quant_kernels, quant_matmul)
 
     return {"int8_matmul": int8_matmul, "quant_matmul": quant_matmul,
-            "probe_gemm": probe_gemm}
+            "probe_gemm": probe_gemm, "quant_kernels": quant_kernels}
 
 
 def reset_counts():
@@ -912,10 +1247,12 @@ def phase_main_path(card: str):
     before them and read just after: K1 and K5 run exactly under ``int8``,
     K2 exactly under ``packed`` and ``w4a16p``, K3 and K4 exactly under the
     per-channel recipes (``int8kv`` and ``int8att`` as ``int8ch``: the
-    packed KV cache adds no kernel), K6 and K7 under none, and no kernel of
-    the port under the paper's fake recipes ``fp4_kv6``, ``fp6_kv6`` and
-    ``int4_rtn``.  Returns the launch totals, the profiled recipes' (gen,
-    params, generator) and the VQVAE params."""
+    packed KV cache adds no GEMM), K6 and K7 under none; the quantizers Q1
+    (``packed`` and the paper's ``fp4_kv6`` and ``fp6_kv6``, their KV
+    caches too), Q2 (``int8``, the dual-grid fc2 of the per-channel
+    recipes, the packed KV encodes) and Q3 (``int4_rtn``) exactly as
+    ``per_gen`` says.  Returns the launch totals, the profiled recipes'
+    (gen, params, generator) and the VQVAE params."""
     from fpqvar_tpu_torch.config import GenerateConfig, var_d16
     from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
                                          init_vqvae_params)
@@ -936,23 +1273,32 @@ def phase_main_path(card: str):
     blocks = cfg.depth * cfg.num_scales
     # launches per generation (160 block forwards, CFG's doubled batch in
     # one call): int8 runs qkv, proj and fc1 through K5 and fc2 as two K1
-    # GEMMs (dual grid); packed fake-quantizes fc2's dual grid first and
-    # runs one K2 GEMM; int8ch runs K4 on qkv, proj and fc1 and fc2's dual
-    # grid as two K3 GEMMs; int8chs and int8chsnr run K4 on all four; w4a16
-    # runs no kernel (wonly_dot); int8kv and int8att are int8ch with the
-    # packed KV cache; the paper's fake recipes run plain PyTorch only
+    # GEMMs (dual grid), each activation quantized by Q2 first; packed
+    # fake-quantizes its four activations with Q1 (fc2's on the dual grid)
+    # and runs K2; int8ch runs K4 on qkv, proj and fc1 and fc2's dual grid
+    # (Q2's codes) as two K3 GEMMs; int8chs and int8chsnr run K4 on all
+    # four; w4a16 runs no kernel (wonly_dot); int8kv and int8att are int8ch
+    # with the packed KV cache, whose k and v Q2 encodes; the paper's
+    # fake recipes run Q1 on their four activations (fp4_kv6, fp6_kv6) and
+    # their dense cache's k and v, or Q3 on the four (int4_rtn)
     none = {k: 0 for k in COUNTERS}
-    per_gen = {"int8": {**none, "K1": blocks * 2, "K5": blocks * 3},
+    per_gen = {"int8": {**none, "K1": blocks * 2, "K5": blocks * 3,
+                        "Q2": blocks * 4},
                "bf16": none,
-               "packed": {**none, "K2": blocks * 4},
+               "packed": {**none, "K2": blocks * 4, "Q1": blocks * 4},
                "w4a16p": {**none, "K2": blocks * 4},
-               "int8ch": {**none, "K3": blocks * 2, "K4": blocks * 3},
+               "int8ch": {**none, "K3": blocks * 2, "K4": blocks * 3,
+                          "Q2": blocks},
                "int8chs": {**none, "K4": blocks * 4},
                "int8chsnr": {**none, "K4": blocks * 4},
                "w4a16": none,
-               "int8kv": {**none, "K3": blocks * 2, "K4": blocks * 3},
-               "int8att": {**none, "K3": blocks * 2, "K4": blocks * 3},
-               "fp4_kv6": none, "fp6_kv6": none, "int4_rtn": none}
+               "int8kv": {**none, "K3": blocks * 2, "K4": blocks * 3,
+                          "Q2": blocks * 3},
+               "int8att": {**none, "K3": blocks * 2, "K4": blocks * 3,
+                           "Q2": blocks * 3},
+               "fp4_kv6": {**none, "Q1": blocks * 6},
+               "fp6_kv6": {**none, "Q1": blocks * 6},
+               "int4_rtn": {**none, "Q3": blocks * 4}}
     totals = dict(none)
     results, setups = {}, {}
     for mode in per_gen:
@@ -1045,12 +1391,12 @@ def phase_profile(mode: str, run, card: str, launches: dict,
     # share need no host-op trace, whose events (several a kernel) would
     # slow both the traced host and the trace's processing
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_events(prof)
 
     def dev_ms(e):
         return _self_device_us(e) / 1e3
@@ -1274,7 +1620,8 @@ def phase_serving(setups, vae, card: str):
         batches = st["batches"]
         want = {k: 0 for k in COUNTERS}
         if mode == "int8":
-            want.update(K1=blocks * 2 * batches, K5=blocks * 3 * batches)
+            want.update(K1=blocks * 2 * batches, K5=blocks * 3 * batches,
+                        Q2=blocks * 4 * batches)
         if counts != want:
             fail(f"serving {mode}: launches {counts} over {batches} batches, "
                  f"expected {want}")
@@ -1380,8 +1727,10 @@ def phase_d36(card: str):
     depth 36, L = 2240, shared AdaLN) with the 512 px VQVAE, random seeded
     float32 weights: ``bf16`` and the paper's ``fp4_kv6`` (``run.sh``'s
     512 px flags) for two generations of 2 labels each, with every launch
-    count set to 0 just before and read just after (no kernel of the port
-    runs under either).  ``fp4_kv6``'s ``quantize_var_params`` is timed
+    count set to 0 just before and read just after (no GEMM of the port
+    runs under either; ``fp4_kv6`` runs Q1 six times a block forward:
+    its four activations and the cache's k and v).  ``fp4_kv6``'s
+    ``quantize_var_params`` is timed
     with its float64 host rotation apart, and beside it the device
     transform (``transform_blocks_traced``, float32 on the card) of the
     same blocks, with the weights where the two differ counted (a finding,
@@ -1418,6 +1767,8 @@ def phase_d36(card: str):
     label_sets = [torch.arange(i * batch, (i + 1) * batch, device="cuda")
                   for i in range(n_gen)]
     none = {k: 0 for k in COUNTERS}
+    blocks = cfg.depth * cfg.num_scales
+    per_gen = {"bf16": none, "fp4_kv6": {**none, "Q1": 6 * blocks}}
     for mode in ("bf16", "fp4_kv6"):
         q = _recipes()[mode]
         t_quant = t_rot = 0.0
@@ -1488,8 +1839,9 @@ def phase_d36(card: str):
                        (batch, 3, side, side))
             eager.append(imgs)
         counts = read_counts()
-        if any(counts.values()):
-            fail(f"d36-512 {mode}: port kernels launched: {counts}")
+        want = {k: n * n_gen for k, n in per_gen[mode].items()}
+        if counts != want:
+            fail(f"d36-512 {mode}: launches {counts}, expected {want}")
         peak = torch.cuda.max_memory_allocated()
         quant = ("" if not q.enabled else
                  f"quantize_var_params {t_quant:.2f} s, of which the float64 "
@@ -1502,10 +1854,13 @@ def phase_d36(card: str):
               f"({kv_bytes / 1e9:.3f} GB); peak allocated {peak} bytes "
               f"({peak / 1e9:.3f} GB), {peak - resident} above the "
               f"{resident / 1e9:.3f} GB resident; images [{batch}, 3, {side}, "
-              f"{side}] finite in [0, 1]; no port kernel launched; on {card}")
+              f"{side}] finite in [0, 1]; launches per generation "
+              + (", ".join(f"{k} {n // n_gen}" for k, n in counts.items()
+                           if n) or "none")
+              + f" (exact); on {card}")
         phase_profile(f"d36-512 eager {mode}",
                       lambda: gen.generate(qp, vae, label_sets[0], rng_gen),
-                      card, none, batch=batch)
+                      card, per_gen[mode], batch=batch)
         fused = VARGenerator(cfg, q, GenerateConfig(), qrt=gen.qrt)
         torch.cuda.empty_cache()
         images, ms, f_host = _fused_run(fused, qp, vae, label_sets, seed=3)
@@ -2459,11 +2814,11 @@ def _offline_generate(cfg, var_p, vae_p, galt, fc1_results, tmp: str,
     with the GALT vectors of (d), ``save_params`` / ``load_params``: the
     reloaded tree equal leaf for leaf (bf16 leaves bf16), and its batch-8
     ``int8`` generation, with the counts set to 0 just before it and read
-    just after, launching exactly K1 320 and K5 480 and giving images
-    ``torch.equal`` to the in-memory tree's (same generator seed), finite
-    in [0, 1].  Then one ``fake`` generation with the mixed activation
-    formats of (c): finite images, no port kernel.  Returns the reloaded
-    generation's launch counts."""
+    just after, launching exactly K1 320, K5 480 and Q2 640 and giving
+    images ``torch.equal`` to the in-memory tree's (same generator seed),
+    finite in [0, 1].  Then one ``fake`` generation with the mixed
+    activation formats of (c): finite images, exactly Q1 640 and no GEMM.
+    Returns the reloaded generation's launch counts."""
     from fpqvar_tpu_torch.quantize import quantize_var_params
     from fpqvar_tpu_torch.quantize import search as S
     from fpqvar_tpu_torch.quantize.recipe import to_bf16
@@ -2493,7 +2848,7 @@ def _offline_generate(cfg, var_p, vae_p, galt, fc1_results, tmp: str,
     counts = read_counts()
     blocks = cfg.depth * cfg.num_scales
     want = {k: 0 for k in COUNTERS}
-    want.update(K1=blocks * 2, K5=blocks * 3)
+    want.update(K1=blocks * 2, K5=blocks * 3, Q2=blocks * 4)
     if counts != want:
         fail(f"offline: reloaded int8 generation launches {counts}, "
              f"expected {want}")
@@ -2510,8 +2865,10 @@ def _offline_generate(cfg, var_p, vae_p, galt, fc1_results, tmp: str,
     reset_counts()
     fimgs = _eager_images(cfg, qf, fp, vae_p, labels, seed=9)
     fcounts = read_counts()
-    if any(fcounts.values()) or not bool(torch.isfinite(fimgs).all()):
+    fwant = {**{k: 0 for k in COUNTERS}, "Q1": blocks * 4}
+    if fcounts != fwant or not bool(torch.isfinite(fimgs).all()):
         fail(f"offline: mixed-format fake generation: launches {fcounts}, "
+             f"expected {fwant}, "
              f"finite {bool(torch.isfinite(fimgs).all())}")
     print(f"offline: (e) bf16 cast + quantize_var_params int8 with the GALT "
           f"vectors {t_quant:.2f} s; save_params {os.path.getsize(path)} "
@@ -2521,7 +2878,8 @@ def _offline_generate(cfg, var_p, vae_p, galt, fc1_results, tmp: str,
           + ", ".join(f"{k} {n}" for k, n in counts.items() if n)
           + f", images torch.equal to the in-memory tree's, finite in "
           f"[0, 1]; fake with mixed activation formats {mixed}: images "
-          f"finite, no port kernel; on {card}")
+          f"finite, Q1 {fcounts['Q1']} launches (exact), no GEMM; on "
+          f"{card}")
     return counts
 
 
@@ -2721,7 +3079,7 @@ def _eval_trees(tmp: str, backend: str):
 def _eval_eager_set(tmp: str, card: str):
     """(a) The eager int8 eval set: classes 0 and 1, 8 images each at
     batch 8, with the counts set to 0 just before and read just after: K1
-    640 + K5 960; 16 PNGs and their npz; resume runs nothing, and a
+    640 + K5 960 + Q2 1,280; 16 PNGs and their npz; resume runs nothing, and a
     deleted PNG of class 1 runs exactly one more generation that rewrites
     it byte for byte."""
     from fpqvar_tpu_torch.eval.imaging import create_npz_from_sample_folder
@@ -2741,7 +3099,7 @@ def _eval_eager_set(tmp: str, card: str):
     secs = time.perf_counter() - t0
     counts = read_counts()
     want = {k: 0 for k in COUNTERS}
-    want.update(K1=2 * 2 * blocks, K5=2 * 3 * blocks)
+    want.update(K1=2 * 2 * blocks, K5=2 * 3 * blocks, Q2=2 * 4 * blocks)
     if runs != 2 or counts != want:
         fail(f"evaluation: (a) eager int8 eval set: {runs} generations, "
              f"launches {counts}, expected 2 and {want}")
@@ -2766,7 +3124,8 @@ def _eval_eager_set(tmp: str, card: str):
     again = generate_eval_set(gen, var_p, vae_p, out, 8, range(2), batch=8)
     torch.cuda.synchronize()
     redo = read_counts()
-    if (again != 1 or redo != {**want, "K1": 2 * blocks, "K5": 3 * blocks}
+    if (again != 1 or redo != {**want, "K1": 2 * blocks, "K5": 3 * blocks,
+                               "Q2": 4 * blocks}
             or Path(victim).read_bytes() != pngs["class1_img5.png"]):
         fail(f"evaluation: (a) resume after deleting a PNG ran {again} "
              f"generations, launches {redo}; rewritten PNG equal "
@@ -2774,7 +3133,8 @@ def _eval_eager_set(tmp: str, card: str):
     print(f"evaluation: (a) eager int8 eval set, VAR-d16, classes 0-1 x 8 "
           f"images at batch 8: {secs:.2f} s ({secs * 1e3 / 16:.1f} ms an "
           f"image, PNG writing included); launches K1 {counts['K1']} + K5 "
-          f"{counts['K5']} (exact); 16 PNGs, npz [16, 256, 256, 3] uint8; "
+          f"{counts['K5']} + Q2 {counts['Q2']} (exact); 16 PNGs, npz "
+          f"[16, 256, 256, 3] uint8; "
           f"resume ran nothing, and after a PNG of class 1 was deleted "
           f"exactly one generation (K1 {redo['K1']} + K5 {redo['K5']}) "
           f"rewrote it byte for byte; on {card}")
@@ -2789,7 +3149,7 @@ def _eval_cli_and_packed(tmp: str, flags, eager_out: str, card: str):
     images at batch 50) with ms an image, peak memory and the graph pool's
     bytes, each within its bound; then an eager packed generator for one
     class of 8 with the counts set to 0 just before and read just after:
-    K2 640."""
+    K2 640 and Q1 640."""
     from fpqvar_tpu_torch.eval.pipeline import generate_eval_set
     from fpqvar_tpu_torch.models import VARGenerator
 
@@ -2844,12 +3204,12 @@ def _eval_cli_and_packed(tmp: str, flags, eager_out: str, card: str):
     torch.cuda.synchronize()
     counts = read_counts()
     want = {k: 0 for k in COUNTERS}
-    want["K2"] = 4 * cfg.depth * cfg.num_scales
+    want["K2"] = want["Q1"] = 4 * cfg.depth * cfg.num_scales
     if runs != 1 or counts != want:
         fail(f"evaluation: (b) eager packed eval set: {runs} generations, "
              f"launches {counts}, expected 1 and {want}")
     print(f"evaluation: (b) eager packed eval set, one class of 8: launches "
-          f"K2 {counts['K2']} (exact); on {card}")
+          f"K2 {counts['K2']} + Q1 {counts['Q1']} (exact); on {card}")
     del gen, var_p, vae_p
     torch.cuda.empty_cache()
     return counts, line
@@ -3052,11 +3412,17 @@ DIST_BATCH, DIST_TRAIN_BATCH = 2, 8
 #: activation quantized first, then ``int8`` through K1 on all five GEMMs
 #: (qkv, proj, fc1, fc2's two halves), ``packed`` K2 on the four linears,
 #: the per-channel recipes K3 on the column splits (qkv, fc1) at tp 2,
-#: their row splits the plain int32 product, and K3 on all five at dp 2
-DIST_PER_BLOCK = {("int8", "tp2"): {"K1": 5}, ("int8", "dp2"): {"K1": 5},
-                  ("packed", "tp2"): {"K2": 4}, ("packed", "dp2"): {"K2": 4},
-                  ("int8ch", "tp2"): {"K3": 2}, ("int8ch", "dp2"): {"K3": 5},
-                  ("int8kv", "tp2"): {"K3": 2}, ("int8kv", "dp2"): {"K3": 5},
+#: their row splits the plain int32 product, and K3 on all five at dp 2;
+#: each activation is quantized once on a rank, by Q1 (``packed``) or Q2
+#: (the int8 recipes; ``int8kv`` also encodes k and v into its cache)
+DIST_PER_BLOCK = {("int8", "tp2"): {"K1": 5, "Q2": 4},
+                  ("int8", "dp2"): {"K1": 5, "Q2": 4},
+                  ("packed", "tp2"): {"K2": 4, "Q1": 4},
+                  ("packed", "dp2"): {"K2": 4, "Q1": 4},
+                  ("int8ch", "tp2"): {"K3": 2, "Q2": 4},
+                  ("int8ch", "dp2"): {"K3": 5, "Q2": 4},
+                  ("int8kv", "tp2"): {"K3": 2, "Q2": 6},
+                  ("int8kv", "dp2"): {"K3": 5, "Q2": 6},
                   ("bf16", "tp2"): {}, ("bf16", "dp2"): {}}
 #: phase 15's tp 2 limit on the logits of every scale, relative to the
 #: one-device run's largest logit, by recipe: tp 2 changes only the order
@@ -3437,9 +3803,14 @@ LATENCY_FLAGS = ["--preset", "d16", "--modes", "bf16,int8", "--batch", "8",
 #: fc2, K5 elsewhere), one batch of 8 demo requests (phase 16 (c))
 SERVE_FLAGS = ["--depth", "16", "--recipe", "w4a4", "--no-transform",
                "--backend", "int8", "--demo", "8", "--max-batch", "8"]
-#: K1 and K5 launches of one eager d16 int8 generation (160 block
-#: forwards: fc2 as two K1 GEMMs, qkv, proj and fc1 through K5)
-D16_INT8_LAUNCHES = {"K1": 320, "K5": 480}
+#: K1, K5 and Q2 launches of one eager d16 int8 generation (160 block
+#: forwards: fc2 as two K1 GEMMs, qkv, proj and fc1 through K5; Q2
+#: quantizes the activation of all four)
+D16_INT8_LAUNCHES = {"K1": 320, "K5": 480, "Q2": 640}
+#: Q2 launches of ``quantize_var_params`` on the card under ``int8``: one
+#: ``pack_int_codes`` of each depth-stacked block weight (qkv, proj, fc1,
+#: fc2), which the serve CLI runs inside its counted window
+INT8_QUANTIZE_LAUNCHES = {"Q2": 4}
 #: PNGs of the write-rate comparison: count and side
 PNG_RATE_SET = (64, 256)
 
@@ -3586,7 +3957,8 @@ def _cli_latency(card: str) -> dict:
     """(b) ``tools/latency_breakdown.main`` at VAR-d16 (full width and
     depth), ``bf16`` and ``int8`` at batch 8, 3 rounds: every stage key,
     finite stepwise images, each eager ``int8`` pass exactly K1 320 + K5
-    480 and each ``bf16`` pass none.  Returns the port kernels' launches
+    480 + Q2 640 and each ``bf16`` pass none.  Returns the port kernels'
+    launches
     over all stepwise passes."""
     from fpqvar_tpu_torch.config import var_d16
     from fpqvar_tpu_torch.tools import latency_breakdown as LB
@@ -3613,19 +3985,22 @@ def _cli_latency(card: str) -> dict:
         f"{k} {rows['bf16'][k]:.3f} / {rows['int8'][k]:.3f} "
         f"({out['stage_ratio_vs_bf16']['int8'].get(k, float('nan')):.3f})"
         for k in keys) + f"; stepwise sum {out['stepwise_sum_ms']}, fused "
-        f"{out['fused_call_ms']}; every int8 pass K1 320 + K5 480; on {card}")
+        f"{out['fused_call_ms']}; every int8 pass K1 320 + K5 480 + Q2 640; "
+        f"on {card}")
     return totals
 
 
 def _cli_serve(tmp: str, card: str) -> dict:
     """(c) ``tools/serve.main`` at VAR-d16, W4A4 on the int8 backend, 8
     demo requests at ``max_batch`` 8, under torch.profiler: JAX's 8 PNG
-    names; the host counters see K1 640 + K5 960 (the fused generator's
-    eager warm-up and its capture) and the profiler K1 320 + K5 480 for
-    the warm-up and for each served batch's replay (phase 10's count);
-    the PNGs' pixels equal ``to_uint8`` of the same requests through an
-    eager ``GenerationServer`` over the CLI's trees (exactly K1 320 + K5
-    480 a batch).  Returns the profiler's launches of K1 and K5."""
+    names; the host counters see K1 640 + K5 960 + Q2 1,280 (the fused
+    generator's eager warm-up and its capture) and the profiler K1 320 +
+    K5 480 + Q2 640 for the warm-up and for each served batch's replay
+    (phase 10's count), both besides the quantize stage's Q2 4
+    (``INT8_QUANTIZE_LAUNCHES``); the PNGs' pixels equal ``to_uint8`` of
+    the same requests through an eager ``GenerationServer`` over the CLI's
+    trees (exactly K1 320 + K5 480 + Q2 640 a batch).  Returns the profiler's
+    launches of K1, K5 and Q2."""
     from torch.profiler import ProfilerActivity, profile
 
     from fpqvar_tpu_torch.config import GenerateConfig
@@ -3640,25 +4015,27 @@ def _cli_serve(tmp: str, card: str) -> dict:
     flags = SERVE_FLAGS + ["--out", out_dir]
     reset_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
         t0 = time.perf_counter()
         st = serve.main(flags)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     host = read_counts()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = _device_events(prof)
     device = {k: sum(e.count for e in events
                      if any(p in e.key for p in PORT_KERNELS[k]))
               for k in D16_INT8_LAUNCHES}
-    want_host = {k: 2 * D16_INT8_LAUNCHES.get(k, 0) for k in COUNTERS}
+    want_host = {k: 2 * D16_INT8_LAUNCHES.get(k, 0)
+                 + INT8_QUANTIZE_LAUNCHES.get(k, 0) for k in COUNTERS}
     if host != want_host:
         fail(f"cli: (c) serve's host counters {host}, expected {want_host} "
-             "(one warm-up and one capture)")
+             "(the quantize stage, one warm-up and one capture)")
     for k, per in D16_INT8_LAUNCHES.items():
-        if device[k] != per * (1 + st["batches"]):
+        want = per * (1 + st["batches"]) + INT8_QUANTIZE_LAUNCHES.get(k, 0)
+        if device[k] != want:
             fail(f"cli: (c) the profiler saw {k} {device[k]} times, expected "
-                 f"{per} for the warm-up and each of {st['batches']} "
-                 "replays")
+                 f"{want}: {per} for the warm-up and each of "
+                 f"{st['batches']} replays, and the quantize stage's")
     names = [f"class{i}_img{i}.png" for i in range(8)]
     if sorted(os.listdir(out_dir)) != sorted(names):
         fail(f"cli: (c) serve wrote {sorted(os.listdir(out_dir))}")
@@ -3687,8 +4064,9 @@ def _cli_serve(tmp: str, card: str) -> dict:
     print(f"cli: (c) serve {' '.join(SERVE_FLAGS)}: {st['batches']} "
           f"batch(es), {wall:.2f} s under the profiler (build, quantize, "
           f"warm-up and capture included); host counters {host}; profiler "
-          f"K1 {device['K1']}, K5 {device['K5']} (the warm-up and "
-          f"{st['batches']} replay(s): K1 320 + K5 480 each); 8 PNGs equal "
+          f"K1 {device['K1']}, K5 {device['K5']}, Q2 {device['Q2']} (the "
+          f"warm-up and {st['batches']} replay(s): K1 320 + K5 480 + Q2 640 "
+          f"each, and Q2 4 for the quantize stage); 8 PNGs equal "
           f"to the eager server's images; on {card}")
     return device
 
@@ -3735,6 +4113,19 @@ def _kernel_row(name, source, replaces, launches, rows, timed="fc1"):
                            f"N={head['N']}", "shapes": rows}
 
 
+def _quant_row(name, source, replaces, launches, rows, timed):
+    """One quantizer kernel of the JSON table: timed at the d16 shape
+    ``timed``, bit-equal (``max_abs_err`` 0) at every shape."""
+    head = next(r for r in rows if r["shape"] == timed)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "host_ms": head["host_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "timed_shape": timed, "shapes": rows}
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
         return _dist_rank(sys.argv[2])
@@ -3754,6 +4145,7 @@ def main():
     k5_rows = phase_k5()
     k6_rows = phase_k6()
     k7_rows = phase_k7()
+    q_rows = phase_quant()
     done("kernels")
     phase_small_reference()
     done("small reference")
@@ -3807,6 +4199,17 @@ def main():
         _kernel_row("bf16_probe_gemm", src + "bf16_probe_gemm.cu",
                     "scripts/int8_rate_probe.py:148",
                     probe_launches["K7"], k7_rows, timed="probe-4096"),
+        # the quantizers replace no TPU kernel: each replaces the XLA
+        # fusion of a jitted JAX function (file:line of its definition)
+        _quant_row("fake_quant_grid", src + "fake_quant_grid.cu",
+                   "fpqvar_tpu/ops/quantizers.py:105", launches["Q1"],
+                   q_rows["Q1"], "qkv-fp_e2-g128"),
+        _quant_row("grid_codes", src + "grid_codes.cu",
+                   "fpqvar_tpu/ops/packing.py:207", launches["Q2"],
+                   q_rows["Q2"], "qkv-fp_e2-g128"),
+        _quant_row("fake_quant_int", src + "fake_quant_int.cu",
+                   "fpqvar_tpu/ops/quantizers.py:209", launches["Q3"],
+                   q_rows["Q3"], "qkv-sym-token"),
     ]}
     # the teacher-forcing forward's launches of K1-K5 (phase 12) and their
     # times at its M = 5440, beside the generation path's

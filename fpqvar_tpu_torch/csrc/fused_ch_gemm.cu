@@ -32,7 +32,9 @@
 // kernels on one stream, and each row is quantized exactly once:
 //   (a) fused_ch_quantize_kernel: one warp per row takes the absmax over
 //       the whole K, then re-reads the row (from L1 / L2) and writes its
-//       int8 codes and rs = scale / mult;
+//       int8 codes and rs = scale / mult (its grid table, 16-byte loads,
+//       binary-lifting encode and code stores are grid_snap.cuh's, which
+//       the quantizers Q1-Q3 share);
 //   (b) the s8 instantiation of wgmma_gemm.cuh over the codes and wc
 //       (TMA ring, wgmma m64n256k32 s8 x s8 -> s32 on 128 x 256 tiles),
 //       whose epilogue (FusedChRescale, on ch_rescale.cuh; K3 runs the
@@ -54,64 +56,16 @@
 // L2 holds the codes.  PERF.md has the times of (a), (b) and the whole
 // call.
 #include "ch_rescale.cuh"
+#include "grid_snap.cuh"
 
 namespace {
 
 constexpr int kMaxGrid = 64;             // grid values (fp6_e2m3: 63)
-constexpr int QUANT_WARPS = 8;           // rows per block of (a)
+constexpr int QUANT_WARPS = grid_snap::kWarps;   // rows per block of (a)
 
-struct Grid {
-  float mid[kMaxGrid];    // sorted midpoints in grid units
-  int code[kMaxGrid];     // integer code of each grid value
-  int n_mids;
-  float inv;              // f32(1 / max|grid|)
-  float mult;             // code multiplier (a power of two)
-};
-
-// 16 bytes of a row of x as floats: 8 bf16 or 4 f32 values (exact).
-template <bool XBF16>
-struct XVec;
-
-template <>
-struct XVec<true> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const void* p, float (&v)[8]) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[2 * j] = __uint_as_float(w[j] << 16);
-      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  }
-};
-
-template <>
-struct XVec<false> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const void* p, float (&v)[4]) {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = f.x;
-    v[1] = f.y;
-    v[2] = f.z;
-    v[3] = f.w;
-  }
-};
-
-// The integer code of q: the count of midpoints <= q (a prefix of the
-// sorted midpoints), found by binary lifting from the step FIRST over at
-// most 2 * FIRST - 1 entries (FIRST 8: the 4-bit grids' 14 midpoints;
-// FIRST 32: fp6_e2m3's 62).
-template <int FIRST>
-__device__ __forceinline__ int encode(float q, const float* mid, int n_mids,
-                                      const int* code) {
-  int pos = 0;
-#pragma unroll
-  for (int step = FIRST; step > 0; step >>= 1) {
-    if (pos + step <= n_mids && q >= mid[pos + step - 1]) pos += step;
-  }
-  return code[pos];
-}
+// The format's midpoints, integer codes, 1/gmax and multiplier
+// (grid_snap.cuh, shared with the quantizers Q1-Q3).
+using Grid = grid_snap::Table<kMaxGrid, int>;
 
 // (a) One warp per row: the absmax over the whole K, then the codes of the
 // row (16 bytes of x a lane per step) and its output scale scale / mult.
@@ -120,14 +74,11 @@ __global__ void __launch_bounds__(32 * QUANT_WARPS)
 fused_ch_quantize_kernel(const void* __restrict__ xv,
                          int8_t* __restrict__ codes, float* __restrict__ rs,
                          int M, int K, const __grid_constant__ Grid grid) {
-  using V = XVec<XBF16>;
+  using V = grid_snap::XVec<XBF16>;
   constexpr int XBYTES = XBF16 ? 2 : 4;
   __shared__ float s_mid[kMaxGrid];
   __shared__ int s_code[kMaxGrid];
-  if (threadIdx.x < kMaxGrid) {
-    s_mid[threadIdx.x] = grid.mid[threadIdx.x];
-    s_code[threadIdx.x] = grid.code[threadIdx.x];
-  }
+  grid_snap::stage(grid, s_mid, s_code);
   __syncthreads();
   const int lane = threadIdx.x % 32;
   const int r = blockIdx.x * QUANT_WARPS + threadIdx.x / 32;
@@ -154,18 +105,11 @@ fused_ch_quantize_kernel(const void* __restrict__ xv,
   for (int c = lane * 16; c < row_bytes; c += 32 * 16) {
     float v[V::N];
     V::load(row + c, v);
-    unsigned packed[V::N / 4] = {};
+    int q[V::N];
 #pragma unroll
-    for (int j = 0; j < V::N; ++j) {
-      const int q = encode<FIRST>(v[j] / scale, s_mid, n_mids, s_code);
-      packed[j / 4] |= (static_cast<unsigned>(q) & 0xffu) << (8 * (j % 4));
-    }
-    int8_t* dst = out + c / XBYTES;
-    if constexpr (V::N == 8) {
-      *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
-    } else {
-      *reinterpret_cast<unsigned*>(dst) = packed[0];
-    }
+    for (int j = 0; j < V::N; ++j)
+      q[j] = grid_snap::encode<FIRST>(v[j] / scale, s_mid, n_mids, s_code);
+    grid_snap::store_codes(out + c / XBYTES, q);
   }
 }
 
@@ -206,12 +150,9 @@ extern "C" int fused_ch_gemm(const void* x, const void* wc, const void* wsc,
       n_mids >= kMaxGrid) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Grid grid = {};
-  for (int i = 0; i < n_mids; ++i) grid.mid[i] = mids[i];
-  for (int i = 0; i <= n_mids; ++i) grid.code[i] = codes_table[i];
-  grid.n_mids = n_mids;
-  grid.inv = inv;
-  grid.mult = mult;
+  const Grid grid =
+      grid_snap::make_table<kMaxGrid, int>(mids, codes_table, n_mids, inv,
+                                           mult);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
     return out_bf16 ? launch<true, __nv_bfloat16>(x, wc, wsc, codes, rs, out,

@@ -320,8 +320,9 @@ def int8ch_gemm(ac, asc, wc, ws, out_dtype=torch.float32):
 def fused_ch_quantize_ref(x, fmt: str):
     """Plain version of K4's phase (a): each row of ``x [M, K]`` quantized
     once over its whole K, ``quant_int_codes(x, fmt, K)`` -> (codes int8
-    ``[M, K]``, output scales ``scale / mult`` f32 ``[M, 1]``)."""
-    return P.quant_int_codes(x, fmt, x.shape[-1])
+    ``[M, K]``, output scales ``scale / mult`` f32 ``[M, 1]``), plain
+    PyTorch on any device (``quant_int_codes_ref``)."""
+    return P.quant_int_codes_ref(x, fmt, x.shape[-1])
 
 
 def fused_ch_gemm_ref(x, wc, ws, fmt: str, out_dtype=torch.float32):

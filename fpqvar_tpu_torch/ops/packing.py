@@ -84,20 +84,47 @@ def encode_to_grid(x: torch.Tensor, grid) -> torch.Tensor:
     return idx
 
 
-def pack(x: torch.Tensor, fmt: str, group_size: int = 128) -> PackedTensor:
-    """Quantize ``x [..., rows, K]`` to codes and per-group scales, in the
-    operations of JAX's jitted ``pack``: ``absmax * (1/gmax)``, then the
-    true division ``x / scale``, then the midpoint count."""
+def pack_codes_ref(x: torch.Tensor, fmt: str, group_size: int = 128):
+    """``pack``'s quantize stage, in the operations of JAX's jitted
+    ``pack``: ``absmax * (1/gmax)`` in x's dtype (then float32), the true
+    division ``x / scale``, then the midpoint count -> (grid-index codes
+    int32 ``[..., K]``, scales f32 ``[..., G, 1]``).  The plain version of
+    kernel Q2's index route (``ops/quant_kernels.py`` ``pack_codes``)."""
     grid = G.GRIDS[fmt]
-    shape = tuple(x.shape)
     xg = Q.group_reshape(x, group_size)
     scales = Q.safe_scale(xg.abs().amax(dim=-1, keepdim=True),
                           Q.inv_max(grid)).to(torch.float32)
-    codes = encode_to_grid(xg / scales, grid).reshape(shape)
+    return encode_to_grid(xg / scales, grid).reshape(x.shape), scales
+
+
+def grid_index_codes_ref(x: torch.Tensor, fmt: str):
+    """The generic-grid KV codec's encode (JAX's jitted ``make_kv_codec``
+    for a grid without value codes): ``x`` in float32, one scale
+    ``absmax * f32(1/gmax)`` a row of the last dim, the true division,
+    the nearest grid index as int8 -> (codes ``[..., c]``, scales f32
+    ``[..., 1]``).  The plain version of kernel Q2's index route
+    (``ops/quant_kernels.py`` ``grid_index_codes``)."""
+    grid = G.GRIDS[fmt]
+    xf = x.to(torch.float32)
+    scales = Q.safe_scale(xf.abs().amax(dim=-1, keepdim=True),
+                          Q.inv_max(grid))
+    return encode_to_grid(xf / scales, grid).to(torch.int8), scales
+
+
+def pack(x: torch.Tensor, fmt: str, group_size: int = 128) -> PackedTensor:
+    """Quantize ``x [..., rows, K]`` to codes and per-group scales
+    (:func:`pack_codes_ref`'s operations; kernel Q2 on a card), then lay
+    the codes out as the kernels read them."""
+    from fpqvar_tpu_torch.ops import quant_kernels
+
+    grid = G.GRIDS[fmt]
+    shape = tuple(x.shape)
+    codes, scales = quant_kernels.pack_codes(x, fmt, group_size)
     nibble = len(grid) <= 16 and len(shape) >= 2 and shape[-2] % 128 == 0
     if nibble:
         rows = shape[-2]
-        ct = codes.reshape(shape[:-2] + (rows // 128, 128, shape[-1]))
+        ct = codes.to(torch.int32).reshape(
+            shape[:-2] + (rows // 128, 128, shape[-1]))
         packed = (ct[..., :64, :] | (ct[..., 64:, :] << 4)).to(torch.int8)
         packed = packed.reshape(shape[:-2] + (rows // 2, shape[-1]))
     else:
@@ -214,7 +241,15 @@ class IntPack:
 
 def quant_int_codes(x: torch.Tensor, fmt: str, group_size: int = 128):
     """Quantize ``(..., K)`` -> (codes int8 ``(..., K)``, scales f32
-    ``(..., G)``) with value = code * scale.
+    ``(..., G)``) with value = code * scale: kernel Q2 on a card
+    (``ops/quant_kernels.py``), :func:`quant_int_codes_ref` on the CPU."""
+    from fpqvar_tpu_torch.ops import quant_kernels
+
+    return quant_kernels.quant_int_codes(x, fmt, group_size)
+
+
+def quant_int_codes_ref(x: torch.Tensor, fmt: str, group_size: int = 128):
+    """Plain version of :func:`quant_int_codes`.
 
     The operations of the JAX package's jitted ``quant_int_codes``, in its
     order, for bit-equality: ``absmax * (1/gmax)``, then ``x / scale`` (a
@@ -232,9 +267,18 @@ def quant_int_codes(x: torch.Tensor, fmt: str, group_size: int = 128):
 
 def quant_int_codes_dual(x: torch.Tensor, fmt: str, group_size: int = 128):
     """Dual-grid (fc2) variant -> (codes_neg, scales_neg, codes_pos,
-    scales_pos), value = cn * sn + cp * sp.  ``x <= 0`` goes on the
-    negative grid and ``x > 0`` on the positive one; each half snaps the
-    other half's zeros to 0."""
+    scales_pos), value = cn * sn + cp * sp: kernel Q2 on a card,
+    :func:`quant_int_codes_dual_ref` on the CPU."""
+    from fpqvar_tpu_torch.ops import quant_kernels
+
+    return quant_kernels.quant_int_codes_dual(x, fmt, group_size)
+
+
+def quant_int_codes_dual_ref(x: torch.Tensor, fmt: str,
+                             group_size: int = 128):
+    """Plain version of :func:`quant_int_codes_dual`: ``x <= 0`` goes on
+    the negative grid and ``x > 0`` on the positive one; each half snaps
+    the other half's zeros to 0."""
     neg_grid, pos_grid = G.DUAL_GRIDS[fmt]
     nmult, pmult = (float(m) for m in DUAL_CODE_MULT[fmt])
     xf = Q.group_reshape(x, group_size).to(torch.float32)

@@ -12,6 +12,12 @@ gmax``, ``/ q_max``, ``/ (q_max - q_min)``) into a multiply by its float32
 reciprocal (:func:`inv_max`, :func:`inv`); and it fuses the true division
 ``x / scale`` into the float32 snap without rounding the quotient to
 ``x.dtype`` (:func:`_snap_div`).
+
+``fake_quant_fp``, ``fake_quant_dual``, ``fake_quant_int_sym`` and
+``fake_quant_int_asym`` dispatch by device through
+``ops/quant_kernels.py``: on a card the hand-written kernels Q1 and Q3
+compute them bit for bit in one launch; on the CPU the ``*_ref``
+functions here, their plain versions, run.
 """
 from __future__ import annotations
 
@@ -22,6 +28,14 @@ import numpy as np
 import torch
 
 from fpqvar_tpu_torch.ops import grids as G
+
+
+def _kernels():
+    """``ops/quant_kernels.py``, the public quantizers' device dispatch
+    (imported at the call: it imports this module)."""
+    from fpqvar_tpu_torch.ops import quant_kernels
+
+    return quant_kernels
 
 
 def inv_max(grid) -> float:
@@ -113,6 +127,15 @@ def _axis_absmax(x: torch.Tensor, granularity: str, group_size: int):
 def fake_quant_fp(x: torch.Tensor, fmt: str, *, granularity: str = "per_group",
                   group_size: int = 128,
                   clip_abs: Optional[float] = None) -> torch.Tensor:
+    """:func:`fake_quant_fp_ref`'s function: kernel Q1 on a card
+    (``ops/quant_kernels.py``), the plain version on the CPU."""
+    return _kernels().fake_quant_fp(x, fmt, granularity=granularity,
+                                    group_size=group_size, clip_abs=clip_abs)
+
+
+def fake_quant_fp_ref(x: torch.Tensor, fmt: str, *,
+                      granularity: str = "per_group", group_size: int = 128,
+                      clip_abs: Optional[float] = None) -> torch.Tensor:
     """absmax-scaled nearest-grid fake quantization:
     ``scale = absmax / max|grid|``, snap ``x / scale``, multiply back.
     ``clip_abs`` clamps ``x`` to ``[-clip_abs, clip_abs]`` first."""
@@ -128,6 +151,19 @@ def fake_quant_dual(x: torch.Tensor, fmt: str, *,
                     granularity: str = "per_group",
                     group_size: int = 128,
                     clipping_strength: Optional[float] = None) -> torch.Tensor:
+    """:func:`fake_quant_dual_ref`'s function: kernel Q1 on a card (the
+    plain version with ``clipping_strength`` or ``per_tensor``), the
+    plain version on the CPU."""
+    return _kernels().fake_quant_dual(x, fmt, granularity=granularity,
+                                      group_size=group_size,
+                                      clipping_strength=clipping_strength)
+
+
+def fake_quant_dual_ref(x: torch.Tensor, fmt: str, *,
+                        granularity: str = "per_group",
+                        group_size: int = 128,
+                        clipping_strength: Optional[float] = None
+                        ) -> torch.Tensor:
     """Sign-split dual-grid quantization (the fc2 formats): ``x <= 0`` on
     the negative grid and ``x > 0`` on the positive one, each half with its
     own absmax scale; each half snaps the other half's zeros to 0, so
@@ -195,6 +231,17 @@ def _int_range(n_bits: int):
 def fake_quant_int_sym(x: torch.Tensor, n_bits: int, *,
                        granularity: str = "per_token", group_size: int = 128,
                        scale_eps: float = 1e-5) -> torch.Tensor:
+    """:func:`fake_quant_int_sym_ref`'s function: kernel Q3 on a card, the
+    plain version on the CPU."""
+    return _kernels().fake_quant_int_sym(x, n_bits, granularity=granularity,
+                                         group_size=group_size,
+                                         scale_eps=scale_eps)
+
+
+def fake_quant_int_sym_ref(x: torch.Tensor, n_bits: int, *,
+                           granularity: str = "per_token",
+                           group_size: int = 128,
+                           scale_eps: float = 1e-5) -> torch.Tensor:
     """Symmetric linear quantization: ``scale = max(absmax, eps) / q_max``
     (a multiply by ``f32(1 / q_max)``), ``round(x / scale)`` (half to
     even) clamped to ``[q_min, q_max]``, times the scale."""
@@ -208,6 +255,17 @@ def fake_quant_int_sym(x: torch.Tensor, n_bits: int, *,
 def fake_quant_int_asym(x: torch.Tensor, n_bits: int, *,
                         granularity: str = "per_token", group_size: int = 128,
                         scale_eps: float = 1e-5) -> torch.Tensor:
+    """:func:`fake_quant_int_asym_ref`'s function: kernel Q3 on a card, the
+    plain version on the CPU."""
+    return _kernels().fake_quant_int_asym(x, n_bits, granularity=granularity,
+                                          group_size=group_size,
+                                          scale_eps=scale_eps)
+
+
+def fake_quant_int_asym_ref(x: torch.Tensor, n_bits: int, *,
+                            granularity: str = "per_token",
+                            group_size: int = 128,
+                            scale_eps: float = 1e-5) -> torch.Tensor:
     """Asymmetric linear quantization with a zero point: ``scale =
     max(max - min, eps) / (q_max - q_min)``, ``zp = round(q_min - min /
     scale)``, ``q = clamp(round(x / scale) + zp)``, ``(q - zp) * scale``."""

@@ -24,6 +24,7 @@ from fpqvar_tpu_torch.config import QuantConfig
 from fpqvar_tpu_torch.ops import grids as G
 from fpqvar_tpu_torch.ops import hadamard as H
 from fpqvar_tpu_torch.ops import packing as P
+from fpqvar_tpu_torch.ops import quant_kernels
 from fpqvar_tpu_torch.ops import quantizers as Q
 
 #: the block linears the recipe quantizes
@@ -65,7 +66,8 @@ def make_kv_codec(fmt: str) -> KVCodec:
     arithmetic: value codes through ``quant_int_codes`` with one group
     spanning the row; other grids scale by ``absmax * f32(1/gmax)`` (XLA's
     form of ``absmax / gmax`` under ``jit``), divide, and take the nearest
-    grid index.
+    grid index (``packing.grid_index_codes_ref``).  Both encodes run
+    kernel Q2 on a card (``ops/quant_kernels.py``).
 
     A grid of more than 128 values (``fp8_e4m3``: 255) has indices past
     int8's range: the code keeps the index's low byte (``.to(int8)``, as
@@ -84,12 +86,8 @@ def make_kv_codec(fmt: str) -> KVCodec:
         return KVCodec(fmt, encode, decode, True,
                        round(float(abs(grid).max()) * mult))
 
-    inv = Q.inv_max(grid)
-
     def encode(x):
-        xf = x.to(torch.float32)
-        scales = Q.safe_scale(xf.abs().amax(dim=-1, keepdim=True), inv)
-        return P.encode_to_grid(xf / scales, grid).to(torch.int8), scales
+        return quant_kernels.grid_index_codes(x, fmt)
 
     def decode(codes, scales):
         g = _grid_on(fmt, codes.device).to(scales.dtype)

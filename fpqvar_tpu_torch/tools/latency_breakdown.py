@@ -49,7 +49,10 @@ COUNTERS = {"K1": ("int8_matmul", "launches"),
             "K2": ("quant_matmul", "launches"),
             "K3": ("int8_matmul", "ch_launches"),
             "K4": ("int8_matmul", "fused_launches"),
-            "K5": ("int8_matmul", "nd_launches")}
+            "K5": ("int8_matmul", "nd_launches"),
+            "Q1": ("quant_kernels", "grid_launches"),
+            "Q2": ("quant_kernels", "codes_launches"),
+            "Q3": ("quant_kernels", "int_launches")}
 
 
 def build_cfg(preset: str):
@@ -61,9 +64,10 @@ def build_cfg(preset: str):
 
 
 def read_launches() -> dict:
-    from fpqvar_tpu_torch.ops import int8_matmul, quant_matmul
+    from fpqvar_tpu_torch.ops import int8_matmul, quant_kernels, quant_matmul
 
-    mods = {"int8_matmul": int8_matmul, "quant_matmul": quant_matmul}
+    mods = {"int8_matmul": int8_matmul, "quant_matmul": quant_matmul,
+            "quant_kernels": quant_kernels}
     return {k: getattr(mods[m], a) for k, (m, a) in COUNTERS.items()}
 
 

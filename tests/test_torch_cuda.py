@@ -638,14 +638,19 @@ def test_cuda_d16_fp4_kv6_matches_cpu(cuda_device):
     per token to fp6_e2m3 on append) at VAR-d16's width and depth over its
     first three scales (1, 2, 3; a small VQVAE), float32 compute and cache
     at ``top_k=1``: the card samples the CPU's tokens at every scale,
-    launches no kernel of the port, and its ``f_hat`` agrees within 1e-5
-    (it depends on the tokens alone, through the VQVAE's float32 convs)."""
-    cpu_tokens, cpu_fhat = _d16_fp4_kv6(torch.device("cpu"))
+    launches no GEMM of the port and the quantizer Q1 six times a block
+    forward (four activations, the cache's k and v), and its ``f_hat``
+    agrees within 1e-5 (it depends on the tokens alone, through the
+    VQVAE's float32 convs)."""
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+
+    cpu_tokens, cpu_fhat, _ = _d16_fp4_kv6(torch.device("cpu"))
     counters = (K.launches, K.nd_launches, K.fused_launches, K.ch_launches,
-                QM.launches)
-    tokens, fhat = _d16_fp4_kv6(cuda_device)
+                QM.launches, QK.codes_launches, QK.int_launches)
+    tokens, fhat, n_q1 = _d16_fp4_kv6(cuda_device)
     assert (K.launches, K.nd_launches, K.fused_launches, K.ch_launches,
-            QM.launches) == counters
+            QM.launches, QK.codes_launches, QK.int_launches) == counters
+    assert n_q1 == 6 * 16 * 3
     assert len(tokens) == len(cpu_tokens) == 3
     for a, b in zip(tokens, cpu_tokens):
         assert torch.equal(a, b)
@@ -653,8 +658,11 @@ def test_cuda_d16_fp4_kv6_matches_cpu(cuda_device):
 
 
 def _d16_fp4_kv6(device):
-    """(the tokens of each scale, f_hat) of one seeded ``fp4_kv6``
-    generation of 3 labels at d16's width and depth on ``device``."""
+    """(the tokens of each scale, f_hat, the generation's Q1 launches) of
+    one seeded ``fp4_kv6`` generation of 3 labels at d16's width and depth
+    on ``device``."""
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+
     import dataclasses
 
     from fpqvar_tpu_torch.config import (GenerateConfig, VQVAEConfig,
@@ -686,12 +694,13 @@ def _d16_fp4_kv6(device):
         return idx
 
     V.sample_with_top_k_top_p = recorded
+    q1 = QK.grid_launches
     try:
         fhat = gen.generate(qp, _tree_to(vae, device), [3, 5, 998],
                             return_fhat=True)
     finally:
         V.sample_with_top_k_top_p = sample
-    return tokens, fhat.cpu()
+    return tokens, fhat.cpu(), QK.grid_launches - q1
 
 
 def _tree_to(tree, device):
@@ -790,16 +799,22 @@ def test_cuda_device_transform_matches_cpu(cuda_device, mode):
             assert torch.equal(x.cpu(), y), key
 
 
-#: port-kernel launches of one d16 teacher-forcing forward (16 blocks)
-TF_LAUNCHES = {"bf16": {}, "int8": {"nd_launches": 48, "launches": 32},
-               "packed": {"qm": 64},
-               "int8ch": {"fused_launches": 48, "ch_launches": 32}}
+#: port-kernel launches of one d16 teacher-forcing forward (16 blocks),
+#: the activation quantizers Q1 and Q2 among them
+TF_LAUNCHES = {"bf16": {},
+               "int8": {"nd_launches": 48, "launches": 32, "q2": 64},
+               "packed": {"qm": 64, "q1": 64},
+               "int8ch": {"fused_launches": 48, "ch_launches": 32, "q2": 16}}
 
 
 def _tf_counts():
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+
     return {"launches": K.launches, "nd_launches": K.nd_launches,
             "ch_launches": K.ch_launches,
-            "fused_launches": K.fused_launches, "qm": QM.launches}
+            "fused_launches": K.fused_launches, "qm": QM.launches,
+            "q1": QK.grid_launches, "q2": QK.codes_launches,
+            "q3": QK.int_launches}
 
 
 @pytest.mark.cuda
@@ -1027,14 +1042,16 @@ def test_cuda_score_subprocess_features_equal(cuda_device, tmp_path):
 
 
 def _eval_counts():
-    return {"K1": K.launches, "K5": K.nd_launches}
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+
+    return {"K1": K.launches, "K5": K.nd_launches, "Q2": QK.codes_launches}
 
 
 @pytest.mark.cuda
 def test_cuda_eval_set_launches_and_fused_pngs_equal(cuda_device, tmp_path):
     """An eager ``int8`` eval set at width 256 (2 classes of 3 images at
-    batch 2: 4 generations) launches K1 and K5 exactly as 4 generations
-    route them; a fused generator writes the same PNG bytes; a complete
+    batch 2: 4 generations) launches K1, K5 and Q2 exactly as 4
+    generations route them; a fused generator writes the same PNG bytes; a complete
     set runs nothing again."""
     import os
 
@@ -1052,7 +1069,7 @@ def test_cuda_eval_set_launches_and_fused_pngs_equal(cuda_device, tmp_path):
     after = _eval_counts()
     assert runs == 4
     assert {k: after[k] - before[k] for k in after} == {
-        "K1": 4 * 2 * blocks, "K5": 4 * 3 * blocks}
+        "K1": 4 * 2 * blocks, "K5": 4 * 3 * blocks, "Q2": 4 * 4 * blocks}
     fused = VARGenerator(cfg, q, qrt=eager.qrt, device=cuda_device)
     assert generate_eval_set(fused, qp, vae, str(tmp_path / "fused"), 3,
                              [4, 9], batch=2) == 4
@@ -1223,3 +1240,266 @@ def test_cuda_motivation_mse_matches_cpu(cuda_device, tmp_path):
         a, b = np.asarray(curves["cuda"][name]), np.asarray(ys)
         assert np.all(np.isfinite(a)), name
         np.testing.assert_allclose(a, b, rtol=1e-4, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The quantizers Q1-Q3 (ops/quant_kernels.py)
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal as int views (``torch.equal`` treats -0 as +0)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = torch.int16 if a.element_size() == 2 else torch.int32
+        return torch.equal(a.contiguous().view(view),
+                           b.contiguous().view(view))
+    return torch.equal(a, b)
+
+
+def _all_bits_equal(got, want) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(
+        _bits_equal(a, b) for a, b in zip(got, want))
+
+
+def _quant_cases():
+    """(label, kernel call, plain call) over every grid a recipe can use:
+    Q1 per group and per token (the per-token fp4 formats with their
+    clamp), Q2's value codes, dual codes and grid-index codes (pack, the
+    KV codec), Q3 symmetric and asymmetric at 4, 6 and 8 bits."""
+    from fpqvar_tpu_torch.ops import grids as G
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+    from fpqvar_tpu_torch.ops import quantizers as Q
+
+    def pack_ref(x, fmt):
+        codes, scales = P.pack_codes_ref(x, fmt)
+        return codes.to(torch.int8), scales
+
+    cases = []
+    for fmt in G.GRIDS:
+        for gran in ("per_group", "per_token"):
+            clip = 3.0 if gran == "per_token" and fmt.startswith("fp_e") else None
+            kw = dict(granularity=gran, clip_abs=clip)
+            cases.append((f"Q1 {fmt} {gran}", G.GRIDS[fmt], None,
+                          lambda x, f=fmt, kw=kw: Q.fake_quant_fp(x, f, **kw),
+                          lambda x, f=fmt, kw=kw: Q.fake_quant_fp_ref(
+                              x, f, **kw)))
+        cases.append((f"Q2 pack {fmt}", G.GRIDS[fmt], None,
+                      lambda x, f=fmt: QK.pack_codes(x, f),
+                      lambda x, f=fmt: pack_ref(x, f)))
+        cases.append((f"Q2 KV index {fmt}", G.GRIDS[fmt], None,
+                      lambda x, f=fmt: QK.grid_index_codes(x.view(-1, 64), f),
+                      lambda x, f=fmt: P.grid_index_codes_ref(
+                          x.view(-1, 64), f)))
+        if fmt in P.CODE_MULT:
+            for gs in (128, 1024):
+                cases.append((f"Q2 codes {fmt} {gs}", G.GRIDS[fmt], None,
+                              lambda x, f=fmt, g=gs: P.quant_int_codes(
+                                  x, f, g),
+                              lambda x, f=fmt, g=gs: P.quant_int_codes_ref(
+                                  x, f, g)))
+    for fmt, (neg, pos) in G.DUAL_GRIDS.items():
+        lead = [-float(np.abs(neg).max()), float(np.abs(pos).max())]
+        for half, grid in (("neg", neg), ("pos", pos)):
+            for gran in ("per_group", "per_token"):
+                cases.append((f"Q1 {fmt} {half} {gran}", grid, lead,
+                              lambda x, f=fmt, g=gran: Q.fake_quant_dual(
+                                  x, f, granularity=g),
+                              lambda x, f=fmt, g=gran: Q.fake_quant_dual_ref(
+                                  x, f, granularity=g)))
+            if fmt in P.DUAL_CODE_MULT:
+                cases.append((f"Q2 dual {fmt} {half}", grid, lead,
+                              lambda x, f=fmt: P.quant_int_codes_dual(x, f),
+                              lambda x, f=fmt: P.quant_int_codes_dual_ref(
+                                  x, f)))
+    for n_bits in (4, 6, 8):
+        q_max = 2 ** (n_bits - 1) - 1
+        grid = np.arange(-q_max - 1, q_max + 1, dtype=np.float32)
+        for asym in (False, True):
+            fn, ref = ((Q.fake_quant_int_asym, Q.fake_quant_int_asym_ref)
+                       if asym else (Q.fake_quant_int_sym,
+                                     Q.fake_quant_int_sym_ref))
+            for gran in ("per_group", "per_token"):
+                cases.append((f"Q3 int{n_bits} {'asym' if asym else 'sym'} "
+                              f"{gran}", grid, None,
+                              lambda x, fn=fn, b=n_bits, g=gran: fn(
+                                  x, b, granularity=g),
+                              lambda x, ref=ref, b=n_bits, g=gran: ref(
+                                  x, b, granularity=g)))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_quantizers_bit_equal_on_adversarial_inputs(cuda_device, dtype):
+    """Q1, Q2 and Q3 bit-equal (int views, NaN bits included) to their
+    plain versions on the card, over every grid and dual-grid half, per
+    group and per token: 10^5 scaled normals, every midpoint, grid value
+    and +-0 at scale ~1, +-inf, NaN, +-1e30 and denormal scales, each
+    with its neighbours (``test_torch_quant_kernels.adversarial``)."""
+    from test_torch_quant_kernels import adversarial
+
+    bf16 = dtype == "bfloat16"
+    bad = []
+    for label, grid, lead, run, plain in _quant_cases():
+        x = torch.from_numpy(adversarial(grid, bf16, 11, lead=lead)).to(
+            cuda_device, getattr(torch, dtype)).reshape(-1, 1024)
+        if not _all_bits_equal(run(x), plain(x)):
+            bad.append(label)
+    assert not bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gs", [64, 128, 1024, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_quantizers_group_sizes_with_leading_dims(cuda_device, gs,
+                                                       dtype):
+    """Groups of 64, 128, 1024 and 4096 over ``[2, 3, 5, 4096]``: each
+    kernel bit-equal to its plain version, one launch a call."""
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+    from fpqvar_tpu_torch.ops import quantizers as Q
+
+    gen = torch.Generator(device=cuda_device).manual_seed(gs)
+    x = (torch.randn((2, 3, 5, 4096), generator=gen, device=cuda_device)
+         * 3).to(dtype)
+    x[0, 1, 2, :gs] = 0.0                               # an all-zero group
+    pairs = [
+        (lambda: Q.fake_quant_fp(x, "fp_e2", group_size=gs),
+         lambda: Q.fake_quant_fp_ref(x, "fp_e2", group_size=gs), "grid"),
+        (lambda: Q.fake_quant_dual(x, "fp6_int_neg_e2m3_pos", group_size=gs),
+         lambda: Q.fake_quant_dual_ref(x, "fp6_int_neg_e2m3_pos",
+                                       group_size=gs), "grid"),
+        (lambda: P.quant_int_codes(x, "fp6_e2m3", gs),
+         lambda: P.quant_int_codes_ref(x, "fp6_e2m3", gs), "codes"),
+        (lambda: P.quant_int_codes_dual(x, "fp_e1m2_neg_e2m1_pos", gs),
+         lambda: P.quant_int_codes_dual_ref(x, "fp_e1m2_neg_e2m1_pos", gs),
+         "codes"),
+        (lambda: Q.fake_quant_int_asym(x, 4, granularity="per_group",
+                                       group_size=gs),
+         lambda: Q.fake_quant_int_asym_ref(x, 4, granularity="per_group",
+                                           group_size=gs), "int"),
+    ]
+    attr = {"grid": "grid_launches", "codes": "codes_launches",
+            "int": "int_launches"}
+    for run, plain, kind in pairs:
+        before = getattr(QK, attr[kind])
+        got = run()
+        assert getattr(QK, attr[kind]) == before + 1
+        assert _all_bits_equal(got, plain()), kind
+
+
+@pytest.mark.cuda
+def test_cuda_quantizers_in_a_cuda_graph(cuda_device):
+    """Q1, Q2 and Q3 captured in one CUDA graph and replayed on new inputs
+    give the plain versions' outputs bit for bit."""
+    from fpqvar_tpu_torch.ops import quantizers as Q
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((512, 1024), generator=gen, device=cuda_device).to(BF16)
+    calls = (lambda t: Q.fake_quant_fp(t, "fp6_e2m3",
+                                       granularity="per_token"),
+             lambda t: P.quant_int_codes_dual(t, "fp_e1m2_neg_e2m1_pos"),
+             lambda t: Q.fake_quant_int_sym(t, 4))
+    plains = (lambda t: Q.fake_quant_fp_ref(t, "fp6_e2m3",
+                                            granularity="per_token"),
+              lambda t: P.quant_int_codes_dual_ref(t, "fp_e1m2_neg_e2m1_pos"),
+              lambda t: Q.fake_quant_int_sym_ref(t, 4))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for c in calls:                                   # builds, warm-up
+            c(x)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c(x) for c in calls]
+    for seed in (5, 6):
+        gen.manual_seed(seed)
+        x.copy_(torch.randn(x.shape, generator=gen, device=cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, plain in zip(outs, plains):
+            assert _all_bits_equal(out, plain(x))
+
+
+@pytest.mark.cuda
+def test_cuda_quantizers_raise_on_what_they_do_not_take(cuda_device):
+    """On the card: a tensor that autograd would record raises (no
+    backward), and passes under ``no_grad``; float16 and groups that are
+    no multiple of 16 bytes raise; ``per_tensor`` takes its named plain
+    route."""
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+    from fpqvar_tpu_torch.ops import quantizers as Q
+
+    x = torch.randn((4, 256), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        Q.fake_quant_fp(x, "fp_e2")
+    with torch.no_grad():
+        assert _bits_equal(Q.fake_quant_fp(x, "fp_e2"),
+                           Q.fake_quant_fp_ref(x, "fp_e2"))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        Q.fake_quant_fp(x.detach().half(), "fp_e2")
+    with pytest.raises(ValueError, match="16 bytes"):
+        Q.fake_quant_int_sym(torch.randn((4, 6), device=cuda_device), 4)
+    before = QK.grid_launches
+    y = Q.fake_quant_fp(x.detach(), "fp_e2", granularity="per_tensor")
+    assert QK.grid_launches == before
+    assert torch.equal(y, Q.fake_quant_fp_ref(x.detach(), "fp_e2",
+                                              granularity="per_tensor"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["packed", "int8", "int8kv", "fp6_kv6",
+                                  "int4_rtn"])
+def test_cuda_generation_with_quantizer_kernels_equals_plain(cuda_device,
+                                                             mode,
+                                                             monkeypatch):
+    """A width-256 generation (bf16 compute, top_k=1) with the quantizer
+    kernels against the same generation with every quantizer on its plain
+    version on the card: the same tokens at every scale and
+    ``torch.equal`` images; the kernels launched, the plain run none."""
+    import dataclasses
+
+    from fpqvar_tpu_torch.config import (GenerateConfig, bench_recipes,
+                                         paper_recipes, var_tiny)
+    from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
+                                         init_vqvae_params)
+    from fpqvar_tpu_torch.models import var as V
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+    from fpqvar_tpu_torch.quantize import quantize_var_params
+
+    cfg = dataclasses.replace(var_tiny(), embed_dim=256, num_heads=4)
+    q = {**bench_recipes(), **paper_recipes()}[mode]
+    params = init_var_params(cfg, seed=4, device=cuda_device,
+                             adaln_gamma_std=0.02)
+    vae = init_vqvae_params(cfg.vae, seed=5, device=cuda_device)
+    rng = np.random.default_rng(5)
+    galt = tuple(np.exp(0.1 * rng.standard_normal((cfg.depth, 256)))
+                 .astype(np.float32) for _ in range(2))
+    sample, tokens = V.sample_with_top_k_top_p, []
+
+    def recorded(logits, *args, **kw):
+        idx = sample(logits, *args, **kw)
+        tokens.append(idx.cpu())
+        return idx
+
+    def run():
+        tokens.clear()
+        qp = quantize_var_params(params, cfg, q, galt=galt)
+        g = VARGenerator(cfg, q, GenerateConfig(top_k=1, top_p=0.0),
+                         device=cuda_device, fuse_steps=False)
+        before = (QK.grid_launches, QK.codes_launches, QK.int_launches)
+        img = g.generate(qp, vae, [3, 5, 7])
+        after = (QK.grid_launches, QK.codes_launches, QK.int_launches)
+        return img, list(tokens), sum(after) - sum(before)
+
+    monkeypatch.setattr(V, "sample_with_top_k_top_p", recorded)
+    img, toks, n = run()
+    monkeypatch.setattr(QK, "_on_card", lambda x: False)
+    img_plain, toks_plain, n_plain = run()
+    assert n > 0 and n_plain == 0
+    assert len(toks) == cfg.num_scales
+    assert all(torch.equal(a, b) for a, b in zip(toks, toks_plain))
+    assert torch.equal(img, img_plain)

@@ -2,16 +2,20 @@
 here without a card.
 
 ``chip_smoke.py`` is read with ``ast`` (not imported): its tables
-``KERNEL_SOURCES`` (what phase 2 builds), ``WGMMA_SOURCES`` (the sources
-whose SASS must hold a warpgroup MMA) and ``PORT_KERNELS`` (the profiler's
+``KERNEL_SOURCES`` (what phase 2 builds), ``WGMMA_SOURCES`` (the GEMM
+sources, whose SASS must hold a warpgroup MMA), ``QUANT_SOURCES`` (the
+quantizers Q1-Q3, which run no GEMM) and ``PORT_KERNELS`` (the profiler's
 keys, parts of kernel names, by which phase 6 counts each kernel's
 launches) are held against ``fpqvar_tpu_torch/csrc/``:
 
 - every ``csrc/*.cu`` is built, and every name built has a source;
 - every ``#include "...cuh"`` names a header of ``csrc/``, and every header
   is reached from some source, so no orphan header is left;
-- every source runs on ``wgmma`` (reaches ``wgmma_gemm.cuh``), and the
-  first slices' ``mma.sync`` tile loop ``int8_mma.cuh`` is gone;
+- every source is in exactly one of ``WGMMA_SOURCES`` and
+  ``QUANT_SOURCES``; every GEMM source runs on ``wgmma`` (reaches
+  ``wgmma_gemm.cuh``), every quantizer reaches ``grid_snap.cuh`` and no
+  GEMM, and the first slices' ``mma.sync`` tile loop ``int8_mma.cuh`` is
+  gone;
 - no profiler key is a part of another label's key, and each key is a
   part of exactly one kernel or epilogue name defined in ``csrc/``: itself
   (one kernel sharing another's wgmma instantiation must give its
@@ -25,7 +29,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "fpqvar_tpu_torch" / "csrc"
-TABLES = ("KERNEL_SOURCES", "WGMMA_SOURCES", "K4_KERNELS", "PORT_KERNELS")
+TABLES = ("KERNEL_SOURCES", "WGMMA_SOURCES", "QUANT_SOURCES", "K4_KERNELS",
+          "PORT_KERNELS")
 SOURCES = sorted(p.stem for p in CSRC.glob("*.cu"))
 HEADERS = sorted(p.name for p in CSRC.glob("*.cuh"))
 FILES = sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
@@ -97,13 +102,22 @@ def test_no_orphan_header(header):
 
 
 def test_every_source_but_the_probe_runs_on_wgmma():
-    """Every source runs on ``wgmma``, the rate probe's K6 as well."""
+    """Every GEMM source runs on ``wgmma``, the rate probe's K6 as well;
+    every other source is a quantizer of ``QUANT_SOURCES`` (one warp a
+    group on ``grid_snap.cuh``, no GEMM), and each source is in exactly
+    one of the two tables."""
     wgmma = _tables()["WGMMA_SOURCES"]
-    assert set(wgmma) == set(SOURCES)
+    quant = _tables()["QUANT_SOURCES"]
+    assert not set(wgmma) & set(quant)
+    assert set(wgmma) | set(quant) == set(SOURCES)
     assert set(wgmma.values()) <= {"HGMMA", "IGMMA"}
     assert wgmma["int8_probe_gemm"] == "IGMMA"
     for src in wgmma:
         assert "wgmma_gemm.cuh" in _reached(src), src
+    assert sorted(quant.values()) == ["Q1", "Q2", "Q3"]
+    for src in quant:
+        assert "grid_snap.cuh" in _reached(src), src
+        assert "wgmma_gemm.cuh" not in _reached(src), src
     assert not (CSRC / "int8_mma.cuh").exists()
 
 
@@ -116,7 +130,7 @@ def test_port_kernel_keys_are_no_part_of_another_labels_key():
 
 
 @pytest.mark.parametrize("label", ["K1", "K2", "K3", "K4 (a)", "K4 (b)",
-                                   "K5"])
+                                   "K5", "Q1", "Q2", "Q3"])
 def test_port_kernel_key_names_one_kernel_or_epilogue(label):
     names = _defined_names()
     for key in _tables()["PORT_KERNELS"][label]:
