@@ -35,8 +35,12 @@ non-zero:
    bit (int views) at the d16 last-scale shapes of their recipes, timed
    beside a bytes-only bound (no library call computes them), and over
    adversarial inputs on every grid and dual-grid half (normals,
-   midpoints, grid values, +-0, +-inf, NaN, +-1e30, denormal scales and
-   their neighbours; bfloat16 and float32; per group and per token);
+   midpoints, grid values, +-0, +-inf, NaN, +-1e30, denormal scales,
+   halves whose absmax is the smallest subnormal and their neighbours;
+   bfloat16 and float32; per group and per token); and Q1 and Q2 bit for
+   bit, one launch a call, at the layouts of their groups over threads
+   (``QUANT_LAYOUTS``: groups of 12 to 256 values, rows of 1,024 to
+   9,216, group counts that fill no whole block, 16 rows);
 4. small reference: small generations (width 256, so every grouped linear
    has more than one scale group) under ``int8``, ``bf16``, ``packed``,
    ``w4a16p``, W6A6 on the packed backend, ``fake``, ``int8ch``,
@@ -208,6 +212,15 @@ whose every launch the wrappers' host counters see.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernel table as one JSON object.
+
+    python3 chip_smoke.py --quant-ab DIR [OUT]
+
+times Q1 and Q2 at phase 3's shapes (``QUANT_CASES``) as built from this
+checkout and from the checkout at DIR (its ``fpqvar_tpu_torch/csrc``,
+whose kernels take the same C arguments), in one process on one card, in
+the order DIR, this, this, DIR at each shape, each held bit for bit to
+the plain version; it prints a line a shape, and writes every time as
+JSON to the file OUT where one is given.
 """
 from __future__ import annotations
 
@@ -279,6 +292,64 @@ OFFLINE_GALT_EPOCHS = 10
 #: the int8 rate probe's default shapes: (name, M, K, N)
 PROBE_SHAPES = (("probe-1920", 4096, 1920, 5760),
                 ("probe-4096", 4096, 4096, 4096))
+#: the dual grids of the main path's fc2: fp4 (packed, fp4_kv6, int8) and
+#: fp6 (fp6_kv6)
+DUAL4, DUAL6 = "fp_e1m2_neg_e2m1_pos", "fp6_int_neg_e2m3_pos"
+#: phase 3's timed cases of Q1 and Q2: (kernel, name, recipes, call,
+#: format, granularity or group, shape, dtype name, amplitude); calls
+#: ``fp`` / ``dual`` (Q1's one grid or dual grid), ``codes`` /
+#: ``dual_codes`` / ``pack`` (Q2's value codes, dual codes, grid-index
+#: codes of ``pack``).  VAR-d16's last scale at batch 8 (M = 4096 rows of
+#: 1024 or 4096; the KV cache's k or v ``[16, 256, 16, 64]`` per row of 64;
+#: a weight ``[4096, 1024]``), then the rows of VAR-d30 (1920) and
+#: VAR-d36-512 (2304; fc2's 9216) at their last scales (M = 4096 at batch
+#: 8 and 2)
+QUANT_CASES = (
+    ("Q1", "qkv-fp_e2-g128", "packed, fp4_kv6: qkv, proj, fc1", "fp",
+     "fp_e2", "per_group", (4096, 1024), "bfloat16", 3.0),
+    ("Q1", "fc2-e1m2/e2m1-g128", "packed, fp4_kv6: fc2", "dual", DUAL4,
+     "per_group", (4096, 4096), "bfloat16", 3.0),
+    ("Q1", "qkv-fp6_e2m3-token", "fp6_kv6: qkv, proj, fc1", "fp",
+     "fp6_e2m3", "per_token", (4096, 1024), "bfloat16", 3.0),
+    ("Q1", "fc2-int/e2m3-token", "fp6_kv6: fc2", "dual", DUAL6,
+     "per_token", (4096, 4096), "bfloat16", 3.0),
+    ("Q1", "kv-fp6_e2m3-row64", "the _kv6 dense cache: k, v", "fp",
+     "fp6_e2m3", "per_token", (16, 256, 16, 64), "bfloat16", 3.0),
+    ("Q1", "w-fp_e2-g128-f32", "search, GALT's STE, fake weights", "fp",
+     "fp_e2", "per_group", (4096, 1024), "float32", 0.02),
+    ("Q1", "d30-fp6_e2m3-token", "fp6_kv6 at d30: qkv, proj, fc1", "fp",
+     "fp6_e2m3", "per_token", (4096, 1920), "bfloat16", 3.0),
+    ("Q1", "d36-fp6_e2m3-token", "fp6_kv6 at d36-512: qkv, proj, fc1",
+     "fp", "fp6_e2m3", "per_token", (4096, 2304), "bfloat16", 3.0),
+    ("Q1", "d36-fc2-int/e2m3-token", "fp6_kv6 at d36-512: fc2", "dual",
+     DUAL6, "per_token", (4096, 9216), "bfloat16", 3.0),
+    ("Q2", "qkv-fp_e2-g128", "int8: qkv, proj, fc1", "codes", "fp_e2", 128,
+     (4096, 1024), "bfloat16", 3.0),
+    ("Q2", "fc2-e1m2/e2m1-g128", "int8: fc2", "dual_codes", DUAL4, 128,
+     (4096, 4096), "bfloat16", 3.0),
+    ("Q2", "fc2-e1m2/e2m1-token", "int8ch, int8kv, int8att: fc2",
+     "dual_codes", DUAL4, 4096, (4096, 4096), "bfloat16", 3.0),
+    ("Q2", "kv-fp_e2-row64", "int8kv, int8att: the packed KV encode",
+     "codes", "fp_e2", 64, (16, 256, 16, 64), "bfloat16", 3.0),
+    ("Q2", "pack-fp_e2-g128-f32", "pack, pack_int_codes: weights", "pack",
+     "fp_e2", 128, (4096, 1024), "float32", 0.02),
+    ("Q2", "pack-fp8_e4m3-g128", "pack: a 255-value grid, bf16", "pack",
+     "fp8_e4m3", 128, (4096, 1024), "bfloat16", 3.0),
+    ("Q2", "d36-fc2-e1m2/e2m1-token", "int8ch, int8kv at d36-512: fc2",
+     "dual_codes", DUAL4, 9216, (4096, 9216), "bfloat16", 3.0),
+)
+#: phase 3's layouts of Q1 and Q2 (group, shape): groups of 64, 128 and
+#: 256 values, of 24, 40 and 12 (3 and 5 vectors of 16 bytes in bf16; 6,
+#: 10 and 3 in f32), rows of 1,024 to 9,216 (a warp; a block of 2, 3, 4
+#: or 9 warps in bf16), each in a count that fills no whole warp or
+#: block, and the main path's smallest M (16 rows, the first scale at
+#: batch 8); bfloat16 and float32 where a group is a multiple of 16 bytes
+QUANT_LAYOUTS = ((64, (2, 3, 5, 4160)), (128, (2, 3, 5, 4224)),
+                 (256, (2, 3, 5, 4352)), (24, (2, 3, 5, 4104)),
+                 (40, (2, 3, 5, 4120)), (12, (2, 3, 5, 4104)),
+                 (1024, (30, 1024)), (1920, (30, 1920)), (2304, (30, 2304)),
+                 (4096, (30, 4096)), (9216, (30, 9216)), (128, (16, 1024)),
+                 (1024, (16, 1024)), (4096, (16, 4096)))
 
 
 def fail(msg: str):
@@ -909,7 +980,9 @@ def _adversarial(grid, dtype, gen, lead=None) -> torch.Tensor:
     range; groups of 128 led by the grid's absmax (scale ~1) holding
     every midpoint, grid value and +-0 with each one's neighbours;
     groups holding +-inf, NaN, +-1e30 among them; groups of a denormal
-    scale."""
+    scale; groups where the absmax of one half (of both: the whole
+    group's) is the dtype's smallest subnormal, so that the half's scale
+    rounds to 0 where its product with ``1 / max|grid|`` can."""
     g = torch.tensor(np.asarray(grid, np.float32), device="cuda")
     gmax = float(g.abs().max())
     lead = torch.tensor([gmax, -gmax] if lead is None else lead,
@@ -920,10 +993,20 @@ def _adversarial(grid, dtype, gen, lead=None) -> torch.Tensor:
     wild = _neighbours(torch.tensor(
         [math.inf, -math.inf, math.nan, 1e30, -1e30, 0.0, 1.0],
         device="cuda").to(dtype))
+    sub = torch.tensor(2.0 ** -133 if dtype == torch.bfloat16
+                       else 2.0 ** -149, device="cuda")
+    mag = normals[:1024].abs()
+    zeros = torch.tensor([0.0, -0.0, math.nan], device="cuda")
     x = torch.cat([normals.to(dtype), _led_groups(exact, lead),
                    _led_groups(torch.cat([wild, exact]), None),
                    _led_groups(wild.flip(0), None),
-                   (normals[:4096] * 1e-39).to(dtype)])
+                   (normals[:4096] * 1e-39).to(dtype),
+                   _led_groups(torch.stack([sub, -sub, sub * 0, -sub * 0])
+                               .to(dtype), None),
+                   _led_groups(torch.cat([-mag, zeros, sub[None]]).to(dtype),
+                               sub[None].to(dtype)),
+                   _led_groups(torch.cat([mag, zeros, -sub[None]])
+                               .to(dtype), -sub[None].to(dtype))])
     pad = -x.numel() % 1024
     return torch.cat([x, x[:pad]]).view(-1, 1024)
 
@@ -997,94 +1080,110 @@ def _quant_sweep(gen) -> int:
     return checks
 
 
-def phase_quant() -> dict:
-    """Q1, Q2 and Q3 against their plain versions, bit for bit, at the
-    shapes VAR-d16's last scale at batch 8 gives them (M = 2 * 8 * 256 =
-    4096 rows of 1024 or 4096; the KV cache's k or v ``[16, 256, 16,
-    64]``, quantized per row of 64; a weight ``[4096, 1024]``), timed,
-    then ``_quant_sweep``'s adversarial inputs over every grid.  Returns
-    each kernel's rows."""
+def _quant_case(call: str, fmt: str, arg, x) -> tuple:
+    """``(run, plain, bytes)`` of a Q1 or Q2 call on ``x``: its public
+    wrapper, its plain version and the bytes of x read once and of its
+    outputs written once.  ``arg`` is a granularity (``fp``, ``dual``) or
+    a group size."""
     from fpqvar_tpu_torch.ops import packing as P
     from fpqvar_tpu_torch.ops import quant_kernels as QK
     from fpqvar_tpu_torch.ops import quantizers as Q
 
+    n = x.numel()
+    read = n * x.element_size()
+    if call in ("fp", "dual"):
+        fn, ref = ((Q.fake_quant_dual, Q.fake_quant_dual_ref)
+                   if call == "dual"
+                   else (Q.fake_quant_fp, Q.fake_quant_fp_ref))
+        kw = ({"granularity": arg} if isinstance(arg, str)
+              else {"granularity": "per_group", "group_size": arg})
+        return (lambda: fn(x, fmt, **kw), lambda: ref(x, fmt, **kw),
+                2 * read)
+    if call == "codes":
+        return (lambda: P.quant_int_codes(x, fmt, arg),
+                lambda: P.quant_int_codes_ref(x, fmt, arg),
+                read + n + n // arg * 4)
+    if call == "dual_codes":
+        return (lambda: P.quant_int_codes_dual(x, fmt, arg),
+                lambda: P.quant_int_codes_dual_ref(x, fmt, arg),
+                read + 2 * (n + n // arg * 4))
+    if call == "pack":
+        def plain():
+            codes, scales = P.pack_codes_ref(x, fmt, arg)
+            return codes.to(torch.int8), scales
+
+        return (lambda: QK.pack_codes(x, fmt, arg), plain,
+                read + n + n // arg * 4)
+    raise ValueError(call)
+
+
+def _quant_input(shape, dtype: str, amp: float, gen) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device="cuda")
+            * amp).to(getattr(torch, dtype))
+
+
+def _quant_layouts(gen) -> int:
+    """Q1 (one grid, dual grid) and Q2 (value codes, dual codes) at every
+    layout of ``QUANT_LAYOUTS``, bfloat16 and float32: bit-equal to the
+    plain versions, one launch a call.  Each input holds an all-zero
+    group and a group of x's smallest subnormals.  Returns the number of
+    checks."""
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+
+    calls = (("fp", "fp_e2", "grid_launches"),
+             ("dual", DUAL6, "grid_launches"),
+             ("codes", "fp6_e2m3", "codes_launches"),
+             ("dual_codes", DUAL4, "codes_launches"))
+    checks = 0
+    for dtype in ("bfloat16", "float32"):
+        for gs, shape in QUANT_LAYOUTS:
+            x = _quant_input(shape, dtype, 3.0, gen)
+            if (gs * x.element_size()) % 16:
+                continue
+            flat = x.view(-1)
+            flat[:gs] = 0.0
+            flat[gs:2 * gs] = 2.0 ** (-133 if dtype == "bfloat16" else -149)
+            for call, fmt, counter in calls:
+                run, plain, _ = _quant_case(call, fmt, gs, x)
+                before = getattr(QK, counter)
+                got = run()
+                if getattr(QK, counter) != before + 1:
+                    fail(f"{call} {fmt} group {gs} {tuple(shape)} {dtype}: "
+                         f"{getattr(QK, counter) - before} launches, not 1")
+                _bit_check("Q1" if counter == "grid_launches" else "Q2",
+                           f"{call} {fmt} group {gs} {tuple(shape)} {dtype}",
+                           got, plain())
+                checks += 1
+    return checks
+
+
+def phase_quant() -> dict:
+    """Q1 and Q2 at ``QUANT_CASES``, Q3 at the shapes VAR-d16's last scale
+    at batch 8 gives it, each against its plain version bit for bit and
+    timed; then ``_quant_sweep``'s adversarial inputs over every grid and
+    ``_quant_layouts``.  Returns each kernel's rows."""
+    from fpqvar_tpu_torch.ops import quantizers as Q
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
-    bf16, f32 = torch.bfloat16, torch.float32
-
-    def act(shape, dtype=bf16, scale=3.0):
-        return (torch.randn(shape, generator=gen, device="cuda")
-                * scale).to(dtype)
-
-    def nb(t):
-        return t.numel() * t.element_size()
-
-    m = 4096
-    x1, x4 = act((m, 1024)), act((m, 4096))
-    kv, kv32 = act((16, 256, 16, 64)), act((16, 256, 16, 64), f32)
-    w = act((m, 1024), f32, 0.02)
-    dual4, dual6 = "fp_e1m2_neg_e2m1_pos", "fp6_int_neg_e2m3_pos"
     rows = {"Q1": [], "Q2": [], "Q3": []}
-
-    def q1(name, note, x, fmt, gran, dual=False):
-        fn, ref = ((Q.fake_quant_dual, Q.fake_quant_dual_ref) if dual
-                   else (Q.fake_quant_fp, Q.fake_quant_fp_ref))
-        rows["Q1"].append(check_quant(
-            "Q1", name, note, lambda: fn(x, fmt, granularity=gran),
-            lambda: ref(x, fmt, granularity=gran), 2 * nb(x)))
-
-    q1("qkv-fp_e2-g128", "packed, fp4_kv6: qkv, proj, fc1", x1, "fp_e2",
-       "per_group")
-    q1("fc2-e1m2/e2m1-g128", "packed, fp4_kv6: fc2", x4, dual4,
-       "per_group", dual=True)
-    q1("qkv-fp6_e2m3-token", "fp6_kv6: qkv, proj, fc1", x1, "fp6_e2m3",
-       "per_token")
-    q1("fc2-int/e2m3-token", "fp6_kv6: fc2", x4, dual6, "per_token",
-       dual=True)
-    q1("kv-fp6_e2m3-row64", "the _kv6 dense cache: k, v", kv, "fp6_e2m3",
-       "per_token")
-    q1("w-fp_e2-g128-f32", "search, GALT's STE, fake weights", w, "fp_e2",
-       "per_group")
-
-    def q2(name, note, x, run, plain, n_out):
-        rows["Q2"].append(check_quant("Q2", name, note, run, plain,
-                                      nb(x) + n_out))
-
-    q2("qkv-fp_e2-g128", "int8: qkv, proj, fc1", x1,
-       lambda: P.quant_int_codes(x1, "fp_e2", 128),
-       lambda: P.quant_int_codes_ref(x1, "fp_e2", 128),
-       x1.numel() + x1.numel() // 128 * 4)
-    q2("fc2-e1m2/e2m1-g128", "int8: fc2", x4,
-       lambda: P.quant_int_codes_dual(x4, dual4, 128),
-       lambda: P.quant_int_codes_dual_ref(x4, dual4, 128),
-       2 * (x4.numel() + x4.numel() // 128 * 4))
-    q2("fc2-e1m2/e2m1-token", "int8ch, int8kv, int8att: fc2", x4,
-       lambda: P.quant_int_codes_dual(x4, dual4, 4096),
-       lambda: P.quant_int_codes_dual_ref(x4, dual4, 4096),
-       2 * (x4.numel() + m * 4))
-    q2("kv-fp_e2-row64", "int8kv, int8att: the packed KV encode", kv,
-       lambda: P.quant_int_codes(kv, "fp_e2", 64),
-       lambda: P.quant_int_codes_ref(kv, "fp_e2", 64),
-       kv.numel() + kv.numel() // 64 * 4)
-
-    def pack_ref(x, fmt):
-        codes, scales = P.pack_codes_ref(x, fmt)
-        return codes.to(torch.int8), scales
-
-    q2("pack-fp_e2-g128-f32", "pack, pack_int_codes: weights", w,
-       lambda: QK.pack_codes(w, "fp_e2"), lambda: pack_ref(w, "fp_e2"),
-       w.numel() + w.numel() // 128 * 4)
-    q2("pack-fp8_e4m3-g128", "pack: a 255-value grid, bf16", x1,
-       lambda: QK.pack_codes(x1, "fp8_e4m3"),
-       lambda: pack_ref(x1, "fp8_e4m3"), x1.numel() + x1.numel() // 128 * 4)
+    for kern, name, note, call, fmt, arg, shape, dtype, amp in QUANT_CASES:
+        x = _quant_input(shape, dtype, amp, gen)
+        run, plain, nbytes = _quant_case(call, fmt, arg, x)
+        rows[kern].append(check_quant(kern, name, note, run, plain, nbytes))
 
     def q3(name, note, x, n_bits, asym, gran):
         fn, ref = ((Q.fake_quant_int_asym, Q.fake_quant_int_asym_ref) if asym
                    else (Q.fake_quant_int_sym, Q.fake_quant_int_sym_ref))
         rows["Q3"].append(check_quant(
             "Q3", name, note, lambda: fn(x, n_bits, granularity=gran),
-            lambda: ref(x, n_bits, granularity=gran), 2 * nb(x)))
+            lambda: ref(x, n_bits, granularity=gran),
+            2 * x.numel() * x.element_size()))
 
+    x1 = _quant_input((4096, 1024), "bfloat16", 3.0, gen)
+    x4 = _quant_input((4096, 4096), "bfloat16", 3.0, gen)
+    kv32 = _quant_input((16, 256, 16, 64), "float32", 3.0, gen)
+    w = _quant_input((4096, 1024), "float32", 0.02, gen)
     q3("qkv-sym-token", "int4_rtn: qkv, proj, fc1", x1, 4, False,
        "per_token")
     q3("fc2-asym-token", "int4_rtn: fc2", x4, 4, True, "per_token")
@@ -1096,10 +1195,87 @@ def phase_quant() -> dict:
     print(f"kernels: Q1-Q3 bit-equal to their plain versions in {checks} "
           f"adversarial checks (every grid and dual-grid half, bfloat16 and "
           f"float32, per group and per token; normals, midpoints, grid "
-          f"values, +-0, +-inf, NaN, +-1e30, denormal scales and their "
-          f"neighbours; NaN bits included) in "
+          f"values, +-0, +-inf, NaN, +-1e30, denormal scales, halves of a "
+          f"subnormal absmax and their neighbours; NaN bits included) in "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    checks = _quant_layouts(gen)
+    print(f"kernels: Q1 and Q2 bit-equal to their plain versions, one "
+          f"launch a call, in {checks} checks of {len(QUANT_LAYOUTS)} "
+          f"layouts (groups of 12 to 9,216 values, bfloat16 and float32) "
+          f"in {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+def _other_lib(root: str, name: str, like):
+    """``csrc/<name>.cu`` of the checkout at ``root``, built as this
+    checkout's sources are and loaded with the C signature of ``like``
+    (this checkout's library of the same source)."""
+    import ctypes
+
+    from fpqvar_tpu_torch.ops import _build
+
+    csrc = Path(root) / "fpqvar_tpu_torch" / "csrc"
+    src = csrc / f"{name}.cu"
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
+    nvcc = _build._nvcc()
+    path = _build._compile(name, text, _build.NVCC_FLAGS,
+                           lambda out: [nvcc, *_build.NVCC_FLAGS, "-o", out,
+                                        str(src)])
+    lib = ctypes.CDLL(str(path))
+    for fn in (name, f"{name}_error_string"):
+        mine, theirs = getattr(like, fn), getattr(lib, fn)
+        theirs.argtypes, theirs.restype = mine.argtypes, mine.restype
+    regs = [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
+            if "registers" in ln or "spill" in ln]
+    return lib, regs
+
+
+def quant_ab(root: str, out_path: str = None) -> int:
+    """``--quant-ab``: Q1 and Q2 of this checkout beside those of the
+    checkout at ``root``, at every ``QUANT_CASES`` shape, the rows written
+    to ``out_path`` as JSON where given (see the module docstring)."""
+    from fpqvar_tpu_torch.ops import _build
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+
+    card = phase_device()
+    mine = {"fake_quant_grid": QK._grid_lib(), "grid_codes": QK._codes_lib()}
+    libs = {"this": dict(mine), "other": {}}
+    for name, lib in mine.items():
+        libs["other"][name], regs = _other_lib(root, name, lib)
+        print(f"quant_ab: {name} of {root}: {'; '.join(regs)}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    out = []
+    for kern, name, note, call, fmt, arg, shape, dtype, amp in QUANT_CASES:
+        x = _quant_input(shape, dtype, amp, gen)
+        run, plain, nbytes = _quant_case(call, fmt, arg, x)
+        want = plain()
+        times = {"this": [], "other": []}
+        for tree in ("other", "this", "this", "other"):
+            _build._libs.update(libs[tree])
+            _bit_check(kern, f"{name} ({tree})", run(), want)
+            dev, host = queued_ms(run)
+            times[tree].append({"ms": cuda_ms(run), "device_ms": dev,
+                                "host_ms": host})
+        _build._libs.update(libs["this"])
+        bound = nbytes / H100_BYTES * 1e3
+        row = {"kernel": kern, "shape": name, "recipes": note,
+               "bytes": nbytes, "bound_ms": bound, **times}
+        out.append(row)
+        dev = {t: [r["device_ms"] * 1e3 for r in v] for t, v in times.items()}
+        share = bound * 1e3 / min(dev["this"])
+        print(f"quant_ab: {kern} {name:24s} dev us other "
+              f"{dev['other'][0]:.1f} / {dev['other'][1]:.1f}, this "
+              f"{dev['this'][0]:.1f} / {dev['this'][1]:.1f}; bound "
+              f"{bound * 1e3:.2f} us, this {share:.3f} of it")
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump({"card": card, "other": root, "rows": out}, f,
+                      indent=1)
+    print(json.dumps({"quant_ab": len(out), "card": card}))
+    return 0
 
 
 def _recipes() -> dict:
@@ -4129,6 +4305,8 @@ def _quant_row(name, source, replaces, launches, rows, timed):
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
         return _dist_rank(sys.argv[2])
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--quant-ab":
+        return quant_ab(*sys.argv[2:])
     t_start = time.perf_counter()
 
     def done(phase: str):

@@ -22,6 +22,15 @@ plain version's function bit for bit in one launch:
   :func:`fake_quant_int_asym` (plain: ``quantizers.fake_quant_int_sym_ref``,
   ``fake_quant_int_asym_ref``).
 
+Q1 and Q2 lay a group over as many lanes as it has 16-byte vectors
+(``csrc/grid_snap.cuh``: several groups a warp up to 32 vectors, a warp
+up to 128, a block of warps beyond), read it once into registers, take
+its absmax by shuffles and snap it from the same registers; a dual-grid
+value is divided and walked on its own half's table only, the other
+half's output being that half's +0, found once a group by the real
+division by its scale.  Q3 (and K4's row kernel) take one warp a group
+and read it twice.
+
 The public quantizers of ``ops/quantizers.py`` and ``ops/packing.py``
 (and the KV codec's ``encode``) call these wrappers, so every caller gets
 the kernels with no change at its call site.  On a CPU tensor a wrapper
@@ -82,7 +91,7 @@ class GridTable:
     """What a kernel needs of one grid: its sorted midpoints (grid units,
     float32), one output per grid value (the value itself for Q1, an
     integer code for Q2), ``f32(1 / max|grid|)``, the code multiplier and
-    the kernel's table size (16, 64 or 256 entries)."""
+    the kernel's table size (8, 16, 64 or 256 entries)."""
 
     mids: np.ndarray
     out: np.ndarray
@@ -98,7 +107,7 @@ class GridTable:
 def _table(grid, out, mult: float) -> GridTable:
     g = np.asarray(grid, dtype=np.float32)
     mids = ((g[1:] + g[:-1]) * np.float32(0.5)).astype(np.float32)
-    cap = next(c for c in (16, 64, 256, None) if c is None or len(g) <= c)
+    cap = next(c for c in (8, 16, 64, 256, None) if c is None or len(g) <= c)
     if cap is None:
         raise ValueError(f"a grid of {len(g)} values: the kernels take at "
                          "most 256")

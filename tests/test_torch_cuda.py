@@ -1351,20 +1351,41 @@ def test_cuda_quantizers_bit_equal_on_adversarial_inputs(cuda_device, dtype):
     assert not bad
 
 
+#: (group, shape) of the quantizer kernels' layouts of groups over threads
+#: (chip_smoke.py's QUANT_LAYOUTS): groups of 64, 128 and 256 values, of
+#: 24, 40 and 12 (3 and 5 vectors of 16 bytes in bf16, 3 of 12 f32), rows
+#: of 1,024 to 9,216 (one warp; blocks of 2, 3, 4 and 9 warps in bf16),
+#: each in a count that fills no whole warp or block, and 16 rows (the
+#: first scale's M at batch 8)
+QUANT_LAYOUTS = [(64, (2, 3, 5, 4160)), (128, (2, 3, 5, 4224)),
+                 (256, (2, 3, 5, 4352)), (24, (2, 3, 5, 4104)),
+                 (40, (2, 3, 5, 4120)), (12, (2, 3, 5, 4104)),
+                 (1024, (2, 3, 5, 1024)), (1920, (2, 3, 5, 1920)),
+                 (2304, (2, 3, 5, 2304)), (4096, (2, 3, 5, 4096)),
+                 (9216, (2, 3, 5, 9216)), (128, (16, 1024)),
+                 (1024, (16, 1024)), (4096, (16, 4096))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("gs", [64, 128, 1024, 4096])
+@pytest.mark.parametrize("gs,shape", QUANT_LAYOUTS,
+                         ids=[f"{g}-{'x'.join(map(str, s))}"
+                              for g, s in QUANT_LAYOUTS])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_quantizers_group_sizes_with_leading_dims(cuda_device, gs,
-                                                       dtype):
-    """Groups of 64, 128, 1024 and 4096 over ``[2, 3, 5, 4096]``: each
-    kernel bit-equal to its plain version, one launch a call."""
+                                                       shape, dtype):
+    """Groups of ``gs`` over ``shape`` (``QUANT_LAYOUTS``): each kernel
+    bit-equal to its plain version, one launch a call; an all-zero group
+    and a group of x's smallest subnormals (a scale that rounds to 0)
+    among them.  A group that is no multiple of 16 bytes raises."""
     from fpqvar_tpu_torch.ops import quant_kernels as QK
     from fpqvar_tpu_torch.ops import quantizers as Q
 
     gen = torch.Generator(device=cuda_device).manual_seed(gs)
-    x = (torch.randn((2, 3, 5, 4096), generator=gen, device=cuda_device)
+    x = (torch.randn(shape, generator=gen, device=cuda_device)
          * 3).to(dtype)
-    x[0, 1, 2, :gs] = 0.0                               # an all-zero group
+    flat = x.view(-1)
+    flat[:gs] = 0.0                                     # an all-zero group
+    flat[gs:2 * gs] = 2.0 ** (-133 if dtype == torch.bfloat16 else -149)
     pairs = [
         (lambda: Q.fake_quant_fp(x, "fp_e2", group_size=gs),
          lambda: Q.fake_quant_fp_ref(x, "fp_e2", group_size=gs), "grid"),
@@ -1384,10 +1405,50 @@ def test_cuda_quantizers_group_sizes_with_leading_dims(cuda_device, gs,
     attr = {"grid": "grid_launches", "codes": "codes_launches",
             "int": "int_launches"}
     for run, plain, kind in pairs:
+        if (gs * x.element_size()) % 16:
+            with pytest.raises(ValueError, match="16 bytes"):
+                run()
+            continue
         before = getattr(QK, attr[kind])
         got = run()
         assert getattr(QK, attr[kind]) == before + 1
         assert _all_bits_equal(got, plain()), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_dual_grid_zero_scale_half_bit_equal(cuda_device, dtype):
+    """The dual-grid kernels on groups where one half's absmax is x's
+    smallest subnormal (``adversarial``'s last groups): where that half's
+    scale rounds to 0, its +0 takes position 0 (0 / 0 is NaN), which the
+    kernels find by the real division once a group; bit-equal to the plain
+    versions, and in float32 some such code is not the half's code of +0
+    (``test_torch_quant_kernels`` holds the numpy model to the same)."""
+    from fpqvar_tpu_torch.ops import grids as G
+    from fpqvar_tpu_torch.ops import quant_kernels as QK
+    from fpqvar_tpu_torch.ops import quantizers as Q
+    from test_torch_quant_kernels import adversarial
+
+    bf16 = dtype == "bfloat16"
+    distinct = False
+    for fmt in sorted(P.DUAL_CODE_MULT):
+        neg, _ = G.DUAL_GRIDS[fmt]
+        x = torch.from_numpy(adversarial(neg, bf16, 12)).to(
+            cuda_device, getattr(torch, dtype)).reshape(-1, 128)
+        assert _all_bits_equal(Q.fake_quant_dual(x, fmt),
+                               Q.fake_quant_dual_ref(x, fmt)), fmt
+        got = P.quant_int_codes_dual(x, fmt)
+        assert _all_bits_equal(got, P.quant_int_codes_dual_ref(x, fmt)), fmt
+        for h, half in enumerate(("neg", "pos")):
+            t = QK.code_table(fmt, half)
+            scale = torch.where(x <= 0, x, 0) if h == 0 else torch.where(
+                x > 0, x, 0)
+            zero = scale.float().abs().amax(dim=1) * t.inv == 0
+            held = (x > 0 if h == 0 else ~(x > 0)) & zero[:, None]
+            codes = got[2 * h][held]
+            assert bool((codes == int(t.out[0])).all()), (fmt, half)
+            distinct |= bool(held.any()) and int(t.out[0]) != 0
+    assert bf16 or distinct
 
 
 @pytest.mark.cuda

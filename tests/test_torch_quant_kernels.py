@@ -52,6 +52,13 @@ F32 = np.float32
 ALL_GRIDS = ([(f, f, None) for f in G.GRIDS]
              + [(f"{f}-{h}", f, h) for f in G.DUAL_GRIDS
                 for h in ("neg", "pos")])
+#: (bf16, rule) of the model tests: the kernels' rule ("own_half": one
+#: division and one table walk a value) and the rule of both halves' walks
+#: for every value, which the first kernels took and the plain versions
+#: spell out; ids of the second keep the tests' first names
+RULES = [(False, "both_halves"), (True, "both_halves"), (False, "own_half"),
+         (True, "own_half")]
+RULE_IDS = ["f32", "bf16", "f32-own_half", "bf16-own_half"]
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +88,33 @@ def lift(q, t: QK.GridTable) -> np.ndarray:
     return pos
 
 
+def padded(tabs) -> tuple:
+    """The tables as a kernel stages them: every midpoint array padded with
+    NaN to the largest table's size, and the outputs likewise (zeros),
+    one after the other (the dual grid's negative half, then its positive
+    half); returns ``(mids, outs, cap)``."""
+    cap = max(t.cap for t in tabs)
+    mids = np.full(len(tabs) * cap, np.nan, F32)
+    outs = np.zeros(len(tabs) * cap, tabs[0].out.dtype)
+    for i, t in enumerate(tabs):
+        mids[i * cap:i * cap + t.n_mids] = t.mids
+        outs[i * cap:i * cap + t.n_mids + 1] = t.out
+    return mids, outs, cap
+
+
+def snap(q, mids, cap: int, base=0) -> np.ndarray:
+    """The kernels' binary lifting over a staged table from ``base``: no
+    bound check, since ``q >= NaN`` is false for the padding."""
+    pos = np.zeros(np.shape(q), np.int64)
+    step = cap // 2
+    while step:
+        with np.errstate(invalid="ignore"):
+            hit = q >= mids[base + pos + step - 1]
+        pos = np.where(hit, pos + step, pos)
+        step //= 2
+    return pos
+
+
 def _scale(amax, inv, rounded: bool):
     """``where(amax > 0, amax * inv, 1)``, the product rounded where the
     caller rounds it (``rounded`` is the rounding to bfloat16 or not)."""
@@ -97,38 +131,81 @@ def _clamp(v, lo, hi):
                                                F32(hi))).astype(F32)
 
 
-def model_q1(x, gs: int, tabs, bf16: bool, clip=None) -> np.ndarray:
+def model_q1(x, gs: int, tabs, bf16: bool, clip=None,
+             rule: str = "own_half") -> np.ndarray:
     """Q1 on ``x`` (float32 values of x's dtype, flat): one table, or the
-    dual grid's two."""
+    dual grid's two.  ``rule`` is how the dual grid is taken:
+    ``"own_half"`` as the kernel takes it (each value divided and walked
+    on its own half's staged table only; the other half's output the
+    group's constant, the half's +0 divided by its scale and walked once)
+    or ``"both_halves"`` (both halves divided and walked for every value,
+    over the bound-checked table)."""
     x2 = np.asarray(x, F32).reshape(-1, gs)
     with np.errstate(all="ignore"):
         if len(tabs) == 1:
             t = tabs[0]
             w = x2 if clip is None else _clamp(x2, -clip, clip)
             s = _scale(np.abs(w).max(axis=1, keepdims=True), t.inv, bf16)
-            return rx(t.out[lift(w / s, t)] * s, bf16).reshape(-1)
+            if rule == "both_halves":
+                return rx(t.out[lift(w / s, t)] * s, bf16).reshape(-1)
+            mids, outs, cap = padded(tabs)
+            return rx(outs[snap(w / s, mids, cap)] * s, bf16).reshape(-1)
         tn, tp = tabs
         vn, vp = _halves(x2)
         sn = _scale(np.abs(vn).max(axis=1, keepdims=True), tn.inv, bf16)
         sp = _scale(np.abs(vp).max(axis=1, keepdims=True), tp.inv, bf16)
-        yn = rx(tn.out[lift(vn / sn, tn)] * sn, bf16)
-        yp = rx(tp.out[lift(vp / sp, tp)] * sp, bf16)
-        return rx(yn + yp, bf16).reshape(-1)
+        if rule == "both_halves":
+            yn = rx(tn.out[lift(vn / sn, tn)] * sn, bf16)
+            yp = rx(tp.out[lift(vp / sp, tp)] * sp, bf16)
+            return rx(yn + yp, bf16).reshape(-1)
+        mids, outs, cap = padded(tabs)
+        yn0 = rx(outs[snap(F32(0.0) / sn, mids, cap)] * sn, bf16)
+        yp0 = rx(outs[cap + snap(F32(0.0) / sp, mids, cap, cap)] * sp, bf16)
+        pos, w, s, base = _own_half(x2, sn, sp, cap)
+        yq = rx(outs[base + snap(w / s, mids, cap, base)] * s, bf16)
+        y = np.where(pos, rx(yn0 + yq, bf16), rx(yq + yp0, bf16))
+        return y.reshape(-1)
 
 
-def model_q2(x, gs: int, tabs, bf16: bool, round_scale: bool) -> tuple:
+def model_q2(x, gs: int, tabs, bf16: bool, round_scale: bool,
+             rule: str = "own_half") -> tuple:
     """Q2 on ``x`` -> (codes int8, scales float32 per group) of each
-    table."""
+    table; ``rule`` as for :func:`model_q1`."""
     x2 = np.asarray(x, F32).reshape(-1, gs)
     parts = [x2] if len(tabs) == 1 else list(_halves(x2))
-    out = []
+    out, scales = [], []
     with np.errstate(all="ignore"):
         for t, v in zip(tabs, parts):
             s = _scale(np.abs(v).max(axis=1, keepdims=True), t.inv,
                        bf16 and round_scale)
+            scales.append(s)
             codes = t.out[lift(v / s, t)].astype(np.int8).reshape(-1)
             out += [codes, (s / F32(t.mult))[:, 0].astype(F32)]
+        if rule == "both_halves":
+            return tuple(out)
+        mids, outs, cap = padded(tabs)
+        if len(tabs) == 1:
+            out[0] = outs[snap(x2 / scales[0], mids, cap)].astype(
+                np.int8).reshape(-1)
+            return tuple(out)
+        sn, sp = scales
+        cn0 = outs[snap(F32(0.0) / sn, mids, cap)]
+        cp0 = outs[cap + snap(F32(0.0) / sp, mids, cap, cap)]
+        pos, w, s, base = _own_half(x2, sn, sp, cap)
+        c = outs[base + snap(w / s, mids, cap, base)]
+        out[0] = np.where(pos, cn0, c).astype(np.int8).reshape(-1)
+        out[2] = np.where(pos, c, cp0).astype(np.int8).reshape(-1)
     return tuple(out)
+
+
+def _own_half(x2, sn, sp, cap: int) -> tuple:
+    """Each value's own half of a dual grid as the kernels pick it: ``x >
+    0`` the positive half (its table at ``cap``), else the negative half
+    with ``x`` (``x <= 0``) or +0 (NaN) -> (positive?, value, scale,
+    table base)."""
+    pos = x2 > 0
+    w = np.where(pos | (x2 <= 0), x2, F32(0.0))
+    return pos, w, np.where(pos, sp, sn), np.where(pos, cap, 0)
 
 
 def model_q3(x, gs: int, n_bits: int, asym: bool, eps: float,
@@ -185,7 +262,12 @@ def adversarial(grid, bf16: bool, seed: int, gs: int = 128,
     """10^5 normals scaled to the grid's range, then groups whose absmax
     is the grid's (scale ~1: every midpoint, grid value and +-0 lands on
     itself, with each one's neighbours), groups with +-inf, NaN and
-    +-1e30, and groups of a denormal scale."""
+    +-1e30, groups of a denormal scale, and groups where the absmax of
+    one half (of both: the whole group's) is x's smallest subnormal, so
+    that its scale rounds to 0 where the product with ``1 / max|grid|``
+    can (a float32 product below half that subnormal; the bfloat16 one
+    where the scale is rounded to x's dtype) and ``+0 / scale`` is
+    NaN."""
     g = np.asarray(grid, F32)
     gmax = F32(np.abs(g).max())
     lead = [gmax, -gmax] if lead is None else lead
@@ -196,9 +278,15 @@ def adversarial(grid, bf16: bool, seed: int, gs: int = 128,
     wild = _neighbours(np.array([np.inf, -np.inf, np.nan, 1e30, -1e30,
                                  0.0, 1.0], F32), bf16)
     tiny = rx(normals[:4096] * F32(1e-39), bf16)
+    sub = F32(2.0 ** -133 if bf16 else 2.0 ** -149)
+    mag = np.abs(normals[:1024])
+    zeros = np.array([0.0, -0.0, np.nan], F32)
     parts = [normals, _groups(exact, lead, gs),
              _groups(np.concatenate([wild, exact]), [], gs),
-             _groups(wild[::-1], [], gs), _groups(tiny, [], gs)]
+             _groups(wild[::-1], [], gs), _groups(tiny, [], gs),
+             _groups(np.array([sub, -sub, 0.0, -0.0], F32), [], gs),
+             _groups(np.concatenate([-mag, zeros, [sub]]), [sub], gs),
+             _groups(np.concatenate([mag, zeros, [-sub]]), [-sub], gs)]
     out = np.concatenate(parts).astype(F32)
     return np.resize(out, -(-len(out) // 1024) * 1024)     # whole rows
 
@@ -248,7 +336,7 @@ def test_value_table_is_the_plain_grid(label, fmt, half):
     assert t.out.dtype == F32 and np.array_equal(t.out.view(np.uint32),
                                                  g.view(np.uint32))
     assert t.inv == Q.inv_max(g) and t.mult == 1.0
-    assert t.cap == min(c for c in (16, 64, 256) if len(g) <= c)
+    assert t.cap == min(c for c in (8, 16, 64, 256) if len(g) <= c)
     # the plain compare-sum and the table lookup agree on every position
     snapped = _f32(Q.snap_to_grid(torch.from_numpy(
         np.concatenate([g, mids, [np.nan]]).astype(F32)), g))
@@ -286,26 +374,28 @@ def test_index_table_is_the_int8_index(fmt):
 # (b) the model against the plain versions
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bf16,rule", RULES, ids=RULE_IDS)
 @pytest.mark.parametrize("fmt", sorted(G.GRIDS))
-def test_model_q1_equals_fake_quant_fp(fmt, bf16):
+def test_model_q1_equals_fake_quant_fp(fmt, bf16, rule):
     x = adversarial(G.GRIDS[fmt], bf16, seed=1)
     for clip in ((None, 3.0) if fmt.startswith("fp_e") else (None,)):
         plain = Q.fake_quant_fp_ref(_torch(x, bf16), fmt,
                                     granularity="per_group", group_size=128,
                                     clip_abs=clip)
-        model = model_q1(x, 128, (QK.value_table(fmt),), bf16, clip)
+        model = model_q1(x, 128, (QK.value_table(fmt),), bf16, clip,
+                         rule)
         assert_bits_equal(model, _f32(plain), f"{fmt} clip {clip}")
     # per token: one group spanning a row of 1024
     plain = Q.fake_quant_fp_ref(_torch(x[:8192], bf16).reshape(8, 1024),
                                 fmt, granularity="per_token")
     assert_bits_equal(model_q1(x[:8192], 1024, (QK.value_table(fmt),),
-                               bf16), _f32(plain), f"{fmt} per token")
+                               bf16, rule=rule), _f32(plain),
+                      f"{fmt} per token")
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bf16,rule", RULES, ids=RULE_IDS)
 @pytest.mark.parametrize("fmt", sorted(G.DUAL_GRIDS))
-def test_model_q1_equals_fake_quant_dual(fmt, bf16):
+def test_model_q1_equals_fake_quant_dual(fmt, bf16, rule):
     neg, pos = G.DUAL_GRIDS[fmt]
     lead = [F32(-np.abs(neg).max()), F32(np.abs(pos).max())]
     tabs = (QK.value_table(fmt, "neg"), QK.value_table(fmt, "pos"))
@@ -314,47 +404,96 @@ def test_model_q1_equals_fake_quant_dual(fmt, bf16):
         plain = Q.fake_quant_dual_ref(_torch(x, bf16), fmt,
                                       granularity="per_group",
                                       group_size=128)
-        assert_bits_equal(model_q1(x, 128, tabs, bf16), _f32(plain), fmt)
+        assert_bits_equal(model_q1(x, 128, tabs, bf16, rule=rule),
+                          _f32(plain), fmt)
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bf16,rule", RULES, ids=RULE_IDS)
 @pytest.mark.parametrize("fmt", sorted(P.CODE_MULT))
-def test_model_q2_equals_quant_int_codes(fmt, bf16):
+def test_model_q2_equals_quant_int_codes(fmt, bf16, rule):
     x = adversarial(G.GRIDS[fmt], bf16, seed=4)
     codes, scales = P.quant_int_codes_ref(_torch(x, bf16), fmt, 128)
-    mc, ms = model_q2(x, 128, (QK.code_table(fmt),), bf16, False)
+    mc, ms = model_q2(x, 128, (QK.code_table(fmt),), bf16, False, rule)
     assert_bits_equal(mc, codes.numpy().reshape(-1), f"{fmt} codes")
     assert_bits_equal(ms, scales.numpy().reshape(-1), f"{fmt} scales")
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bf16,rule", RULES, ids=RULE_IDS)
 @pytest.mark.parametrize("fmt", sorted(P.DUAL_CODE_MULT))
-def test_model_q2_equals_quant_int_codes_dual(fmt, bf16):
+def test_model_q2_equals_quant_int_codes_dual(fmt, bf16, rule):
     neg, pos = G.DUAL_GRIDS[fmt]
     lead = [F32(-np.abs(neg).max()), F32(np.abs(pos).max())]
     tabs = (QK.code_table(fmt, "neg"), QK.code_table(fmt, "pos"))
     for grid, seed in ((neg, 5), (pos, 6)):
         x = adversarial(grid, bf16, seed, lead=lead)
         plain = P.quant_int_codes_dual_ref(_torch(x, bf16), fmt, 128)
-        for m, p, what in zip(model_q2(x, 128, tabs, bf16, False), plain,
+        for m, p, what in zip(model_q2(x, 128, tabs, bf16, False, rule),
+                              plain,
                               ("cn", "sn", "cp", "sp")):
             assert_bits_equal(m, p.numpy().reshape(-1), f"{fmt} {what}")
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_model_zero_scale_half_takes_the_real_division(bf16):
+    """A dual-grid half whose absmax is x's smallest subnormal
+    (``adversarial``'s last groups): its scale rounds to 0 exactly where
+    the product ``sub * f32(1 / max|grid|)`` does in the scale's dtype
+    (Q2's float32, Q1's x dtype), +0 / 0 is NaN, and the half's +0 there
+    takes position 0.  The kernels' rule, that code and product found
+    once a group by the real division, equals the plain versions; and for
+    float32 x some half's position-0 code is not its code of +0, so a
+    kernel that assumed position(+0) would differ."""
+    sub = F32(2.0 ** -133 if bf16 else 2.0 ** -149)
+    distinct = []
+    for fmt in sorted(P.DUAL_CODE_MULT):
+        neg, _ = G.DUAL_GRIDS[fmt]
+        x = adversarial(neg, bf16, seed=12)
+        xt = _torch(x, bf16)
+        tabs = (QK.code_table(fmt, "neg"), QK.code_table(fmt, "pos"))
+        plain = [t.numpy().reshape(-1) for t in
+                 P.quant_int_codes_dual_ref(xt, fmt, 128)]
+        for m, p, what in zip(model_q2(x, 128, tabs, bf16, False), plain,
+                              ("cn", "sn", "cp", "sp")):
+            assert_bits_equal(m, p, f"{fmt} {what}")
+        other = (x > 0, ~(x > 0))       # values held by the other half
+        halves = _halves(x.reshape(-1, 128))
+        for h, t in enumerate(tabs):
+            with np.errstate(all="ignore"):
+                zero = _scale(np.abs(halves[h]).max(axis=1), t.inv,
+                              False) == 0
+            assert zero.any() == (sub * F32(t.inv) == 0), (fmt, h)
+            held = other[h].reshape(-1, 128) & zero[:, None]
+            codes = plain[2 * h].reshape(-1, 128)[held]
+            assert np.all(codes == t.out[0]), (fmt, h)
+            if held.any():
+                distinct.append(t.out[0] != t.out[lift(np.zeros(1, F32),
+                                                        t)][0])
+        vt = (QK.value_table(fmt, "neg"), QK.value_table(fmt, "pos"))
+        for h, t in enumerate(vt):
+            with np.errstate(all="ignore"):
+                zero = _scale(np.abs(halves[h]).max(axis=1), t.inv,
+                              bf16) == 0
+            assert zero.any() == (rx(sub * F32(t.inv), bf16) == 0)
+        y = Q.fake_quant_dual_ref(xt, fmt, granularity="per_group",
+                                  group_size=128)
+        assert_bits_equal(model_q1(x, 128, vt, bf16), _f32(y), fmt)
+    assert bf16 or any(distinct)
+
+
+@pytest.mark.parametrize("bf16,rule", RULES, ids=RULE_IDS)
 @pytest.mark.parametrize("fmt", sorted(G.GRIDS))
-def test_model_q2_equals_pack_and_kv_index_codes(fmt, bf16):
+def test_model_q2_equals_pack_and_kv_index_codes(fmt, bf16, rule):
     x = adversarial(G.GRIDS[fmt], bf16, seed=7)
     t = QK.index_table(fmt)
     codes, scales = P.pack_codes_ref(_torch(x, bf16).reshape(-1, 256), fmt,
                                      128)
-    mc, ms = model_q2(x, 128, (t,), bf16, True)
+    mc, ms = model_q2(x, 128, (t,), bf16, True, rule)
     assert_bits_equal(mc, codes.to(torch.int8).numpy().reshape(-1),
                       f"pack {fmt}")
     assert_bits_equal(ms, scales.numpy().reshape(-1), f"pack {fmt}")
     xr = _torch(x[:64 * 1024], bf16).reshape(-1, 64)     # KV rows of 64
     codes, scales = P.grid_index_codes_ref(xr, fmt)
-    mc, ms = model_q2(x[:64 * 1024], 64, (t,), bf16, False)
+    mc, ms = model_q2(x[:64 * 1024], 64, (t,), bf16, False, rule)
     assert_bits_equal(mc, codes.numpy().reshape(-1), f"kv {fmt}")
     assert_bits_equal(ms, scales.numpy().reshape(-1), f"kv {fmt}")
 
