@@ -36,11 +36,16 @@ non-zero:
    beside a bytes-only bound (no library call computes them), and over
    adversarial inputs on every grid and dual-grid half (normals,
    midpoints, grid values, +-0, +-inf, NaN, +-1e30, denormal scales,
-   halves whose absmax is the smallest subnormal and their neighbours;
-   bfloat16 and float32; per group and per token); and Q1 and Q2 bit for
-   bit, one launch a call, at the layouts of their groups over threads
-   (``QUANT_LAYOUTS``: groups of 12 to 256 values, rows of 1,024 to
-   9,216, group counts that fill no whole block, 16 rows);
+   halves whose absmax is the smallest subnormal, groups of one strict
+   sign, and their neighbours; bfloat16 and float32; per group and per
+   token); Q1-Q3 bit for bit, one launch a call, at the layouts of their
+   groups over threads (``QUANT_LAYOUTS``: groups of 12 to 256 values,
+   rows of 1,024 to 9,216, group counts that fill no whole block, 16
+   rows); and Q3 at each scale of a d16 batch-8 generation (``M = 16 *
+   pn**2``: symmetric ``[M, 1024]``, asymmetric ``[M, 4096]``), timed
+   beside its bound, with 16 blocks times a scale set's four calls
+   summed: the Q3 time of one generation, which phase 10 prints beside
+   the ``int4_rtn`` replay's;
 4. small reference: small generations (width 256, so every grouped linear
    has more than one scale group) under ``int8``, ``bf16``, ``packed``,
    ``w4a16p``, W6A6 on the packed backend, ``fake``, ``int8ch``,
@@ -215,12 +220,13 @@ the kernel table as one JSON object.
 
     python3 chip_smoke.py --quant-ab DIR [OUT]
 
-times Q1 and Q2 at phase 3's shapes (``QUANT_CASES``) as built from this
-checkout and from the checkout at DIR (its ``fpqvar_tpu_torch/csrc``,
-whose kernels take the same C arguments), in one process on one card, in
-the order DIR, this, this, DIR at each shape, each held bit for bit to
-the plain version; it prints a line a shape, and writes every time as
-JSON to the file OUT where one is given.
+times Q1, Q2 and Q3 at phase 3's shapes (``QUANT_CASES``, ``Q3_CASES``
+and Q3's per-scale shapes) as built from this checkout and from the
+checkout at DIR (its ``fpqvar_tpu_torch/csrc``, whose kernels take the
+same C arguments), in one process on one card, in the order DIR, this,
+this, DIR at each shape, each held bit for bit to the plain version; it
+prints a line a shape and each tree's per-scale sum for a generation,
+and writes every time as JSON to the file OUT where one is given.
 """
 from __future__ import annotations
 
@@ -247,7 +253,7 @@ KERNEL_SOURCES = ("int8_group_gemm", "packed_dequant_gemm", "int8ch_gemm",
                   "fused_ch_gemm", "int8_nd_gemm", "int8_probe_gemm",
                   "bf16_probe_gemm", "fake_quant_grid", "grid_codes",
                   "fake_quant_int")
-#: the quantizer sources (one warp a group, no GEMM) and their kernels
+#: the quantizer sources (no GEMM) and their kernels
 QUANT_SOURCES = {"fake_quant_grid": "Q1", "grid_codes": "Q2",
                  "fake_quant_int": "Q3"}
 #: the sources whose GEMMs run on wgmma, and the SASS instruction of it
@@ -338,7 +344,23 @@ QUANT_CASES = (
     ("Q2", "d36-fc2-e1m2/e2m1-token", "int8ch, int8kv at d36-512: fc2",
      "dual_codes", DUAL4, 9216, (4096, 9216), "bfloat16", 3.0),
 )
-#: phase 3's layouts of Q1 and Q2 (group, shape): groups of 64, 128 and
+#: phase 3's timed cases of Q3 at VAR-d16's last scale at batch 8: (name,
+#: recipes, shape, dtype name, amplitude, bits, asymmetric, granularity)
+Q3_CASES = (
+    ("qkv-sym-token", "int4_rtn: qkv, proj, fc1", (4096, 1024), "bfloat16",
+     3.0, 4, False, "per_token"),
+    ("fc2-asym-token", "int4_rtn: fc2", (4096, 4096), "bfloat16", 3.0, 4,
+     True, "per_token"),
+    ("kv-sym-row64-f32", "the int_sym dense cache (float32)",
+     (16, 256, 16, 64), "float32", 3.0, 4, False, "per_token"),
+    ("w-sym-g128-f32", "int_sym_ste (GALT)", (4096, 1024), "float32", 0.02,
+     4, False, "per_group"),
+)
+#: VAR-d16's patch sizes: a batch-8 generation with CFG quantizes M = 16 *
+#: pn**2 rows at each scale, Q3 four times a block under int4_rtn (qkv,
+#: proj and fc1 symmetric on [M, 1024], fc2 asymmetric on [M, 4096])
+D16_PATCH_NUMS = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
+#: phase 3's layouts of Q1-Q3 (group, shape): groups of 64, 128 and
 #: 256 values, of 24, 40 and 12 (3 and 5 vectors of 16 bytes in bf16; 6,
 #: 10 and 3 in f32), rows of 1,024 to 9,216 (a warp; a block of 2, 3, 4
 #: or 9 warps in bf16), each in a count that fills no whole warp or
@@ -982,7 +1004,9 @@ def _adversarial(grid, dtype, gen, lead=None) -> torch.Tensor:
     groups holding +-inf, NaN, +-1e30 among them; groups of a denormal
     scale; groups where the absmax of one half (of both: the whole
     group's) is the dtype's smallest subnormal, so that the half's scale
-    rounds to 0 where its product with ``1 / max|grid|`` can."""
+    rounds to 0 where its product with ``1 / max|grid|`` can; a group of
+    a dozen magnitudes all strictly negative and one all strictly
+    positive, whose min and max no zero may enter."""
     g = torch.tensor(np.asarray(grid, np.float32), device="cuda")
     gmax = float(g.abs().max())
     lead = torch.tensor([gmax, -gmax] if lead is None else lead,
@@ -997,6 +1021,7 @@ def _adversarial(grid, dtype, gen, lead=None) -> torch.Tensor:
                        else 2.0 ** -149, device="cuda")
     mag = normals[:1024].abs()
     zeros = torch.tensor([0.0, -0.0, math.nan], device="cuda")
+    signed = (torch.linspace(0.05, 0.95, 12, device="cuda") * gmax).to(dtype)
     x = torch.cat([normals.to(dtype), _led_groups(exact, lead),
                    _led_groups(torch.cat([wild, exact]), None),
                    _led_groups(wild.flip(0), None),
@@ -1006,7 +1031,8 @@ def _adversarial(grid, dtype, gen, lead=None) -> torch.Tensor:
                    _led_groups(torch.cat([-mag, zeros, sub[None]]).to(dtype),
                                sub[None].to(dtype)),
                    _led_groups(torch.cat([mag, zeros, -sub[None]])
-                               .to(dtype), -sub[None].to(dtype))])
+                               .to(dtype), -sub[None].to(dtype)),
+                   _led_groups(-signed, None), _led_groups(signed, None)])
     pad = -x.numel() % 1024
     return torch.cat([x, x[:pad]]).view(-1, 1024)
 
@@ -1122,18 +1148,36 @@ def _quant_input(shape, dtype: str, amp: float, gen) -> torch.Tensor:
             * amp).to(getattr(torch, dtype))
 
 
+def _q3_case(x, n_bits: int, asym: bool, gran) -> tuple:
+    """``(run, plain, bytes)`` of Q3 on ``x``, as ``_quant_case``;
+    ``gran`` is a granularity or a group size."""
+    from fpqvar_tpu_torch.ops import quantizers as Q
+
+    fn, ref = ((Q.fake_quant_int_asym, Q.fake_quant_int_asym_ref) if asym
+               else (Q.fake_quant_int_sym, Q.fake_quant_int_sym_ref))
+    kw = ({"granularity": gran} if isinstance(gran, str)
+          else {"granularity": "per_group", "group_size": gran})
+    return (lambda: fn(x, n_bits, **kw), lambda: ref(x, n_bits, **kw),
+            2 * x.numel() * x.element_size())
+
+
 def _quant_layouts(gen) -> int:
-    """Q1 (one grid, dual grid) and Q2 (value codes, dual codes) at every
-    layout of ``QUANT_LAYOUTS``, bfloat16 and float32: bit-equal to the
-    plain versions, one launch a call.  Each input holds an all-zero
-    group and a group of x's smallest subnormals.  Returns the number of
-    checks."""
+    """Q1 (one grid, dual grid), Q2 (value codes, dual codes) and Q3
+    (symmetric, asymmetric) at every layout of ``QUANT_LAYOUTS``, bfloat16
+    and float32: bit-equal to the plain versions, one launch a call.  Each
+    input holds an all-zero group, a group of x's smallest subnormals, a
+    group all strictly negative and one all strictly positive.  Returns
+    the number of checks."""
     from fpqvar_tpu_torch.ops import quant_kernels as QK
 
     calls = (("fp", "fp_e2", "grid_launches"),
              ("dual", DUAL6, "grid_launches"),
              ("codes", "fp6_e2m3", "codes_launches"),
-             ("dual_codes", DUAL4, "codes_launches"))
+             ("dual_codes", DUAL4, "codes_launches"),
+             ("int_sym", None, "int_launches"),
+             ("int_asym", None, "int_launches"))
+    kern = {"grid_launches": "Q1", "codes_launches": "Q2",
+            "int_launches": "Q3"}
     checks = 0
     for dtype in ("bfloat16", "float32"):
         for gs, shape in QUANT_LAYOUTS:
@@ -1143,27 +1187,54 @@ def _quant_layouts(gen) -> int:
             flat = x.view(-1)
             flat[:gs] = 0.0
             flat[gs:2 * gs] = 2.0 ** (-133 if dtype == "bfloat16" else -149)
+            flat[2 * gs:3 * gs] = -flat[2 * gs:3 * gs].abs() - 0.25
+            flat[3 * gs:4 * gs] = flat[3 * gs:4 * gs].abs() + 0.25
             for call, fmt, counter in calls:
-                run, plain, _ = _quant_case(call, fmt, gs, x)
+                run, plain, _ = (
+                    _q3_case(x, 4, call == "int_asym", gs) if fmt is None
+                    else _quant_case(call, fmt, gs, x))
                 before = getattr(QK, counter)
                 got = run()
                 if getattr(QK, counter) != before + 1:
                     fail(f"{call} {fmt} group {gs} {tuple(shape)} {dtype}: "
                          f"{getattr(QK, counter) - before} launches, not 1")
-                _bit_check("Q1" if counter == "grid_launches" else "Q2",
+                _bit_check(kern[counter],
                            f"{call} {fmt} group {gs} {tuple(shape)} {dtype}",
                            got, plain())
                 checks += 1
     return checks
 
 
-def phase_quant() -> dict:
-    """Q1 and Q2 at ``QUANT_CASES``, Q3 at the shapes VAR-d16's last scale
-    at batch 8 gives it, each against its plain version bit for bit and
-    timed; then ``_quant_sweep``'s adversarial inputs over every grid and
-    ``_quant_layouts``.  Returns each kernel's rows."""
-    from fpqvar_tpu_torch.ops import quantizers as Q
+def _q3_scale_inputs(gen) -> list:
+    """Q3's calls of one d16 batch-8 ``int4_rtn`` scale set, each scale's
+    ``M = 16 * pn**2`` rows (``D16_PATCH_NUMS``): ``(name, calls a block,
+    x, asymmetric)`` for the symmetric ``[M, 1024]`` (qkv, proj, fc1) and
+    the asymmetric ``[M, 4096]`` (fc2), bfloat16."""
+    cases = []
+    for pn in D16_PATCH_NUMS:
+        m = 16 * pn * pn
+        cases.append((f"sym-[{m},1024]", 3,
+                      _quant_input((m, 1024), "bfloat16", 3.0, gen), False))
+        cases.append((f"asym-[{m},4096]", 1,
+                      _quant_input((m, 4096), "bfloat16", 3.0, gen), True))
+    return cases
 
+
+def _generation_ms(rows: list, key: str) -> float:
+    """16 blocks times the sum of a scale set's Q3 calls (``rows`` of
+    ``_q3_scale_inputs``, each with its calls a block): one d16 batch-8
+    ``int4_rtn`` generation's Q3 time from the per-scale times ``key``."""
+    return 16 * sum(r["calls"] * r[key] for r in rows)
+
+
+def phase_quant() -> dict:
+    """Q1 and Q2 at ``QUANT_CASES``, Q3 at ``Q3_CASES``, each against its
+    plain version bit for bit and timed; then ``_quant_sweep``'s
+    adversarial inputs over every grid and ``_quant_layouts``; then Q3 at
+    every scale of a d16 generation (``_q3_scale_inputs``), bit for bit,
+    timed as ``check_quant`` times (the plain version left out) and summed
+    for one generation.  Returns each kernel's rows and, under
+    ``"Q3 scales"``, the per-scale rows and that sum."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
     rows = {"Q1": [], "Q2": [], "Q3": []}
@@ -1171,39 +1242,46 @@ def phase_quant() -> dict:
         x = _quant_input(shape, dtype, amp, gen)
         run, plain, nbytes = _quant_case(call, fmt, arg, x)
         rows[kern].append(check_quant(kern, name, note, run, plain, nbytes))
-
-    def q3(name, note, x, n_bits, asym, gran):
-        fn, ref = ((Q.fake_quant_int_asym, Q.fake_quant_int_asym_ref) if asym
-                   else (Q.fake_quant_int_sym, Q.fake_quant_int_sym_ref))
-        rows["Q3"].append(check_quant(
-            "Q3", name, note, lambda: fn(x, n_bits, granularity=gran),
-            lambda: ref(x, n_bits, granularity=gran),
-            2 * x.numel() * x.element_size()))
-
-    x1 = _quant_input((4096, 1024), "bfloat16", 3.0, gen)
-    x4 = _quant_input((4096, 4096), "bfloat16", 3.0, gen)
-    kv32 = _quant_input((16, 256, 16, 64), "float32", 3.0, gen)
-    w = _quant_input((4096, 1024), "float32", 0.02, gen)
-    q3("qkv-sym-token", "int4_rtn: qkv, proj, fc1", x1, 4, False,
-       "per_token")
-    q3("fc2-asym-token", "int4_rtn: fc2", x4, 4, True, "per_token")
-    q3("kv-sym-row64-f32", "the int_sym dense cache (float32)", kv32, 4,
-       False, "per_token")
-    q3("w-sym-g128-f32", "int_sym_ste (GALT)", w, 4, False, "per_group")
+    for name, note, shape, dtype, amp, n_bits, asym, gran in Q3_CASES:
+        x = _quant_input(shape, dtype, amp, gen)
+        rows["Q3"].append(check_quant("Q3", name, note,
+                                      *_q3_case(x, n_bits, asym, gran)))
     t0 = time.perf_counter()
     checks = _quant_sweep(gen)
     print(f"kernels: Q1-Q3 bit-equal to their plain versions in {checks} "
           f"adversarial checks (every grid and dual-grid half, bfloat16 and "
           f"float32, per group and per token; normals, midpoints, grid "
           f"values, +-0, +-inf, NaN, +-1e30, denormal scales, halves of a "
-          f"subnormal absmax and their neighbours; NaN bits included) in "
+          f"subnormal absmax, groups of one strict sign and their "
+          f"neighbours; NaN bits included) in "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     checks = _quant_layouts(gen)
-    print(f"kernels: Q1 and Q2 bit-equal to their plain versions, one "
+    print(f"kernels: Q1-Q3 bit-equal to their plain versions, one "
           f"launch a call, in {checks} checks of {len(QUANT_LAYOUTS)} "
           f"layouts (groups of 12 to 9,216 values, bfloat16 and float32) "
           f"in {time.perf_counter() - t0:.1f} s")
+    scales = []
+    for name, calls, x, asym in _q3_scale_inputs(gen):
+        run, plain, nbytes = _q3_case(x, 4, asym, "per_token")
+        _bit_check("Q3", name, run(), plain())
+        dev, host = queued_ms(run)
+        scales.append({"shape": name, "calls": calls, "bytes": nbytes,
+                       "ms": cuda_ms(run), "device_ms": dev, "host_ms": host,
+                       "bound_ms": nbytes / H100_BYTES * 1e3})
+    for r in scales:
+        print(f"kernels: Q3 per scale {r['shape']:18s} x{r['calls']} a "
+              f"block: dev {r['device_ms'] * 1e3:.2f} us (ms "
+              f"{r['ms'] * 1e3:.2f}, host {r['host_ms'] * 1e3:.2f}), bound "
+              f"{r['bound_ms'] * 1e3:.2f} us, "
+              f"{r['bound_ms'] / r['device_ms']:.3f} of it")
+    gen_ms = _generation_ms(scales, "device_ms")
+    bound_ms = _generation_ms(scales, "bound_ms")
+    print(f"kernels: Q3 per scale, 16 blocks x a scale set's four calls: "
+          f"{gen_ms:.3f} ms of device time a d16 batch-8 int4_rtn "
+          f"generation (bound {bound_ms:.3f} ms); each shape bit-equal")
+    rows["Q3 scales"] = {"rows": scales, "gen_ms": gen_ms,
+                         "bound_ms": bound_ms}
     return rows
 
 
@@ -1233,24 +1311,35 @@ def _other_lib(root: str, name: str, like):
 
 
 def quant_ab(root: str, out_path: str = None) -> int:
-    """``--quant-ab``: Q1 and Q2 of this checkout beside those of the
-    checkout at ``root``, at every ``QUANT_CASES`` shape, the rows written
-    to ``out_path`` as JSON where given (see the module docstring)."""
+    """``--quant-ab``: Q1, Q2 and Q3 of this checkout beside those of the
+    checkout at ``root``, at every ``QUANT_CASES`` and ``Q3_CASES`` shape
+    and at Q3's per-scale shapes, the rows written to ``out_path`` as JSON
+    where given (see the module docstring)."""
     from fpqvar_tpu_torch.ops import _build
     from fpqvar_tpu_torch.ops import quant_kernels as QK
 
     card = phase_device()
-    mine = {"fake_quant_grid": QK._grid_lib(), "grid_codes": QK._codes_lib()}
+    mine = {"fake_quant_grid": QK._grid_lib(), "grid_codes": QK._codes_lib(),
+            "fake_quant_int": QK._int_lib()}
     libs = {"this": dict(mine), "other": {}}
     for name, lib in mine.items():
         libs["other"][name], regs = _other_lib(root, name, lib)
         print(f"quant_ab: {name} of {root}: {'; '.join(regs)}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
-    out = []
+    cases = []
     for kern, name, note, call, fmt, arg, shape, dtype, amp in QUANT_CASES:
         x = _quant_input(shape, dtype, amp, gen)
-        run, plain, nbytes = _quant_case(call, fmt, arg, x)
+        cases.append((kern, name, note, None, *_quant_case(call, fmt, arg, x)))
+    for name, note, shape, dtype, amp, n_bits, asym, gran in Q3_CASES:
+        x = _quant_input(shape, dtype, amp, gen)
+        cases.append(("Q3", name, note, None,
+                      *_q3_case(x, n_bits, asym, gran)))
+    for name, calls, x, asym in _q3_scale_inputs(gen):
+        cases.append(("Q3", name, "int4_rtn per scale", calls,
+                      *_q3_case(x, 4, asym, "per_token")))
+    out = []
+    for kern, name, note, calls, run, plain, nbytes in cases:
         want = plain()
         times = {"this": [], "other": []}
         for tree in ("other", "this", "this", "other"):
@@ -1263,6 +1352,8 @@ def quant_ab(root: str, out_path: str = None) -> int:
         bound = nbytes / H100_BYTES * 1e3
         row = {"kernel": kern, "shape": name, "recipes": note,
                "bytes": nbytes, "bound_ms": bound, **times}
+        if calls is not None:
+            row["calls"] = calls
         out.append(row)
         dev = {t: [r["device_ms"] * 1e3 for r in v] for t, v in times.items()}
         share = bound * 1e3 / min(dev["this"])
@@ -1270,6 +1361,15 @@ def quant_ab(root: str, out_path: str = None) -> int:
               f"{dev['other'][0]:.1f} / {dev['other'][1]:.1f}, this "
               f"{dev['this'][0]:.1f} / {dev['this'][1]:.1f}; bound "
               f"{bound * 1e3:.2f} us, this {share:.3f} of it")
+    scales = [r for r in out if "calls" in r]
+    for tree in ("other", "this"):
+        per_turn = [_generation_ms(
+            [{"calls": r["calls"], "t": r[tree][i]["device_ms"]}
+             for r in scales], "t") for i in range(2)]
+        print(f"quant_ab: Q3 per scale, 16 blocks x a scale set's four "
+              f"calls, {tree}: {per_turn[0]:.3f} / {per_turn[1]:.3f} ms of "
+              f"device time a d16 batch-8 int4_rtn generation (bound "
+              f"{_generation_ms(scales, 'bound_ms'):.3f} ms)")
     if out_path:
         with open(out_path, "w") as f:
             json.dump({"card": card, "other": root, "rows": out}, f,
@@ -1558,8 +1658,9 @@ def phase_profile(mode: str, run, card: str, launches: dict,
     time of every CUDA kernel; each port kernel must show as many launches
     as the generation makes (``launches``, by K1..K7), so that its time is
     found under its name.  Returns ``{"wall_ms", "busy_ms", "kernels",
-    "idle"}``, or None where the profiler recorded no kernel time (a
-    failure if ``required``: the kernel counts are a gate there)."""
+    "idle", "port_ms"}`` (``port_ms``: device ms by port kernel), or None
+    where the profiler recorded no kernel time (a failure if
+    ``required``: the kernel counts are a gate there)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1586,7 +1687,7 @@ def phase_profile(mode: str, run, card: str, launches: dict,
         print(f"profile: {mode}: device time not measured (the profiler "
               f"recorded no kernel time); wall {wall_ms:.1f} ms")
         return None
-    ours = []
+    ours, port_ms = [], {}
     for label, keys in PORT_KERNELS.items():
         hits = [e for e in kernels if any(k in e.key for k in keys)]
         n = sum(e.count for e in hits)
@@ -1595,6 +1696,7 @@ def phase_profile(mode: str, run, card: str, launches: dict,
             fail(f"profile: {mode}: {n} kernels named like {label} "
                  f"({', '.join(keys)}), {want} launches expected")
         ms = sum(dev_ms(e) for e in hits)
+        port_ms[label] = ms
         ours.append(f"{label} {ms:.2f} ms in {n} launches "
                     f"({ms / busy:.3f} of busy)")
     top = sorted(kernels, key=dev_ms, reverse=True)[:6]
@@ -1606,7 +1708,7 @@ def phase_profile(mode: str, run, card: str, launches: dict,
         print(f"profile: {mode}   {dev_ms(e):8.2f} ms {e.count:6d}x "
               f"{e.key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "kernels": n_kernels,
-            "idle": 1.0 - busy / wall_ms}
+            "idle": 1.0 - busy / wall_ms, "port_ms": port_ms}
 
 
 def _fused_run(gen, qp, vae, label_sets, seed: int):
@@ -1628,7 +1730,8 @@ def _fused_run(gen, qp, vae, label_sets, seed: int):
     return images, ms, host_cpu
 
 
-def phase_fused(setups, vae, per_gen: dict, card: str):
+def phase_fused(setups, vae, per_gen: dict, card: str,
+                q3_scales_ms: float):
     """The engine's fused mode (CUDA graphs) at VAR-d16 batch 8 under the
     profiled recipes, beside phase 5's eager generations of the same
     trees: two generations from a generator seeded as phase 5's (3), on
@@ -1639,7 +1742,9 @@ def phase_fused(setups, vae, per_gen: dict, card: str):
     host counters see only the warm-up and the capture).  Prints eager and
     fused ms per batch and img/s, the host CPU ms inside ``generate``, the
     warm-up and capture times, the graphs' pool bytes and the replay's
-    idle share."""
+    idle share; under ``int4_rtn``, Q3's time in the replay beside
+    ``q3_scales_ms``, phase 3's per-scale times summed for a
+    generation."""
     from fpqvar_tpu_torch.models import VARGenerator
 
     batch = 8
@@ -1665,6 +1770,12 @@ def phase_fused(setups, vae, per_gen: dict, card: str):
             card, per_gen[mode], required=True)
         e_ms, f_ms = eager["ms"][-1], ms[-1]
         summary.append(f"{mode} {e_ms / f_ms:.3f}")
+        if per_gen[mode]["Q3"]:
+            q3 = prof["port_ms"]["Q3"]
+            print(f"fused: {mode}: Q3 {q3:.3f} ms in the replay "
+                  f"({per_gen[mode]['Q3']} launches), phase 3's per-scale "
+                  f"times summed for a generation {q3_scales_ms:.3f} ms "
+                  f"({q3_scales_ms / q3:.3f}x); on {card}")
         print(f"fused: {mode}: images torch.equal to the eager loop's for "
               f"both generations; eager ms/batch-of-{batch} "
               f"{', '.join(f'{t:.1f}' for t in eager['ms'])} (host CPU "
@@ -4329,7 +4440,7 @@ def main():
     done("small reference")
     launches, setups, vae, per_gen = phase_main_path(card)
     done("main path and profile")
-    phase_fused(setups, vae, per_gen, card)
+    phase_fused(setups, vae, per_gen, card, q_rows["Q3 scales"]["gen_ms"])
     done("fused")
     phase_serving(setups, vae, card)
     done("serving")

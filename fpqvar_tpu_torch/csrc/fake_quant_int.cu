@@ -31,52 +31,95 @@
 // them into an FMA), each rounded to X where PyTorch keeps a tensor of x's
 // dtype.  No fast-math flag may reach this file.
 //
-// Design and bound.  grid_snap.cuh's layout: one warp per group, the
-// first pass takes the absmax (or the min and the max), the second
-// re-reads the group from L1 / L2 and writes y.  Bytes bound it: x [4096,
-// 4096] bf16 (fc2's input at VAR-d16's last scale, batch 8) is 32 MB read
-// and 32 MB written, 20 us at 3.35 TB/s.
+// Design and bound.  Bytes bound it: x [4096, 4096] bf16 (fc2's input at
+// VAR-d16's last scale, batch 8) is 32 MB read and 32 MB written, 20 us at
+// 3.35 TB/s ([4096, 1024]: 5.0 us).  Q1's layout (grid_snap.cuh): a group
+// spans as many lanes as it has 16-byte vectors (2 groups of 128 bf16 a
+// warp, 2 KV rows of 64 f32, a row of 1,024 bf16 over a warp, 4,096 over
+// 128 threads), is read once into registers, reduced by shuffles and
+// quantized and stored from the same registers.  The asymmetric min and
+// max are one reduction: seg_nan_max over the pair (-v, v), whose -min is
+// the max of -v, so both ride the same xor steps.  Every lane starts the
+// pair at (-inf, -inf), the identities of a min and a max, and adds only
+// the vectors that lie in its group: an idle lane, past the group's
+// vectors in a power-of-two segment or a block's last warp, leaves them
+// there, where a +0 would raise the max of an all-negative group or lower
+// the min of an all-positive one.  The symmetric absmax starts at +0, its
+// identity.  Each value then takes one IEEE division, roundings, rint,
+// the clamp and a product: ~22-30 SASS instructions, so at the last scale
+// issue and bytes are of one size (PERF.md section 6).  The first scales
+// of a generation have 16 to 1,024 rows: at 4 vectors a thread a launch
+// would fill a few SMs with warps that each run 32 values' division
+// chains in turn, so where it would have fewer than kSpreadThreads
+// threads a group longer than a warp takes one vector a thread instead
+// (a block of up to 1,024 threads a group).
 #include "grid_snap.cuh"
 
 namespace {
 
-using grid_snap::kWarps;
+using grid_snap::kMaxBlock;
+using grid_snap::kVecs;
 using grid_snap::round_x;
+using grid_snap::Slot;
 
-template <bool XBF16, bool ASYM>
-__global__ void __launch_bounds__(32 * kWarps)
+// Groups that at kVecs vectors a thread would give a launch fewer threads
+// than this (half of what the card's 132 SMs hold at once) spread over
+// one vector a thread instead: each thread's serial share of the
+// division chains falls fourfold where no other work would hide it.  At
+// VAR-d16's shapes on an H100 this takes each shape's faster layout
+// (chip_smoke.py --quant-ab against both; PERF.md section 6).
+constexpr long long kSpreadThreads = 132LL * 1024;
+
+// torch.clamp's rule (NaN stays NaN) in two instructions: min.NaN and
+// max.NaN return the card's canonical NaN, which the product with s that
+// follows every clamp would return all the same.
+__device__ __forceinline__ float clamp_code(float v, float lo, float hi) {
+  return grid_snap::min_nan(grid_snap::max_nan(v, lo), hi);
+}
+
+template <bool XBF16, bool ASYM, int MAXV>
+__global__ void __launch_bounds__(kMaxBlock)
 fake_int_kernel(const void* __restrict__ x, void* __restrict__ y,
-                int n_groups, int gs, float q_min, float q_max, float inv,
-                float eps) {
+                int n_groups, int vecs, int seg, float q_min, float q_max,
+                float inv, float eps) {
   using V = grid_snap::XVec<XBF16>;
-  const int lane = threadIdx.x % 32;
-  const int g = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (g >= n_groups) return;
-  const size_t base = static_cast<size_t>(g) * gs * V::BYTES;
+  constexpr int NM = ASYM ? 2 : 1;
+  __shared__ float red[kMaxBlock / 32][NM];
+  const Slot at(seg, n_groups);
+  const size_t base = static_cast<size_t>(at.group) * vecs * 16;
   const char* src = static_cast<const char*>(x) + base;
   char* dst = static_cast<char*>(y) + base;
-  // ASYM: the min and the max; else the absmax (in hi)
+  const int chunk = seg * MAXV;
+  uint4 raw[MAXV];
+  // ASYM: m = (max -v, max v), so that the min is -m[0]; else the absmax
   const float inf = __int_as_float(0x7f800000);
-  float lo = inf, hi = ASYM ? -inf : 0.f;
-  for (int c = lane * V::N; c < gs; c += 32 * V::N) {
-    float v[V::N];
-    V::load(src + c * V::BYTES, v);
+  float m[NM];
+  m[0] = ASYM ? -inf : 0.f;
+  if constexpr (ASYM) m[1] = -inf;
+  for (int c0 = 0; c0 < vecs; c0 += chunk) {
+    grid_snap::load_vecs(raw, src, at, seg, vecs, c0);
 #pragma unroll
-    for (int j = 0; j < V::N; ++j) {
-      if constexpr (ASYM) {
-        lo = grid_snap::nan_min(v[j], lo);
-        hi = grid_snap::nan_max(v[j], hi);
-      } else {
-        hi = grid_snap::nan_max(fabsf(v[j]), hi);
+    for (int k = 0; k < MAXV; ++k) {
+      // load_vecs' zeros stand for the vectors past the group: the
+      // absmax's identity, but not the min's or the max's
+      if (ASYM && !(at.live && c0 + at.lane + k * seg < vecs)) continue;
+      float v[V::N];
+      V::unpack(raw[k], v);
+#pragma unroll
+      for (int j = 0; j < V::N; ++j) {
+        if constexpr (ASYM) {
+          m[0] = grid_snap::max_nan(-v[j], m[0]);
+          m[1] = grid_snap::max_nan(v[j], m[1]);
+        } else {
+          m[0] = grid_snap::max_nan(fabsf(v[j]), m[0]);
+        }
       }
     }
   }
-  hi = grid_snap::warp_nan_max(hi);
-  float range = hi;
-  if constexpr (ASYM) {
-    lo = grid_snap::warp_nan_min(lo);
-    range = round_x<XBF16>(__fsub_rn(hi, lo));
-  }
+  grid_snap::seg_nan_max(m, seg, red);
+  const float lo = -m[0];  // ASYM: the min
+  const float range =
+      ASYM ? round_x<XBF16>(__fsub_rn(m[NM - 1], lo)) : m[0];
   // clamp_min(eps): NaN stays NaN
   const float clamped = round_x<XBF16>(range != range ? range
                                                        : fmaxf(range, eps));
@@ -86,31 +129,54 @@ fake_int_kernel(const void* __restrict__ x, void* __restrict__ y,
     zp = rintf(round_x<XBF16>(
         __fsub_rn(q_min, round_x<XBF16>(__fdiv_rn(lo, s)))));
   }
-  for (int c = lane * V::N; c < gs; c += 32 * V::N) {
-    float v[V::N];
-    V::load(src + c * V::BYTES, v);
+  for (int c0 = 0; c0 < vecs; c0 += chunk) {
+    if (vecs > chunk) grid_snap::load_vecs(raw, src, at, seg, vecs, c0);
 #pragma unroll
-    for (int j = 0; j < V::N; ++j) {
-      float q = rintf(round_x<XBF16>(__fdiv_rn(v[j], s)));
-      if constexpr (ASYM) {
-        q = grid_snap::clamp_nan(round_x<XBF16>(__fadd_rn(q, zp)), q_min,
-                                 q_max);
-        v[j] = __fmul_rn(round_x<XBF16>(__fsub_rn(q, zp)), s);
-      } else {
-        v[j] = __fmul_rn(grid_snap::clamp_nan(q, q_min, q_max), s);
+    for (int k = 0; k < MAXV; ++k) {
+      const int i = c0 + at.lane + k * seg;
+      if (!at.live || i >= vecs) continue;
+      float v[V::N];
+      V::unpack(raw[k], v);
+#pragma unroll
+      for (int j = 0; j < V::N; ++j) {
+        float q = rintf(round_x<XBF16>(__fdiv_rn(v[j], s)));
+        if constexpr (ASYM) {
+          q = clamp_code(round_x<XBF16>(__fadd_rn(q, zp)), q_min, q_max);
+          v[j] = __fmul_rn(round_x<XBF16>(__fsub_rn(q, zp)), s);
+        } else {
+          v[j] = __fmul_rn(clamp_code(q, q_min, q_max), s);
+        }
       }
+      V::store(dst + static_cast<size_t>(i) * 16, v);
     }
-    V::store(dst + c * V::BYTES, v);
   }
 }
 
-template <bool XBF16, bool ASYM>
-cudaError_t launch(const void* x, void* y, int n_groups, int gs, float q_min,
-                   float q_max, float inv, float eps, cudaStream_t stream) {
-  const int blocks = (n_groups + kWarps - 1) / kWarps;
-  fake_int_kernel<XBF16, ASYM><<<blocks, 32 * kWarps, 0, stream>>>(
-      x, y, n_groups, gs, q_min, q_max, inv, eps);
+template <bool XBF16, bool ASYM, int MAXV>
+cudaError_t launch(const void* x, void* y, int n_groups,
+                   const grid_snap::Layout& l, float q_min, float q_max,
+                   float inv, float eps, cudaStream_t stream) {
+  fake_int_kernel<XBF16, ASYM, MAXV>
+      <<<grid_snap::layout_blocks(l, n_groups), l.block, 0, stream>>>(
+          x, y, n_groups, l.vecs, l.seg, q_min, q_max, inv, eps);
   return cudaGetLastError();
+}
+
+template <bool XBF16, bool ASYM>
+cudaError_t dispatch(const void* x, void* y, int n_groups, int gs,
+                     float q_min, float q_max, float inv, float eps,
+                     cudaStream_t s) {
+  const int vecs = gs / grid_snap::XVec<XBF16>::N;
+  auto l = grid_snap::layout(vecs);
+  if (l.maxv > 1 && vecs <= kMaxBlock &&
+      static_cast<long long>(grid_snap::layout_blocks(l, n_groups)) *
+              l.block < kSpreadThreads)
+    l = grid_snap::layout(vecs, 1);
+  if (l.maxv == 1)
+    return launch<XBF16, ASYM, 1>(x, y, n_groups, l, q_min, q_max, inv, eps,
+                                  s);
+  return launch<XBF16, ASYM, kVecs>(x, y, n_groups, l, q_min, q_max, inv,
+                                    eps, s);
 }
 
 }  // namespace
@@ -130,15 +196,15 @@ extern "C" int fake_quant_int(const void* x, void* y, int n_groups, int gs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (x_bf16) {
-    e = asym ? launch<true, true>(x, y, n_groups, gs, q_min, q_max, inv, eps,
-                                  s)
-             : launch<true, false>(x, y, n_groups, gs, q_min, q_max, inv,
-                                   eps, s);
+    e = asym ? dispatch<true, true>(x, y, n_groups, gs, q_min, q_max, inv,
+                                    eps, s)
+             : dispatch<true, false>(x, y, n_groups, gs, q_min, q_max, inv,
+                                     eps, s);
   } else {
-    e = asym ? launch<false, true>(x, y, n_groups, gs, q_min, q_max, inv,
-                                   eps, s)
-             : launch<false, false>(x, y, n_groups, gs, q_min, q_max, inv,
-                                    eps, s);
+    e = asym ? dispatch<false, true>(x, y, n_groups, gs, q_min, q_max, inv,
+                                     eps, s)
+             : dispatch<false, false>(x, y, n_groups, gs, q_min, q_max, inv,
+                                      eps, s);
   }
   return static_cast<int>(e);
 }

@@ -19,16 +19,16 @@
 //   lifting from the step CAP / 2.  snap is the same count without the
 //   bound check: q >= NaN is false, so the NaN midpoints past the grid's
 //   are never counted.
-// - nan_max / nan_min: the reductions of torch.amax / amin, which
-//   propagate NaN (fmaxf drops it, and would give a group with a NaN
-//   another scale than the plain version's).
+// - nan_max, max_nan: the reduction of torch.amax, which propagates NaN
+//   (fmaxf drops it, and would give a group with a NaN another scale than
+//   the plain version's); a NaN-propagating min is the max of -v.
 // - round_x: a float rounded to the input's dtype (bf16: to nearest even;
 //   f32: itself), where the plain version keeps a value in x's dtype.
-// - Layout, Slot, load_vecs, seg_nan_max: how Q1 and Q2 lay a group over
-//   threads.  K4's phase (a) and Q3 take one warp a group (kWarps a
-//   block) and read it twice.
+// - Layout, Slot, load_vecs, seg_nan_max: how Q1, Q2 and Q3 lay a group
+//   over threads.  Only K4's phase (a) takes one warp a row (kWarps a
+//   block) and reads it twice.
 //
-// Q1's and Q2's layout.  A group of gs values is L = gs * bytes / 16
+// The quantizers' layout.  A group of gs values is L = gs * bytes / 16
 // vectors of 16 bytes, spread over a segment of threads:
 //   L <= 32:   the power of two >= L lanes of a warp, one vector a lane,
 //              so a warp holds 32 / seg groups (4 KV rows of 64 bf16, 2
@@ -37,16 +37,21 @@
 //              bf16), kBlock / 32 groups a block;
 //   longer:    a block of 32 * ceil(L / 128) threads, at most kMaxBlock,
 //              kVecs vectors a thread (4,096 bf16: 128 threads; 9,216:
-//              288), the absmax crossing its warps in shared memory.
+//              288), the absmax crossing its warps in shared memory;
+//   Q3 with few groups: past 32 vectors, one vector a thread (a row of
+//              1,024 bf16 over 128 threads, 4,096 over 512), where kVecs
+//              would launch too few threads to fill the card.
 // Lane i of a segment holds vectors i, i + seg, ..., so each load of a
 // warp is contiguous.  A thread loads its vectors into registers once
-// (raw, 16-byte loads), the segment takes the absmax by xor shuffles,
-// and the same registers are snapped and stored.  Rows longer than
-// kMaxBlock * kVecs vectors (32,768 bf16 or 16,384 f32; none on the main
-// path) are walked in chunks of that many vectors and read twice: a
-// block has no more threads, and more vectors a thread would cost every
-// shorter row registers.  The groups past n_groups in the last block
-// load nothing and store nothing, but shuffle with their warp.
+// (raw, 16-byte loads; zeros where a lane has no vector), the segment
+// takes the absmax (Q3: or the min and the max, which leave the zeros
+// out) by xor shuffles, and the same registers are quantized and stored.
+// Rows longer than kMaxBlock * kVecs vectors (32,768 bf16 or 16,384 f32;
+// none on the main path) are walked in chunks of that many vectors and
+// read twice: a block has no more threads, and more vectors a thread
+// would cost every shorter row registers.  The groups past n_groups in
+// the last block load nothing and store nothing, but shuffle with their
+// warp.
 //
 // Exactness.  The sources that include this header must be built without
 // --use_fast_math, -ftz=true, -prec-div=false or -fmad=true reaching the
@@ -63,9 +68,9 @@
 
 namespace grid_snap {
 
-// Rows or groups a block handles in K4's phase (a) and Q3: one warp each.
+// Rows a block handles in K4's phase (a): one warp each.
 constexpr int kWarps = 8;
-// Q1 and Q2: threads a block where a group takes a warp or less; vectors
+// Q1-Q3: threads a block where a group takes a warp or less; vectors
 // of 16 bytes a thread holds where a group takes more than 32; the
 // largest block (one group longer than 128 vectors).
 constexpr int kBlock = 256;
@@ -219,17 +224,16 @@ __device__ __forceinline__ int snap(float q, const float* mid) {
   return pos;
 }
 
-// max / min that return NaN where either side is NaN (torch.amax / amin).
+// max that returns NaN where either side is NaN (torch.amax).
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || a < b) ? a : b;
-}
 
 // nan_max in one instruction (PTX max.NaN, sm_80 and later): the NaN it
-// returns may carry other bits than nan_max's, which no caller reads (an
-// absmax that is NaN only selects the scale 1).
+// returns may carry other bits than nan_max's, which no output shows (an
+// absmax that is NaN selects Q1's and Q2's scale 1, and Q3's NaN reaches
+// its output only through arithmetic, whose NaN the card makes
+// canonical).
 __device__ __forceinline__ float max_nan(float a, float b) {
 #ifdef __CUDA_ARCH__
   float r;
@@ -239,18 +243,15 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return nan_max(a, b);
 #endif
 }
-
-__device__ __forceinline__ float warp_nan_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_nan_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// min.NaN likewise: NaN where either side is NaN.
+__device__ __forceinline__ float min_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return -nan_max(-a, -b);
+#endif
 }
 
 // v rounded to x's dtype.
@@ -278,12 +279,14 @@ __device__ __forceinline__ float safe_scale(float absmax, float inv) {
 }
 
 // ---------------------------------------------------------------------------
-// Q1's and Q2's layout (see the head of this file)
+// The quantizers' layout (see the head of this file)
 // ---------------------------------------------------------------------------
 
 // The launch of groups of `vecs` 16-byte vectors: threads a group (seg: a
 // power of two up to 32, or a whole block of whole warps), threads a
-// block, groups a block, and vectors a thread holds (1 or kVecs).
+// block, groups a block, and vectors a thread holds (1, or `per_thread`
+// where a group is longer than a warp: kVecs, or 1 to spread a group
+// over as many threads as it has vectors, up to kMaxBlock).
 struct Layout {
   int vecs;
   int seg;
@@ -292,7 +295,7 @@ struct Layout {
   int maxv;
 };
 
-inline Layout layout(int vecs) {
+inline Layout layout(int vecs, int per_thread = kVecs) {
   Layout l;
   l.vecs = vecs;
   if (vecs <= 32) {
@@ -300,15 +303,15 @@ inline Layout layout(int vecs) {
     while (l.seg < vecs) l.seg *= 2;
     l.block = kBlock;
     l.maxv = 1;
-  } else if (vecs <= 32 * kVecs) {
+  } else if (vecs <= 32 * per_thread) {
     l.seg = 32;
     l.block = kBlock;
-    l.maxv = kVecs;
+    l.maxv = per_thread;
   } else {
-    const int warps = (vecs + 32 * kVecs - 1) / (32 * kVecs);
+    const int warps = (vecs + 32 * per_thread - 1) / (32 * per_thread);
     l.seg = 32 * (warps < kMaxBlock / 32 ? warps : kMaxBlock / 32);
     l.block = l.seg;
-    l.maxv = kVecs;
+    l.maxv = per_thread;
   }
   l.groups = l.block / l.seg;
   return l;
@@ -322,15 +325,21 @@ inline unsigned layout_blocks(const Layout& l, int n_groups) {
 
 // A thread's place: its lane in its group's segment of seg threads, the
 // group, and whether the group exists (the tail of the last block holds
-// none).
+// none).  A segment is a power of two up to 32 or the whole block
+// (layout), so no integer division is needed.
 struct Slot {
   int lane;
   long long group;
   bool live;
   __device__ __forceinline__ Slot(int seg, int n_groups) {
-    lane = threadIdx.x % seg;
-    group = static_cast<long long>(blockIdx.x) * (blockDim.x / seg) +
-            threadIdx.x / seg;
+    if (seg > 32) {
+      lane = threadIdx.x;
+      group = blockIdx.x;
+    } else {
+      lane = threadIdx.x & (seg - 1);
+      group = (static_cast<long long>(blockIdx.x) * blockDim.x +
+               threadIdx.x) >> (__ffs(seg) - 1);
+    }
     live = group < n_groups;
   }
 };
@@ -351,30 +360,39 @@ __device__ __forceinline__ void load_vecs(uint4 (&raw)[MAXV],
   }
 }
 
-// nan_max of each v[i] over a segment of seg threads: xor shuffles within
-// the segment's lanes (seg <= 32, segments aligned in the warp), then,
-// where the segment is the whole block (seg > 32), across its warps
-// through red.  Every thread of the block calls it, once.
+// The NaN-propagating max of each v[i] over a segment of seg threads:
+// xor shuffles within the segment's lanes (the steps below seg: seg <=
+// 32 is a power of two, segments aligned in the warp), then, where the
+// segment is the whole block (seg > 32), across its warps: each lane
+// reads one warp's result from red (lanes past the warps read warp 0's,
+// which a max takes twice at no cost) and the warp shuffles them.  Every
+// thread of the block calls it, once.  The NaN it returns is max_nan's.
 template <int NV>
 __device__ __forceinline__ void seg_nan_max(float (&v)[NV], int seg,
                                             float (*red)[NV]) {
-  const int width = seg < 32 ? seg : 32;
-  for (int o = width / 2; o > 0; o >>= 1) {
 #pragma unroll
-    for (int i = 0; i < NV; ++i)
-      v[i] = nan_max(v[i], __shfl_xor_sync(0xffffffffu, v[i], o));
+  for (int o = 16; o > 0; o >>= 1) {
+    if (o < seg) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        v[i] = max_nan(v[i], __shfl_xor_sync(0xffffffffu, v[i], o));
+    }
   }
   if (seg > 32) {
-    const int warps = static_cast<int>(blockDim.x) / 32;
-    if (threadIdx.x % 32 == 0) {
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
 #pragma unroll
       for (int i = 0; i < NV; ++i) red[threadIdx.x / 32][i] = v[i];
     }
     __syncthreads();
+    const int w = lane < static_cast<int>(blockDim.x) / 32 ? lane : 0;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      v[i] = red[0][i];
-      for (int w = 1; w < warps; ++w) v[i] = nan_max(v[i], red[w][i]);
+    for (int i = 0; i < NV; ++i) v[i] = red[w][i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        v[i] = max_nan(v[i], __shfl_xor_sync(0xffffffffu, v[i], o));
     }
   }
 }

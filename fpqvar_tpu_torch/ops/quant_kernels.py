@@ -22,14 +22,15 @@ plain version's function bit for bit in one launch:
   :func:`fake_quant_int_asym` (plain: ``quantizers.fake_quant_int_sym_ref``,
   ``fake_quant_int_asym_ref``).
 
-Q1 and Q2 lay a group over as many lanes as it has 16-byte vectors
+The three lay a group over as many lanes as it has 16-byte vectors
 (``csrc/grid_snap.cuh``: several groups a warp up to 32 vectors, a warp
-up to 128, a block of warps beyond), read it once into registers, take
-its absmax by shuffles and snap it from the same registers; a dual-grid
-value is divided and walked on its own half's table only, the other
-half's output being that half's +0, found once a group by the real
-division by its scale.  Q3 (and K4's row kernel) take one warp a group
-and read it twice.
+up to 128, a block of warps beyond), read it once into registers, reduce
+it by shuffles (the absmax; Q3's asymmetric min and max in one
+reduction, the lanes past the group's vectors leaving them out) and
+quantize it from the same registers; a dual-grid value is divided and
+walked on its own half's table only, the other half's output being that
+half's +0, found once a group by the real division by its scale.  Only
+K4's row kernel takes one warp a row and reads it twice.
 
 The public quantizers of ``ops/quantizers.py`` and ``ops/packing.py``
 (and the KV codec's ``encode``) call these wrappers, so every caller gets

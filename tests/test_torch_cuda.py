@@ -1374,8 +1374,10 @@ QUANT_LAYOUTS = [(64, (2, 3, 5, 4160)), (128, (2, 3, 5, 4224)),
 def test_cuda_quantizers_group_sizes_with_leading_dims(cuda_device, gs,
                                                        shape, dtype):
     """Groups of ``gs`` over ``shape`` (``QUANT_LAYOUTS``): each kernel
-    bit-equal to its plain version, one launch a call; an all-zero group
-    and a group of x's smallest subnormals (a scale that rounds to 0)
+    (Q3 symmetric and asymmetric) bit-equal to its plain version, one
+    launch a call; an all-zero group, a group of x's smallest subnormals
+    (a scale that rounds to 0), a group all strictly negative and one all
+    strictly positive (whose min and max no idle lane's zero may enter)
     among them.  A group that is no multiple of 16 bytes raises."""
     from fpqvar_tpu_torch.ops import quant_kernels as QK
     from fpqvar_tpu_torch.ops import quantizers as Q
@@ -1386,6 +1388,8 @@ def test_cuda_quantizers_group_sizes_with_leading_dims(cuda_device, gs,
     flat = x.view(-1)
     flat[:gs] = 0.0                                     # an all-zero group
     flat[gs:2 * gs] = 2.0 ** (-133 if dtype == torch.bfloat16 else -149)
+    flat[2 * gs:3 * gs] = -flat[2 * gs:3 * gs].abs() - 0.25
+    flat[3 * gs:4 * gs] = flat[3 * gs:4 * gs].abs() + 0.25
     pairs = [
         (lambda: Q.fake_quant_fp(x, "fp_e2", group_size=gs),
          lambda: Q.fake_quant_fp_ref(x, "fp_e2", group_size=gs), "grid"),
@@ -1397,6 +1401,10 @@ def test_cuda_quantizers_group_sizes_with_leading_dims(cuda_device, gs,
         (lambda: P.quant_int_codes_dual(x, "fp_e1m2_neg_e2m1_pos", gs),
          lambda: P.quant_int_codes_dual_ref(x, "fp_e1m2_neg_e2m1_pos", gs),
          "codes"),
+        (lambda: Q.fake_quant_int_sym(x, 4, granularity="per_group",
+                                      group_size=gs),
+         lambda: Q.fake_quant_int_sym_ref(x, 4, granularity="per_group",
+                                          group_size=gs), "int"),
         (lambda: Q.fake_quant_int_asym(x, 4, granularity="per_group",
                                        group_size=gs),
          lambda: Q.fake_quant_int_asym_ref(x, 4, granularity="per_group",
@@ -1419,11 +1427,13 @@ def test_cuda_quantizers_group_sizes_with_leading_dims(cuda_device, gs,
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_cuda_dual_grid_zero_scale_half_bit_equal(cuda_device, dtype):
     """The dual-grid kernels on groups where one half's absmax is x's
-    smallest subnormal (``adversarial``'s last groups): where that half's
-    scale rounds to 0, its +0 takes position 0 (0 / 0 is NaN), which the
-    kernels find by the real division once a group; bit-equal to the plain
-    versions, and in float32 some such code is not the half's code of +0
-    (``test_torch_quant_kernels`` holds the numpy model to the same)."""
+    smallest subnormal (``adversarial``'s subnormal groups): where that
+    half's scale rounds to 0 (an empty half, absmax 0, takes the scale 1:
+    ``adversarial``'s one-signed groups), its +0 takes position 0 (0 / 0
+    is NaN), which the kernels find by the real division once a group;
+    bit-equal to the plain versions, and in float32 some such code is not
+    the half's code of +0 (``test_torch_quant_kernels`` holds the numpy
+    model to the same)."""
     from fpqvar_tpu_torch.ops import grids as G
     from fpqvar_tpu_torch.ops import quant_kernels as QK
     from fpqvar_tpu_torch.ops import quantizers as Q
@@ -1443,7 +1453,8 @@ def test_cuda_dual_grid_zero_scale_half_bit_equal(cuda_device, dtype):
             t = QK.code_table(fmt, half)
             scale = torch.where(x <= 0, x, 0) if h == 0 else torch.where(
                 x > 0, x, 0)
-            zero = scale.float().abs().amax(dim=1) * t.inv == 0
+            amax = scale.float().abs().amax(dim=1)
+            zero = (amax > 0) & (amax * t.inv == 0)    # not an empty half
             held = (x > 0 if h == 0 else ~(x > 0)) & zero[:, None]
             codes = got[2 * h][held]
             assert bool((codes == int(t.out[0])).all()), (fmt, half)

@@ -103,9 +103,9 @@ def test_no_orphan_header(header):
 
 def test_every_source_but_the_probe_runs_on_wgmma():
     """Every GEMM source runs on ``wgmma``, the rate probe's K6 as well;
-    every other source is a quantizer of ``QUANT_SOURCES`` (one warp a
-    group on ``grid_snap.cuh``, no GEMM), and each source is in exactly
-    one of the two tables."""
+    every other source is a quantizer of ``QUANT_SOURCES`` (a group over
+    the lanes it needs, on ``grid_snap.cuh``, no GEMM), and each source
+    is in exactly one of the two tables."""
     wgmma = _tables()["WGMMA_SOURCES"]
     quant = _tables()["QUANT_SOURCES"]
     assert not set(wgmma) & set(quant)

@@ -9,7 +9,8 @@ everything around them:
     ``f32(1/max|grid|)``, multiplier, table size) for every grid and both
     halves of every dual grid are what the plain functions use;
 (b) a numpy model of the kernels' element rule (binary lifting over the
-    table, a NaN-propagating absmax or min / max, the scale rounded to
+    table, a NaN-propagating absmax or min / max, Q3's over the slots of
+    its layout with the idle ones adding nothing, the scale rounded to
     x's dtype where the caller rounds it, IEEE float32 divisions and
     products with nothing fused, rounding to bfloat16 where PyTorch
     rounds) is bit-equal (int views; NaN where the plain version has NaN)
@@ -29,6 +30,7 @@ everything around them:
 """
 import dataclasses
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -208,12 +210,49 @@ def _own_half(x2, sn, sp, cap: int) -> tuple:
     return pos, w, np.where(pos, sp, sn), np.where(pos, cap, 0)
 
 
+#: csrc/fake_quant_int.cu kSpreadThreads: groups that at 4 vectors a
+#: thread would launch fewer threads spread over one vector a thread
+Q3_SPREAD_THREADS = 132 * 1024
+
+
+def q3_layout(gs: int, bf16: bool, n_groups: int = 1,
+              per_thread: int = None) -> tuple:
+    """``grid_snap::layout`` of Q3's ``n_groups`` groups of ``gs`` values:
+    their 16-byte vectors, the lanes a group spans (a power of two up to
+    32, or a block of whole warps up to 1,024 threads) and the vectors a
+    lane holds at a time (1, or past 32 vectors ``per_thread``: 4, or 1
+    where 4 would launch fewer than ``Q3_SPREAD_THREADS`` threads, as the
+    kernel's dispatch picks it) -> ``(vecs, seg, maxv)``."""
+    vecs = gs * (2 if bf16 else 4) // 16
+    if vecs <= 32:
+        return vecs, 1 << (vecs - 1).bit_length(), 1
+    if per_thread is None:
+        _, seg, _ = q3_layout(gs, bf16, per_thread=4)
+        groups = 256 // seg if seg <= 32 else 1
+        threads = -(-n_groups // groups) * max(seg, 256 if seg <= 32 else 0)
+        per_thread = (1 if vecs <= 1024 and threads < Q3_SPREAD_THREADS
+                      else 4)
+    if vecs <= 32 * per_thread:
+        return vecs, 32, per_thread
+    warps = -(-vecs // (32 * per_thread))
+    return vecs, 32 * min(warps, 32), per_thread
+
+
 def model_q3(x, gs: int, n_bits: int, asym: bool, eps: float,
-             bf16: bool) -> np.ndarray:
+             bf16: bool, idle=None, per_thread: int = None) -> np.ndarray:
     """Q3 on ``x``: every step rounded to x's dtype as PyTorch rounds
-    it."""
+    it.  The group's min and max (or absmax) are taken over the slots of
+    its layout (:func:`q3_layout`, for x's groups or at ``per_thread``:
+    lanes times vectors a lane, in chunks), each lane starting at the
+    identity; ``idle`` is what the slots past the group's vectors add:
+    nothing (the kernel's rule), or the value given (``0.0``: the zeros
+    that ``load_vecs`` leaves there)."""
     q_min, q_max = Q._int_range(n_bits)
     x2 = np.asarray(x, F32).reshape(-1, gs)
+    vecs, seg, maxv = q3_layout(gs, bf16, len(x2), per_thread)
+    pad = (-vecs % (seg * maxv)) * (gs // vecs)
+    if idle is not None and pad:
+        x2 = np.concatenate([x2, np.full((len(x2), pad), idle, F32)], axis=1)
     with np.errstate(all="ignore"):
         if asym:
             lo = x2.min(axis=1, keepdims=True)
@@ -222,6 +261,7 @@ def model_q3(x, gs: int, n_bits: int, asym: bool, eps: float,
         else:
             rng = np.abs(x2).max(axis=1, keepdims=True)
             inv = F32(Q.inv(q_max))
+        x2 = x2[:, :gs]
         c = rx(np.where(np.isnan(rng), rng, np.maximum(rng, F32(eps))), bf16)
         s = rx(c * inv, bf16)
         q = np.rint(rx(x2 / s, bf16))
@@ -267,7 +307,9 @@ def adversarial(grid, bf16: bool, seed: int, gs: int = 128,
     that its scale rounds to 0 where the product with ``1 / max|grid|``
     can (a float32 product below half that subnormal; the bfloat16 one
     where the scale is rounded to x's dtype) and ``+0 / scale`` is
-    NaN."""
+    NaN; and a group of a dozen magnitudes all strictly negative, and one
+    all strictly positive (no +-0), whose min and max no zero may enter.
+    Every part fills whole groups of ``gs``."""
     g = np.asarray(grid, F32)
     gmax = F32(np.abs(g).max())
     lead = [gmax, -gmax] if lead is None else lead
@@ -281,12 +323,14 @@ def adversarial(grid, bf16: bool, seed: int, gs: int = 128,
     sub = F32(2.0 ** -133 if bf16 else 2.0 ** -149)
     mag = np.abs(normals[:1024])
     zeros = np.array([0.0, -0.0, np.nan], F32)
-    parts = [normals, _groups(exact, lead, gs),
+    signed = rx(gmax * np.linspace(0.05, 0.95, 12, dtype=F32), bf16)
+    parts = [normals[:len(normals) // gs * gs], _groups(exact, lead, gs),
              _groups(np.concatenate([wild, exact]), [], gs),
              _groups(wild[::-1], [], gs), _groups(tiny, [], gs),
              _groups(np.array([sub, -sub, 0.0, -0.0], F32), [], gs),
              _groups(np.concatenate([-mag, zeros, [sub]]), [sub], gs),
-             _groups(np.concatenate([mag, zeros, [-sub]]), [-sub], gs)]
+             _groups(np.concatenate([mag, zeros, [-sub]]), [-sub], gs),
+             _groups(-signed, [], gs), _groups(signed[::-1], [], gs)]
     out = np.concatenate(parts).astype(F32)
     return np.resize(out, -(-len(out) // 1024) * 1024)     # whole rows
 
@@ -498,20 +542,96 @@ def test_model_q2_equals_pack_and_kv_index_codes(fmt, bf16, rule):
     assert_bits_equal(ms, scales.numpy().reshape(-1), f"kv {fmt}")
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+#: (bf16, group, granularity) of the Q3 model tests: the first two take
+#: groups of 128 and rows of 1,024 (their ids keep the tests' first
+#: names); then the group sizes that Q3's layout tells apart (q3_layout:
+#: 3 and 5 vectors over 4 and 8 lanes, 8 to 32 vectors, a warp, blocks of
+#: 2 to 18 warps, some with idle lanes)
+Q3_LAYOUTS = ([(False, None, None), (True, None, None)]
+              + [(True, g, "per_group") for g in (24, 40, 64, 256)]
+              + [(False, g, "per_group") for g in (12, 64)]
+              + [(b, g, "per_token") for b in (False, True)
+                 for g in (1920, 4096, 9216)])
+Q3_LAYOUT_IDS = [("bf16" if b else "f32")
+                 + ("" if g is None else f"-{gran[4]}{g}")
+                 for b, g, gran in Q3_LAYOUTS]
+
+
+def _int_grid(n_bits: int) -> np.ndarray:
+    q_max = F32(2 ** (n_bits - 1) - 1)
+    return np.arange(-q_max - 1, q_max + 1, dtype=F32)
+
+
+@pytest.mark.parametrize("bf16,gs,gran", Q3_LAYOUTS, ids=Q3_LAYOUT_IDS)
 @pytest.mark.parametrize("asym", [False, True], ids=["sym", "asym"])
 @pytest.mark.parametrize("n_bits", [4, 6, 8])
-def test_model_q3_equals_fake_quant_int(n_bits, asym, bf16):
-    q_max = F32(2 ** (n_bits - 1) - 1)
-    grid = np.arange(-q_max - 1, q_max + 1, dtype=F32)
-    x = adversarial(grid, bf16, seed=8 + n_bits)
+def test_model_q3_equals_fake_quant_int(n_bits, asym, bf16, gs, gran):
     fn = Q.fake_quant_int_asym_ref if asym else Q.fake_quant_int_sym_ref
-    for gs, gran in ((128, "per_group"), (1024, "per_token")):
-        xs = x[:len(x) // gs * gs]
-        xt = _torch(xs, bf16).reshape(-1, gs if gran == "per_token" else 256)
-        plain = fn(xt, n_bits, granularity=gran, group_size=128)
-        assert_bits_equal(model_q3(xs, gs, n_bits, asym, 1e-5, bf16),
-                          _f32(plain), f"{gran}")
+    cases = (((128, "per_group"), (1024, "per_token")) if gs is None
+             else ((gs, gran),))
+    x = adversarial(_int_grid(n_bits), bf16, seed=8 + n_bits,
+                    gs=128 if gs is None else gs)
+    for g, gr in cases:
+        xs = x[:len(x) // g * g]
+        rows = _torch(xs, bf16).reshape(-1, 2 * g if g == 128 else g)
+        plain = fn(rows, n_bits, granularity=gr, group_size=g)
+        assert_bits_equal(model_q3(xs, g, n_bits, asym, 1e-5, bf16),
+                          _f32(plain), f"{gr} {g}")
+
+
+#: (bf16, group, vectors a thread) of Q3's layouts with slots past a
+#: group's vectors (3 vectors over 4 lanes, 5 over 8, rows of 1,920 over
+#: 256 or 512 slots: f32 only at 4 vectors a thread, which the kernel
+#: takes from 1,056 rows up)
+Q3_IDLE = [(True, 24, None), (True, 40, None), (False, 12, None),
+           (True, 1920, 1), (True, 1920, 4), (False, 1920, 4)]
+
+
+@pytest.mark.parametrize("bf16,gs,per_thread", Q3_IDLE,
+                         ids=["bf16-g24", "bf16-g40", "f32-g12",
+                              "bf16-t1920-spread", "bf16-t1920", "f32-t1920"])
+def test_model_q3_idle_lanes_take_identities(bf16, gs, per_thread):
+    """Layouts with slots past a group's vectors (``Q3_IDLE``): the
+    asymmetric model whose idle slots add nothing equals the plain
+    version; the same model with load_vecs' +0 in those slots differs,
+    and exactly on the groups of one strict sign, among them
+    ``adversarial``'s all-negative and all-positive groups."""
+    vecs, seg, maxv = q3_layout(gs, bf16, per_thread=per_thread)
+    assert -vecs % (seg * maxv)                 # the layout has idle slots
+    x = adversarial(_int_grid(4), bf16, seed=20, gs=gs)
+    x = x[:len(x) // gs * gs]
+    plain = _f32(Q.fake_quant_int_asym_ref(_torch(x, bf16).reshape(-1, gs),
+                                           4, granularity="per_token"))
+    assert_bits_equal(model_q3(x, gs, 4, True, 1e-5, bf16,
+                               per_thread=per_thread), plain, "idle")
+    zero = model_q3(x, gs, 4, True, 1e-5, bf16, idle=0.0,
+                    per_thread=per_thread)
+    same = (zero.view(np.uint32) == plain.view(np.uint32)) | (
+        np.isnan(zero) & np.isnan(plain))          # NaN against NaN
+    diff = ~np.all(same.reshape(-1, gs), axis=1)
+    g = x.reshape(-1, gs)
+    neg, pos = np.all(g < 0, axis=1), np.all(g > 0, axis=1)
+    assert np.array_equal(diff, neg | pos)
+    assert neg.any() and pos.any()
+
+
+def test_q3_layout_spreads_few_groups():
+    """The kernel's dispatch (``q3_layout``, its threshold read from
+    ``csrc/fake_quant_int.cu``): a row of 1,024 bf16 takes a warp at 4
+    vectors a lane from 4,224 rows up (d16's last scale, 4,096 rows,
+    spreads), one of 4,096 bf16 from 1,056 rows up; fewer rows spread
+    over one vector a thread (4 and 16 warps a row); rows past 1,024
+    vectors (9,216 bf16) and groups of 32 vectors or fewer never do."""
+    src = (Path(QK.__file__).parents[1] / "csrc"
+           / "fake_quant_int.cu").read_text()
+    assert ("constexpr long long kSpreadThreads = 132LL * 1024;" in src
+            and Q3_SPREAD_THREADS == 132 * 1024)
+    assert q3_layout(1024, True, 4224) == (128, 32, 4)
+    assert q3_layout(1024, True, 4096) == (128, 128, 1)
+    assert q3_layout(4096, True, 1056) == (512, 128, 4)
+    assert q3_layout(4096, True, 1024) == (512, 512, 1)
+    assert q3_layout(9216, True, 16) == (1152, 288, 4)      # past 1,024
+    assert q3_layout(128, True, 1) == q3_layout(128, True, 10 ** 6)
 
 
 # ---------------------------------------------------------------------------
