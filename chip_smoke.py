@@ -211,7 +211,18 @@ non-zero:
    eager
    ``GenerationServer`` over the CLI's trees.
 
-The phases run in the order 1-6, 10, 7-9, 11, 12, 13, 14, 15, 16.  Phases 4-6 and the
+17. the capacity study: ``tools/capacity_study.main`` at VAR-d16 full
+   width and depth (``bf16`` and ``int8kv``, batches 8 and 16, 2 rounds):
+   four probe children, each a fresh process that builds its mode's tree
+   on the card, warms up and captures a fused generator and times its
+   replays; each child's eager warm-up launches exactly none under
+   ``bf16`` and K4 480 + K3 320 + Q2 480 under ``int8kv`` (its capture
+   as many), its images are finite, and the study prints both modes'
+   lines and the summary line; prints each child's img/s, peak
+   allocated and reserved bytes, weight and KV-cache bytes and the graph
+   pool's bytes, and the phase's seconds.
+
+The phases run in the order 1-6, 10, 7-9, 11, 12, 13, 14, 15, 16, 17.  Phases 4-6 and the
 launch gates of phases 7 and 9 run the eager loop (``fuse_steps=False``),
 whose every launch the wrappers' host counters see.
 
@@ -4377,6 +4388,75 @@ def phase_cli(card: str) -> tuple:
     return latency, served
 
 
+#: phase 17: the capacity study at VAR-d16, two modes at batches 8 and
+#: 16, two rounds: four probe children
+CAPACITY_FLAGS = ["--preset", "d16", "--modes", "bf16,int8kv", "--start",
+                  "8", "--cap", "16", "--rounds", "2"]
+#: one eager d16 generation's launches per mode (160 block forwards:
+#: int8kv's qkv, proj and fc1 through K4, fc2's two dual-grid halves
+#: through K3 on Q2's codes, and Q2 encoding each block's new K and V)
+CAPACITY_LAUNCHES = {"bf16": {}, "int8kv": {"K4": 480, "K3": 320,
+                                            "Q2": 480}}
+
+
+def phase_capacity(card: str) -> dict:
+    """Phase 17: ``tools/capacity_study.main`` (``CAPACITY_FLAGS``), each
+    probe a fresh process.  Returns the port kernels' launches summed over
+    the children's eager warm-ups (each child's counters start at 0)."""
+    import contextlib
+    import gc
+    import io
+
+    from fpqvar_tpu_torch.tools import capacity_study as CS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = CS.main(CAPACITY_FLAGS)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(l) for l in buf.getvalue().splitlines()]
+    modes = list(CAPACITY_LAUNCHES)
+    if [l.get("mode") for l in lines[:2]] != modes or len(lines) != 3 \
+            or set(lines[2]) != {"metric", "value", "unit", "vs_baseline"}:
+        fail(f"capacity: the study printed {lines}")
+    totals = dict.fromkeys(COUNTERS, 0)
+    for mode, line in zip(modes, lines):
+        if line["curve"].keys() != {"8", "16"}:
+            fail(f"capacity: {mode} curve {line}")
+        for b in (8, 16):
+            rec = out["probes"][mode][str(b)]
+            # the tool's counters: K1-K5 and Q1-Q3 (K6 and K7 run only in
+            # the rate probe)
+            want = {k: CAPACITY_LAUNCHES[mode].get(k, 0)
+                    for k in rec["warmup_launches"]}
+            for when in ("warmup", "capture"):
+                if rec[when + "_launches"] != want:
+                    fail(f"capacity: {mode} batch {b} {when} launched "
+                         f"{rec[when + '_launches']}, expected {want}")
+            if not rec["images_finite"] or rec["image_shape"] != [
+                    b, 3, 256, 256]:
+                fail(f"capacity: {mode} batch {b} images "
+                     f"{rec['image_shape']}, finite {rec['images_finite']}")
+            for k, v in rec["warmup_launches"].items():
+                totals[k] += v
+            seen = {k: v for k, v in rec["warmup_launches"].items() if v}
+            print(f"capacity: d16 {mode} batch {b}: {rec['ips']:.3f} img/s "
+                  f"(median of {rec['rounds']} replays "
+                  f"{rec['median_s'] * 1e3:.1f} ms); peak allocated "
+                  f"{rec['max_memory_allocated']} bytes, reserved "
+                  f"{rec['max_memory_reserved']}; weights "
+                  f"{rec['weight_bytes']}, KV cache {rec['cache_bytes']}; "
+                  f"graph pool {rec['pool_bytes']}; warm-up "
+                  f"{rec['warmup_s']:.2f} s, capture {rec['capture_s']:.2f} "
+                  f"s; warm-up launches {seen or 'none'}; on {card}")
+    for l in lines:
+        print("capacity: " + json.dumps(l))
+    print(f"capacity: four probe children in {wall:.1f} s")
+    return totals
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4462,6 +4542,8 @@ def main():
     done("distributed")
     latency_launches, serve_launches = phase_cli(card)
     done("cli (phase 16)")
+    capacity_launches = phase_capacity(card)
+    done("capacity study (phase 17)")
     src = "fpqvar_tpu_torch/csrc/"
     kernels = {"kernels": [
         # K1 runs on the main path only at fc2 (int8's dual grid)
@@ -4527,6 +4609,8 @@ def main():
         # each served batch's replay)
         row["latency_launches"] = latency_launches[kern]
         row["serve_launches"] = serve_launches.get(kern, 0)
+        # phase 17: the capacity study's children, their eager warm-ups
+        row["capacity_launches"] = capacity_launches[kern]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps(kernels))

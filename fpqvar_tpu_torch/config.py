@@ -104,6 +104,24 @@ def var_tiny() -> VARConfig:
     )
 
 
+#: activation and weight format names: the grids of ``ops/grids.py``, the
+#: fc2 dual-grid and shift formats, the INT and log2 quantizers, and
+#: ``bf16`` (no activation quantization, weights only: W4A16)
+FORMATS = (
+    "fp_e1", "fp_e2", "fp_e3",                  # fp4 e1m2 / e2m1 / e3m0
+    "fp6_e2m3", "fp6_e3m2",                     # fp6
+    "fp_e1m2_neg_e2m1_pos",                     # fc2 dual-grid fp4
+    "fp_neg_reverse_quant",                     # fc2 shift-negative trick
+    "fp4_afpq",                                 # AFPQ dual-scale baseline
+    "fp6_int_neg_e2m3_pos",                     # fc2 dual-grid fp6
+    "fp8_e4m3",
+    "int_sym", "int_asym", "log2",
+    "bf16",
+)
+
+GRANULARITIES = ("per_token", "per_tensor", "per_group", "per_channel")
+
+
 @dataclass(frozen=True)
 class QuantConfig:
     """One quantization recipe.  ``enabled=False`` is the bf16 baseline."""

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from fpqvar_tpu_torch.config import VQVAEConfig
 from fpqvar_tpu_torch.ops.precision import conv2d_plain
-from fpqvar_tpu_torch.ops.resize import resize2d
+from fpqvar_tpu_torch.ops.resize import resize2d, upsample2x_nearest
 
 
 def conv2d(x: torch.Tensor, p, stride: int = 1, padding: int = 1):
@@ -66,8 +66,7 @@ def downsample2x(x: torch.Tensor, p) -> torch.Tensor:
 
 
 def upsample2x(x: torch.Tensor, p) -> torch.Tensor:
-    x = x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
-    return conv2d(x, p)
+    return conv2d(upsample2x_nearest(x), p)
 
 
 def encoder_forward(params, cfg: VQVAEConfig, x: torch.Tensor) -> torch.Tensor:

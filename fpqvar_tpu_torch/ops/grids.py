@@ -67,3 +67,11 @@ DUAL_GRIDS = {
 def grid_midpoints(name: str) -> np.ndarray:
     g = GRIDS[name]
     return ((g[1:] + g[:-1]) / 2.0).astype(np.float32)
+
+
+def int_grid(n_bits: int, symmetric: bool = True) -> np.ndarray:
+    """The integer grid of an ``n_bits`` INT format: ``[-q_max, q_max]``,
+    or ``[-q_max - 1, q_max]`` where it is not symmetric."""
+    q_max = 2 ** (n_bits - 1) - 1
+    q_min = -q_max if symmetric else -q_max - 1
+    return np.arange(q_min, q_max + 1, dtype=np.float32)

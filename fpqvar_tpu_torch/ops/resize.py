@@ -1,7 +1,8 @@
 """Image resizing with torch ``F.interpolate`` semantics as separable
 matrices (bicubic A = -0.75 with edge-clamped taps, and ``area``), built in
 numpy once per size pair and applied with two ``einsum``s — the same
-operators as the JAX package's ``ops/resize.py``."""
+operators as the JAX package's ``ops/resize.py``; and the nearest 2x
+upsampling of the VQVAE decoder."""
 from __future__ import annotations
 
 from functools import lru_cache
@@ -72,3 +73,9 @@ def resize2d(x: torch.Tensor, out_hw: tuple, mode: str) -> torch.Tensor:
     mw = _matrix(mode, w, ow, x.device, x.dtype)
     y = torch.einsum("oh,...hw->...ow", mh, x)
     return torch.einsum("pw,...ow->...op", mw, y)
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """``[..., H, W]`` -> ``[..., 2H, 2W]``, nearest: each value repeated
+    twice along both axes (the VQVAE decoder's upsampling)."""
+    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)

@@ -1575,3 +1575,85 @@ def test_cuda_generation_with_quantizer_kernels_equals_plain(cuda_device,
     assert len(toks) == cfg.num_scales
     assert all(torch.equal(a, b) for a, b in zip(toks, toks_plain))
     assert torch.equal(img, img_plain)
+
+
+# ---------------------------------------------------------------------------
+# The capacity study (tools/capacity_study.py)
+# ---------------------------------------------------------------------------
+
+#: rows of a d36-512 batch-64 linear at the last scale: 2 * 64 * 32^2
+D36_B64_ROWS = 2 * 64 * 1024
+
+
+@pytest.mark.cuda
+def test_cuda_capacity_probe_child_d16_int8kv(cuda_device):
+    """One probe child (a fresh process) at VAR-d16 under ``int8kv``,
+    batch 8: its eager warm-up launches exactly K4 480 + K3 320 + Q2 480
+    and nothing else, the capture as many, the images are finite and the
+    memory readings are there."""
+    from fpqvar_tpu_torch.tools import capacity_study as CS
+
+    r = CS.probe("d16", "int8kv", 8, 1, 900, "cuda")
+    assert r["ok"], r
+    rec = r["record"]
+    want = {"K4": 480, "K3": 320, "Q2": 480}
+    assert rec["warmup_launches"] == {k: want.get(k, 0)
+                                      for k in rec["warmup_launches"]}
+    assert rec["capture_launches"] == rec["warmup_launches"]
+    assert rec["images_finite"] and rec["image_shape"] == [8, 3, 256, 256]
+    assert rec["ips"] > 0 and rec["pool_bytes"] > 0
+    assert rec["max_memory_allocated"] >= rec["static_bytes"] > 0
+
+
+def _big_rows(k: int, seed: int) -> torch.Tensor:
+    """``[D36_B64_ROWS, k]`` bf16 normals with a few rows scaled apart,
+    drawn on the card."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn((D36_B64_ROWS, k), generator=g, device="cuda")
+    x[::977] *= 1e3
+    x[5::1013] *= 1e-3
+    return x.to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_q2_dual_per_token_at_d36_batch64_rows(cuda_device):
+    """Q2's dual per-token codes on ``[131072, 9216]`` (d36-512 fc2's input
+    at batch 64: 1.2e9 values, 2.4 GB) bit-equal to the plain version."""
+    fmt = "fp_e1m2_neg_e2m1_pos"
+    x = _big_rows(9216, 31)
+    got = P.quant_int_codes_dual(x, fmt, 9216)
+    torch.cuda.synchronize()
+    want = P.quant_int_codes_dual_ref(x, fmt, 9216)
+    assert _all_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gran", ["per_group", "per_token"])
+def test_cuda_q1_fp_grid_at_d36_batch64_rows(cuda_device, gran):
+    """Q1's fp_e2 grid on ``[131072, 2304]`` bit-equal to the plain
+    version."""
+    from fpqvar_tpu_torch.ops import quantizers as Q
+
+    x = _big_rows(2304, 32)
+    got = Q.fake_quant_fp(x, "fp_e2", granularity=gran)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, Q.fake_quant_fp_ref(x, "fp_e2",
+                                                granularity=gran))
+
+
+@pytest.mark.cuda
+def test_cuda_k3_at_d36_batch64_fc2(cuda_device):
+    """K3 at ``131072 x 9216 x 2304`` (d36-512 fc2 at batch 64, float32
+    out: 1.2 GB) ``torch.equal`` to its plain version."""
+    x = _big_rows(9216, 33)
+    ac, asc = P.quant_int_codes(x, "fp_e2", 9216)
+    del x
+    w = torch.randn((2304, 9216), device="cuda") * 0.02
+    pw = P.pack_int_codes(w, "fp_e2", 9216)
+    before = K.ch_launches
+    ours = K.int8ch_gemm(ac, asc, pw.codes, pw.scales, torch.float32)
+    torch.cuda.synchronize()
+    assert K.ch_launches == before + 1
+    assert torch.equal(ours, K.int8ch_gemm_ref(ac, asc, pw.codes, pw.scales,
+                                               torch.float32))

@@ -224,7 +224,8 @@ def test_port_import_leaves_jax_unloaded():
             "fpqvar_tpu_torch.tools.evaluate, fpqvar_tpu_torch.tools.score, "
             "fpqvar_tpu_torch.tools.quality_ladder, "
             "fpqvar_tpu_torch.tools.baseline_study, "
-            "fpqvar_tpu_torch.tools.conv_route_probe; "
+            "fpqvar_tpu_torch.tools.conv_route_probe, "
+            "fpqvar_tpu_torch.tools.capacity_study; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'fpqvar_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
