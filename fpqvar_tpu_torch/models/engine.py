@@ -15,6 +15,14 @@ Two modes, as the JAX package's engine has:
   in the eager loop, and the images are the eager loop's, bit for bit.
   On the CPU the same static-buffer code runs without capture.
 
+Every mode launches the stage marker (``ops/stage_mark.py``) at the start
+of each scale and once after the last, so a device trace splits a replay
+by scale.  A fused call records the spans ``engine.generate`` and, inside
+it, ``engine.draw`` (the labels and the noise into the static buffers),
+``engine.launch`` (the graphs' replays, or on the CPU the generation) and
+``engine.copy`` (the output's copy), while a profiler runs
+(``utils/logging.py`` ``span``).
+
 Under a ``{dp, tp}`` mesh (``mesh=``, ``parallel/mesh.py``; the eager loop
 only) each rank holds its shards of the params tree (``shard_params``):
 dp splits the labels, each rank doubling its own rows for classifier-free
@@ -39,8 +47,10 @@ from fpqvar_tpu_torch.config import GenerateConfig, QuantConfig, VARConfig
 from fpqvar_tpu_torch.models import var as V
 from fpqvar_tpu_torch.models import vqvae as vq
 from fpqvar_tpu_torch.models.sampling import Generators, noise_plan
+from fpqvar_tpu_torch.ops.stage_mark import stage_mark
 from fpqvar_tpu_torch.parallel import collectives as C
 from fpqvar_tpu_torch.quantize.runtime import QuantRuntime, build_runtime
+from fpqvar_tpu_torch.utils.logging import span
 
 
 @dataclass
@@ -115,8 +125,6 @@ class VARGenerator:
         self.fuse_steps = fuse_steps
         #: batch size -> its static buffers and graphs
         self._fused = {}
-        #: number of graph captures made (two graphs each)
-        self.captures = 0
 
     def init_cache(self, batch: int) -> dict:
         """The KV cache of a ``batch``-label generation (CFG doubles the
@@ -171,20 +179,25 @@ class VARGenerator:
             f_hat = self._steps(params, vae_params["quantize"], label_B,
                                 generator=generator)
             return f_hat if return_fhat else self._decode(vae_params, f_hat)
-        fz = self._entry(b, params, vae_params)
-        fz.labels.copy_(label_B)
-        self._draw(b, generator, fz.noise)
-        if not fz.graphs:
-            f_hat = self._steps(params, vae_params["quantize"], fz.labels,
-                                noise=fz.noise)
-            out = f_hat if return_fhat else self._decode(vae_params, f_hat)
-            return out.clone()
-        steps, decode = fz.graphs
-        steps.replay()
-        if return_fhat:
-            return fz.f_hat.clone()
-        decode.replay()
-        return fz.images.clone()
+        with span("engine.generate", batch=b):
+            fz = self._entry(b, params, vae_params)
+            with span("engine.draw"):
+                fz.labels.copy_(label_B)
+                self._draw(b, generator, fz.noise)
+            with span("engine.launch"):
+                if fz.graphs:
+                    steps, decode = fz.graphs
+                    steps.replay()
+                    if not return_fhat:
+                        decode.replay()
+                    out = fz.f_hat if return_fhat else fz.images
+                else:
+                    f_hat = self._steps(params, vae_params["quantize"],
+                                        fz.labels, noise=fz.noise)
+                    out = (f_hat if return_fhat
+                           else self._decode(vae_params, f_hat))
+            with span("engine.copy"):
+                return out.clone()
 
     def capture_stats(self, batch: int) -> dict:
         """What the capture of ``batch``'s graphs cost: ``warmup_s`` (the
@@ -235,12 +248,14 @@ class VARGenerator:
         f_hat = torch.zeros((b, cfg.vae.z_channels, hw, hw),
                             dtype=torch.float32, device=self.device)
         for st in self.statics:
+            stage_mark(st.si, self.device)
             x, f_hat = V.scale_step(params, vae_q, cfg, self.qrt, self.gen,
                                     st, x, cond_BD, mod, lvl_pos, cache,
                                     f_hat, generator,
                                     None if noise is None else noise[st.si])
             if x is not None:
                 x = x.to(self.compute_dtype)
+        stage_mark(len(self.statics), self.device)
         return f_hat
 
     def _decode(self, vae_params, f_hat):
@@ -302,7 +317,6 @@ class VARGenerator:
                               capture_error_mode="thread_local"):
             fz.images = self._decode(fz.vae_params, fz.f_hat)
         fz.graphs = (steps, decode)
-        self.captures += 1
         fz.stats = {"warmup_s": t1 - t0,
                     "capture_s": time.perf_counter() - t1,
                     "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}

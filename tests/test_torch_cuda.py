@@ -736,6 +736,13 @@ def test_cuda_fused_generation_equals_eager(cuda_device):
     qp = build()
     eager = VARGenerator(cfg, q, device=cuda_device, fuse_steps=False)
     fused = VARGenerator(cfg, q, qrt=eager.qrt, device=cuda_device)
+    captures, capture = [], fused._capture
+
+    def counted(fz):
+        captures.append(fz.labels.shape[0])
+        return capture(fz)
+
+    fused._capture = counted
 
     def gens(seeds):
         out = [torch.Generator(device=cuda_device).manual_seed(s)
@@ -748,12 +755,59 @@ def test_cuda_fused_generation_equals_eager(cuda_device):
         params = qp if i < 2 else build()          # the third: a new tree
         want = eager.generate(params, vae, labels, gens(seeds))
         outs.append((fused.generate(params, vae, labels, gens(seeds)), want))
-        assert fused.captures == (1 if i < 2 else 2), i
+        assert len(captures) == (1 if i < 2 else 2), i
     # read after every call: a later replay leaves an earlier result alone
     for i, (got, want) in enumerate(outs):
         assert torch.equal(got, want), i
     stats = fused.capture_stats(3)
     assert stats["capture_s"] > 0 and stats["pool_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_stage_marks_split_each_replay(cuda_device):
+    """Each replay of a fused generation's steps graph runs the stage
+    marker at the start of each scale and once after the last, as kernels
+    of that graph launch (one correlation id), the last marker its last
+    kernel; and the replay's first kernel starts no earlier than the
+    ``engine.launch`` span that launched it (host spans and device events
+    on the profiler's one clock)."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fpqvar_tpu_torch.models import VARGenerator
+    from fpqvar_tpu_torch.ops.stage_mark import STAGE_MARK_KERNEL
+    from fpqvar_tpu_torch.utils.logging import clear_spans, spans
+
+    cfg, q, _, vae, build = _small_int8(cuda_device)
+    qp = build()
+    gen = VARGenerator(cfg, q, device=cuda_device)
+    for _ in range(2):                  # the capture, then the first upload
+        gen.generate(qp, vae, [3, 5, 7])
+    torch.cuda.synchronize()
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(256):            # the profiler drops a window's first
+            torch.cuda._sleep(1000)     # kernel records
+        for _ in range(3):
+            gen.generate(qp, vae, [3, 5, 7])
+        torch.cuda.synchronize()
+    by = defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.name()):
+            by[e.correlation_id()].append((e.name(), e.start_ns()))
+    steps = sorted((sorted(g, key=lambda e: e[1]) for g in by.values()
+                    if any(STAGE_MARK_KERNEL in n for n, _ in g)),
+                   key=lambda g: g[0][1])
+    launches = sorted((s for s in spans() if s.name == "engine.launch"),
+                      key=lambda s: s.start_ns)
+    assert len(steps) == len(launches) == 3
+    for g, sp in zip(steps, launches):
+        marks = [i for i, (n, _) in enumerate(g) if STAGE_MARK_KERNEL in n]
+        assert len(marks) == len(cfg.patch_nums) + 1
+        assert marks[-1] == len(g) - 1 and marks[0] > 0
+        assert g[0][1] >= sp.start_ns
 
 
 @pytest.mark.cuda

@@ -4,18 +4,19 @@ here without a card.
 ``chip_smoke.py`` is read with ``ast`` (not imported): its tables
 ``KERNEL_SOURCES`` (what phase 2 builds), ``WGMMA_SOURCES`` (the GEMM
 sources, whose SASS must hold a warpgroup MMA), ``QUANT_SOURCES`` (the
-quantizers Q1-Q3, which run no GEMM) and ``PORT_KERNELS`` (the profiler's
+quantizers Q1-Q3, which run no GEMM), ``TRACE_SOURCES`` (the stage marker,
+which computes nothing) and ``PORT_KERNELS`` (the profiler's
 keys, parts of kernel names, by which phase 6 counts each kernel's
 launches) are held against ``fpqvar_tpu_torch/csrc/``:
 
 - every ``csrc/*.cu`` is built, and every name built has a source;
 - every ``#include "...cuh"`` names a header of ``csrc/``, and every header
   is reached from some source, so no orphan header is left;
-- every source is in exactly one of ``WGMMA_SOURCES`` and
-  ``QUANT_SOURCES``; every GEMM source runs on ``wgmma`` (reaches
-  ``wgmma_gemm.cuh``), every quantizer reaches ``grid_snap.cuh`` and no
-  GEMM, and the first slices' ``mma.sync`` tile loop ``int8_mma.cuh`` is
-  gone;
+- every source is in exactly one of ``WGMMA_SOURCES``,
+  ``QUANT_SOURCES`` and ``TRACE_SOURCES``; every GEMM source runs on
+  ``wgmma`` (reaches ``wgmma_gemm.cuh``), every quantizer reaches
+  ``grid_snap.cuh`` and no GEMM, the marker reaches no header of either,
+  and the first slices' ``mma.sync`` tile loop ``int8_mma.cuh`` is gone;
 - no profiler key is a part of another label's key, and each key is a
   part of exactly one kernel or epilogue name defined in ``csrc/``: itself
   (one kernel sharing another's wgmma instantiation must give its
@@ -29,8 +30,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "fpqvar_tpu_torch" / "csrc"
-TABLES = ("KERNEL_SOURCES", "WGMMA_SOURCES", "QUANT_SOURCES", "K4_KERNELS",
-          "PORT_KERNELS")
+TABLES = ("KERNEL_SOURCES", "WGMMA_SOURCES", "QUANT_SOURCES",
+          "TRACE_SOURCES", "K4_KERNELS", "PORT_KERNELS")
 SOURCES = sorted(p.stem for p in CSRC.glob("*.cu"))
 HEADERS = sorted(p.name for p in CSRC.glob("*.cuh"))
 FILES = sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
@@ -104,12 +105,17 @@ def test_no_orphan_header(header):
 def test_every_source_but_the_probe_runs_on_wgmma():
     """Every GEMM source runs on ``wgmma``, the rate probe's K6 as well;
     every other source is a quantizer of ``QUANT_SOURCES`` (a group over
-    the lanes it needs, on ``grid_snap.cuh``, no GEMM), and each source
-    is in exactly one of the two tables."""
+    the lanes it needs, on ``grid_snap.cuh``, no GEMM) or the stage marker
+    of ``TRACE_SOURCES`` (neither), and each source is in exactly one of
+    the three tables."""
     wgmma = _tables()["WGMMA_SOURCES"]
     quant = _tables()["QUANT_SOURCES"]
-    assert not set(wgmma) & set(quant)
-    assert set(wgmma) | set(quant) == set(SOURCES)
+    trace = _tables()["TRACE_SOURCES"]
+    assert not (set(wgmma) & set(quant) or set(wgmma) & set(trace)
+                or set(quant) & set(trace))
+    assert set(wgmma) | set(quant) | set(trace) == set(SOURCES)
+    for src in trace:
+        assert not {"wgmma_gemm.cuh", "grid_snap.cuh"} & _reached(src), src
     assert set(wgmma.values()) <= {"HGMMA", "IGMMA"}
     assert wgmma["int8_probe_gemm"] == "IGMMA"
     for src in wgmma:

@@ -45,6 +45,8 @@ JAX_ONLY = {
     "ops/packing.py": {"Array": "a jax.Array alias"},
     "ops/quantizers.py": {"Array": "a jax.Array alias"},
     "quantize/baselines.py": {"Array": "a jax.Array alias"},
+    "utils/logging.py": {"Timer": "a stage timer nothing read; the port "
+                                  "records spans on the profiler's clock"},
     "parallel/mesh.py": {n: "an XLA sharding spec; the port splits "
                             "tensors by rank" for n in
                          ("act_sharding", "kv_cache_shardings",

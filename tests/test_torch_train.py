@@ -62,7 +62,7 @@ from fpqvar_tpu_torch.train import resume as R
 from fpqvar_tpu_torch.train import trainer as T
 from fpqvar_tpu_torch.utils.bridge import to_torch
 from fpqvar_tpu_torch.utils.logging import (MetricLogger, SmoothedValue,
-                                            Timer, profile_trace)
+                                            profile_trace, span)
 from torch_mesh_worker import run_cli_ranks
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -381,14 +381,21 @@ def test_metric_logger_jsonl(tmp_path):
 
 
 def test_profile_trace_and_timer(tmp_path):
-    timer = Timer()
-    with timer.stage("matmul"), profile_trace(str(tmp_path / "prof")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+    """A program span opened inside ``profile_trace`` shows in its Chrome
+    trace, over the operations it holds."""
+    with profile_trace(str(tmp_path / "prof")):
+        with span("program.matmul"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
-    assert trace["traceEvents"]
-    assert timer.stages["matmul"] > 0.0
+    events = trace["traceEvents"]
+    marked = [e for e in events if e.get("name") == "program.matmul"]
+    assert len(marked) == 1 and marked[0]["dur"] > 0
+    t0, t1 = marked[0]["ts"], marked[0]["ts"] + marked[0]["dur"]
+    mm = [e for e in events if e.get("name") in ("aten::mm", "aten::matmul")]
+    assert mm and all(t0 <= e["ts"] <= t1 for e in mm)
     with profile_trace(None):                       # a no-op
-        pass
+        with span("program.off") as sp:
+            assert not sp
 
 
 def test_train_cli_runs_and_resumes(tmp_path, capsys):
