@@ -8,14 +8,15 @@ non-zero:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
    limit from nvidia-smi and turns TF32 off for float32 matmuls and convs;
-2. build: compiles the port's CUDA kernels K1 to K7 and the quantizers
-   Q1 to Q3 from ``fpqvar_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
-   source, all started together,
+2. build: compiles the port's CUDA kernels K1 to K7, the quantizers
+   Q1 to Q3 and the attention A1 from ``fpqvar_tpu_torch/csrc`` with nvcc
+   for sm_90a, one nvcc per source, all started together,
    prints each kernel's build time, registers and spills, and counts the
    warpgroup MMA instructions (``HGMMA``, ``IGMMA``) in each library's SASS
    (``cuobjdump -sass``): K2 and K7 must hold ``HGMMA``, K1, K3, K4, K5
    and K6 ``IGMMA``, and ptxas must not have serialized the wgmmas of any
-   of them (its "wgmma ... serialized" warning);
+   of them (its "wgmma ... serialized" warning); A1 must hold ``HMMA``
+   (``mma.sync``) and no ``HGMMA``;
 3. kernels: K1 (the grouped int8 GEMM), K2 (the dequantize-in-register
    GEMM over packed fp4 / fp6 codes), K3 (the full-K int8 GEMM with fused
    rescale), K4 (per-token quantize inside the full-K int8 GEMM), K5 (K1's
@@ -45,7 +46,14 @@ non-zero:
    pn**2``: symmetric ``[M, 1024]``, asymmetric ``[M, 4096]``), timed
    beside its bound, with 16 blocks times a scale set's four calls
    summed: the Q3 time of one generation, which phase 10 prints beside
-   the ``int4_rtn`` replay's;
+   the ``int4_rtn`` replay's; then A1 (attention over the packed KV
+   cache's value codes) against its plain chain within its tolerance at
+   each scale of a VAR-d36-512 batch-8 generation and at VAR-d30's last
+   scale at batch 32 (bf16 q; float32 q at three scales), one launch a
+   call, timed beside its bound, at the two last scales also the plain
+   chain, ``F.scaled_dot_product_attention`` on the decoded keys and
+   values (the yardstick) and 4 or 8 warps a block; the ten d36 scales'
+   sum for a generation; and its refusals on the card;
 4. small reference: small generations (width 256, so every grouped linear
    has more than one scale group) under ``int8``, ``bf16``, ``packed``,
    ``w4a16p``, W6A6 on the packed backend, ``fake``, ``int8ch``,
@@ -263,9 +271,13 @@ H100_BYTES = 3.35e12         # HBM3 bandwidth, H100 SXM
 KERNEL_SOURCES = ("int8_group_gemm", "packed_dequant_gemm", "int8ch_gemm",
                   "fused_ch_gemm", "int8_nd_gemm", "int8_probe_gemm",
                   "bf16_probe_gemm", "fake_quant_grid", "grid_codes",
-                  "fake_quant_int", "stage_mark")
+                  "fake_quant_int", "stage_mark", "packed_attention")
 #: the sources that compute nothing: the stage marker of a device trace
 TRACE_SOURCES = ("stage_mark",)
+#: the attention source (A1: its products on mma.sync, in registers
+#: between them; no GEMM pipeline, no quantizer) and the SASS instruction
+#: of its products
+ATTN_SOURCES = {"packed_attention": "HMMA"}
 #: the quantizer sources (no GEMM) and their kernels
 QUANT_SOURCES = {"fake_quant_grid": "Q1", "grid_codes": "Q2",
                  "fake_quant_int": "Q3"}
@@ -285,15 +297,16 @@ K4_KERNELS = {"a": "fused_ch_quantize_kernel", "b": "FusedChRescale"}
 #: wgmma instantiation's fold, K3 and K4 (b) one's rescale, each under a
 #: type name of its own), K2's wgmma kernel (bf16 x) and its mma.sync one
 #: (f32 x), K4's two kernels apart; the quantizers Q1 (one grid, dual
-#: grid), Q2 (one grid, dual grid) and Q3 by their kernels' names; no key
-#: is a part of another's
+#: grid), Q2 (one grid, dual grid) and Q3 and the attention A1 by their
+#: kernels' names; no key is a part of another's
 PORT_KERNELS = {"K1": ("GroupFold",),
                 "K2": ("rs_gemm_kernel", "packed_dequant_gemm_kernel"),
                 "K3": ("Int8ChRescale",), "K4 (a)": (K4_KERNELS["a"],),
                 "K4 (b)": (K4_KERNELS["b"],), "K5": ("NdGroupSum",),
                 "Q1": ("fake_grid_kernel", "fake_dual_kernel"),
                 "Q2": ("grid_codes_kernel", "dual_codes_kernel"),
-                "Q3": ("fake_int_kernel",)}
+                "Q3": ("fake_int_kernel",),
+                "A1": ("packed_attention_kernel",)}
 #: the block linears of the VAR-d16 teacher-forcing forward at batch 8, all
 #: L = 680 tokens of a row in one call: (name, M, K, N); M = 5440 = 42 *
 #: 128 + 64 ends in a half-filled row tile, and K5 takes it as [8, 680, K]
@@ -526,7 +539,7 @@ def phase_build():
         sass = subprocess.run([cuobjdump, "-sass", str(_build.build(name))],
                               capture_output=True, text=True,
                               check=True).stdout
-        return {op: sass.count(op) for op in ("HGMMA", "IGMMA")}
+        return {op: sass.count(op) for op in ("HGMMA", "IGMMA", "HMMA")}
 
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
     t0 = time.perf_counter()
@@ -554,6 +567,10 @@ def phase_build():
         if serial:
             fail(f"build: ptxas serialized the wgmmas of {name}: "
                  f"{serial[0]}")
+    for name, op in ATTN_SOURCES.items():
+        if counts[name][op] == 0 or counts[name]["HGMMA"]:
+            fail(f"build: {name} holds {counts[name]}: its products should "
+                 f"run on mma.sync ({op})")
 
 
 def _k1_operands(m, k, n, gen, group=128):
@@ -1311,6 +1328,190 @@ def phase_quant() -> dict:
     return rows
 
 
+#: A1's cases: (name, rows, heads, l, end, cache rows): each scale of
+#: VAR-d36-512 at batch 8 (16 rows with the guidance twins, 36 heads,
+#: the queries of the scale over every token so far, in a cache of L =
+#: 2,240) and VAR-d30's last scale at batch 32 (64 rows, 30 heads, 256
+#: queries over 680)
+ATTN_CASES = tuple(
+    [(f"d36-s{si}-pn{pn}", 16, 36, pn * pn,
+      sum(p * p for p in (1, 2, 3, 4, 6, 9, 13, 18, 24, 32)[:si + 1]), 2240)
+     for si, pn in enumerate((1, 2, 3, 4, 6, 9, 13, 18, 24, 32))]
+    + [("d30-last", 64, 30, 256, 680, 680)])
+#: the cases timed against the plain chain and the library, and those
+#: checked with float32 q (the float32 compute dtype) besides
+ATTN_TIMED = ("d36-s9-pn32", "d30-last")
+ATTN_F32 = ("d36-s0-pn1", "d36-s5-pn9", "d36-s8-pn24")
+#: the share of bf16 outputs A1 may move off the chain's: a kernel that
+#: rounds the weights before the division by the row sum moves 30-40%
+ATTN_MOVED = 0.01
+
+
+def _attn_operands(rows, heads, l, end, cache_rows, gen):
+    """A1's operands as a block forward hands them: q (float32) l2-normalised
+    per head and scaled by 1 to 30 (``scale_mul``), and the fp_e2 codes
+    and scales of l2-normalised keys and Gaussian values through the
+    ``int8kv`` codec (Q2), as rows ``[0, end)`` of cache leaves of
+    ``cache_rows`` tokens."""
+    from fpqvar_tpu_torch.quantize.runtime import make_kv_codec
+
+    hd = 64
+    q = torch.randn((rows, l, heads, hd), device="cuda", generator=gen)
+    hs = torch.exp(torch.rand(heads, device="cuda", generator=gen)
+                   * math.log(30.0))
+    q = (q / q.norm(dim=-1, keepdim=True) * hs.reshape(1, 1, heads, 1))
+    codec = make_kv_codec("fp_e2")
+    out = [q]
+    for is_k in (True, False):
+        t = torch.randn((rows, end, heads, hd), device="cuda",
+                        generator=gen)
+        if is_k:
+            t = t / t.norm(dim=-1, keepdim=True)
+        tc, ts = codec.encode(t.to(torch.bfloat16))
+        codes = torch.zeros((rows, heads, cache_rows, hd), dtype=torch.int8,
+                            device="cuda")
+        scales = torch.zeros((rows, heads, cache_rows), device="cuda")
+        codes[:, :, :end] = tc.transpose(1, 2)
+        scales[:, :, :end] = ts[..., 0].transpose(1, 2)
+        out += [codes[:, :, :end], scales[:, :, :end]]
+    q, kc, ks, vc, vs = out
+    return q, kc, ks, vc, vs
+
+
+def _attn_library(q, kc, ks, vc, vs):
+    """The yardstick: ``F.scaled_dot_product_attention`` on the decoded
+    bf16 keys and values (scale 1), which the port never calls."""
+    import torch.nn.functional as F
+
+    k = (kc.float() * ks[..., None]).to(torch.bfloat16)
+    v = (vc.float() * vs[..., None]).to(torch.bfloat16)
+    qt = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, k, v, scale=1.0)
+
+
+def _attn_check(name, ops):
+    """A1 against the plain chain within ``packed_attention.tolerance``,
+    and at bf16 equal to it on all but ``ATTN_MOVED`` of the outputs (the
+    weights round where the chain rounds them: an output differs only
+    where a float32 sum lands across a rounding point); one launch a call.
+    Returns (max abs err, worst err / tol, share of outputs that
+    differ)."""
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    before = PA.attn_launches
+    y = PA.packed_attention(*ops)
+    torch.cuda.synchronize()
+    if PA.attn_launches != before + 1:
+        fail(f"kernels: A1 {name}: {PA.attn_launches - before} launches in "
+             "one call")
+    ref = PA.packed_attention_ref(*ops)
+    tol = PA.tolerance(*ops)
+    err = (y.float() - ref.float()).abs()
+    if (y.dtype != ref.dtype or y.shape != ref.shape
+            or not bool(torch.isfinite(y).all()) or bool((err > tol).any())):
+        fail(f"kernels: A1 {name} {ops[0].dtype}: max err "
+             f"{float(err.max())} exceeds the tolerance (worst err/tol "
+             f"{float((err / tol.clamp_min(1e-30)).max()):.3g})")
+    moved = float((err > 0).double().mean())
+    if y.dtype == torch.bfloat16 and moved >= ATTN_MOVED:
+        fail(f"kernels: A1 {name}: {moved:.2%} of the outputs differ from "
+             f"the chain (under {ATTN_MOVED:.0%} where the weights round "
+             "as the chain rounds them)")
+    return float(err.max()), float((err / tol.clamp_min(1e-30)).max()), moved
+
+
+def phase_attention() -> dict:
+    """A1 (``ops/packed_attention.py``, ``csrc/packed_attention.cu``)
+    against the plain chain (``packed_attention_ref``) within
+    ``packed_attention.tolerance`` at every case of ``ATTN_CASES`` (bf16
+    q) and of ``ATTN_F32`` (float32 q), one launch a call; each case
+    timed (ms, and queued: device and host ms a call) beside its bound
+    (``max(bytes / HBM, 4 * rows * heads * l * end * 64 / bf16 peak)``,
+    each operand read once); at ``ATTN_TIMED`` the plain chain and the
+    library yardstick (``_attn_library``) besides; the sum over a
+    d36-512 generation's ten scales (36 blocks, per image of batch 8); and
+    the wrapper's refusals on the card (an ``attn_bias``, float16 q,
+    head_dim 32, codes of another layout).
+    Returns the rows and that sum."""
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    rows = []
+    for name, b, h, l, end, cache_rows in ATTN_CASES:
+        q32, *codes = _attn_operands(b, h, l, end, cache_rows, gen)
+        ops = (q32.to(torch.bfloat16), *codes)
+        err, worst, moved = _attn_check(name, ops)
+        f32 = None
+        if name in ATTN_F32:
+            f32 = _attn_check(name, (q32, *codes))
+        del q32, codes
+        run = lambda ops=ops: PA.packed_attention(*ops)   # noqa: E731
+        dev, host = queued_ms(run)
+        flops = 4 * b * h * l * end * 64
+        nbytes = 2 * b * l * h * 64 * 2 + 2 * b * h * end * (64 + 4)
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+        t_bytes = nbytes / H100_BYTES * 1e3
+        row = {"shape": name, "rows": b, "heads": h, "l": l, "end": end,
+               "warps": PA.warps_for(l), "max_abs_err": err,
+               "worst_err_over_tol": worst, "moved_share": moved,
+               "ms": cuda_ms(run),
+               "device_ms": dev, "host_ms": host,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "tflops": flops / dev * 1e-9}
+        if f32 is not None:
+            row["f32_max_abs_err"], row["f32_worst_err_over_tol"] = f32[:2]
+        if name in ATTN_TIMED:
+            row["plain_ms"] = cuda_ms(
+                lambda: PA.packed_attention_ref(*ops), reps=3)
+            row["library_ms"] = cuda_ms(_attn_library(*ops))
+        rows.append(row)
+        del ops
+        extra = ("" if "plain_ms" not in row else
+                 f"; plain chain {row['plain_ms']:.4f} ms, library (SDPA on "
+                 f"decoded bf16 k, v) {row['library_ms']:.4f} ms")
+        f32_part = ("" if f32 is None else
+                    f"; f32 q err/tol {f32[1]:.3f}")
+        print(f"kernels: A1 {name:12s} rows {b} heads {h} l {l} end {end} "
+              f"({row['warps']} warps): max err {err:.3e} (err/tol "
+              f"{worst:.3f} <= 1), {moved:.3%} of outputs off the chain's"
+              f"{f32_part}; kernel {row['ms']:.4f} ms "
+              f"(queued: device {dev:.4f} ms, host {host:.4f} ms a call), "
+              f"{row['tflops']:.1f} TFLOP/s, bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
+              f"{row['bound_ms'] / dev:.3f} of it{extra}")
+    d36 = [r for r in rows if r["shape"].startswith("d36")]
+    gen_ms = sum(r["device_ms"] for r in d36) * 36 / 8
+    bound_ms = sum(r["bound_ms"] for r in d36) * 36 / 8
+    print(f"kernels: A1 over a d36-512 generation (10 scales x 36 blocks, "
+          f"per image of batch 8): {gen_ms:.3f} ms of device time an image "
+          f"(bound {bound_ms:.3f} ms)")
+    q32, *codes = _attn_operands(2, 2, 4, 9, 16, gen)
+    ops = (q32.to(torch.bfloat16), *codes)
+    bad = {"attn_bias": (ops, {"attn_bias": torch.zeros(
+               (1, 1, 4, 9), device="cuda")}),
+           "float16": (((ops[0].half(),) + ops[1:]), {}),
+           "head_dim 32": ((ops[0][..., :32], ops[1][..., :32], ops[2],
+                            ops[3][..., :32], ops[4]), {}),
+           "codes layout": ((ops[0], ops[1].contiguous().transpose(1, 2)
+                             .contiguous().transpose(1, 2), ops[2],
+                             ops[3].contiguous().transpose(1, 2)
+                             .contiguous().transpose(1, 2), ops[4]), {})}
+    before = PA.attn_launches
+    for what, (args, kw) in bad.items():
+        try:
+            PA.packed_attention(*args, **kw)
+        except (ValueError, TypeError, RuntimeError):
+            continue
+        fail(f"kernels: A1 took operands with {what}")
+    if PA.attn_launches != before:
+        fail("kernels: A1 launched on operands it refuses")
+    print(f"kernels: A1 refuses {', '.join(bad)} on the card without a "
+          "launch")
+    return {"rows": rows, "gen_ms": gen_ms, "bound_ms": bound_ms}
+
+
 def _other_lib(root: str, name: str, like):
     """``csrc/<name>.cu`` of the checkout at ``root``, built as this
     checkout's sources are and loaded with the C signature of ``like``
@@ -1519,18 +1720,21 @@ COUNTERS = {"K1": ("int8_matmul", "launches"),
             "K7": ("probe_gemm", "bf16_launches"),
             "Q1": ("quant_kernels", "grid_launches"),
             "Q2": ("quant_kernels", "codes_launches"),
-            "Q3": ("quant_kernels", "int_launches")}
+            "Q3": ("quant_kernels", "int_launches"),
+            "A1": ("packed_attention", "attn_launches")}
 #: the recipes profiled after the main path (phase 6)
 PROFILED = ("int8", "bf16", "packed", "int8ch", "int8chs", "int8kv",
             "fp4_kv6", "fp6_kv6", "int4_rtn")
 
 
 def _counter_modules():
-    from fpqvar_tpu_torch.ops import (int8_matmul, probe_gemm,
-                                      quant_kernels, quant_matmul)
+    from fpqvar_tpu_torch.ops import (int8_matmul, packed_attention,
+                                      probe_gemm, quant_kernels,
+                                      quant_matmul)
 
     return {"int8_matmul": int8_matmul, "quant_matmul": quant_matmul,
-            "probe_gemm": probe_gemm, "quant_kernels": quant_kernels}
+            "probe_gemm": probe_gemm, "quant_kernels": quant_kernels,
+            "packed_attention": packed_attention}
 
 
 def reset_counts():
@@ -1580,7 +1784,8 @@ def phase_main_path(card: str):
     # and runs K2; int8ch runs K4 on qkv, proj and fc1 and fc2's dual grid
     # (Q2's codes) as two K3 GEMMs; int8chs and int8chsnr run K4 on all
     # four; w4a16 runs no kernel (wonly_dot); int8kv and int8att are int8ch
-    # with the packed KV cache, whose k and v Q2 encodes; the paper's
+    # with the packed KV cache, whose k and v Q2 encodes, and int8kv's
+    # attention over the value codes runs A1 once a block; the paper's
     # fake recipes run Q1 on their four activations (fp4_kv6, fp6_kv6) and
     # their dense cache's k and v, or Q3 on the four (int4_rtn)
     none = {k: 0 for k in COUNTERS}
@@ -1595,7 +1800,7 @@ def phase_main_path(card: str):
                "int8chsnr": {**none, "K4": blocks * 4},
                "w4a16": none,
                "int8kv": {**none, "K3": blocks * 2, "K4": blocks * 3,
-                          "Q2": blocks * 3},
+                          "Q2": blocks * 3, "A1": blocks},
                "int8att": {**none, "K3": blocks * 2, "K4": blocks * 3,
                            "Q2": blocks * 3},
                "fp4_kv6": {**none, "Q1": blocks * 6},
@@ -3731,15 +3936,16 @@ DIST_BATCH, DIST_TRAIN_BATCH = 2, 8
 #: the per-channel recipes K3 on the column splits (qkv, fc1) at tp 2,
 #: their row splits the plain int32 product, and K3 on all five at dp 2;
 #: each activation is quantized once on a rank, by Q1 (``packed``) or Q2
-#: (the int8 recipes; ``int8kv`` also encodes k and v into its cache)
+#: (the int8 recipes; ``int8kv`` also encodes k and v into its cache and
+#: runs A1 over this rank's heads or rows)
 DIST_PER_BLOCK = {("int8", "tp2"): {"K1": 5, "Q2": 4},
                   ("int8", "dp2"): {"K1": 5, "Q2": 4},
                   ("packed", "tp2"): {"K2": 4, "Q1": 4},
                   ("packed", "dp2"): {"K2": 4, "Q1": 4},
                   ("int8ch", "tp2"): {"K3": 2, "Q2": 4},
                   ("int8ch", "dp2"): {"K3": 5, "Q2": 4},
-                  ("int8kv", "tp2"): {"K3": 2, "Q2": 6},
-                  ("int8kv", "dp2"): {"K3": 5, "Q2": 6},
+                  ("int8kv", "tp2"): {"K3": 2, "Q2": 6, "A1": 1},
+                  ("int8kv", "dp2"): {"K3": 5, "Q2": 6, "A1": 1},
                   ("bf16", "tp2"): {}, ("bf16", "dp2"): {}}
 #: phase 15's tp 2 limit on the logits of every scale, relative to the
 #: one-device run's largest logit, by recipe: tp 2 changes only the order
@@ -4512,6 +4718,21 @@ def _quant_row(name, source, replaces, launches, rows, timed):
             "library_ms": None, "timed_shape": timed, "shapes": rows}
 
 
+def _attn_row(name, source, replaces, launches, a_rows, timed):
+    """A1 in the JSON table: timed at the case ``timed``, the widest gap
+    over every case, the d36-512 generation's sum."""
+    rows = a_rows["rows"]
+    head = next(r for r in rows if r["shape"] == timed)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "host_ms": head["host_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "timed_shape": timed,
+            "d36_generation_ms_per_img": a_rows["gen_ms"], "shapes": rows}
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
         return _dist_rank(sys.argv[2])
@@ -4534,6 +4755,7 @@ def main():
     k6_rows = phase_k6()
     k7_rows = phase_k7()
     q_rows = phase_quant()
+    a_rows = phase_attention()
     done("kernels")
     phase_small_reference()
     done("small reference")
@@ -4600,6 +4822,11 @@ def main():
         _quant_row("fake_quant_int", src + "fake_quant_int.cu",
                    "fpqvar_tpu/ops/quantizers.py:209", launches["Q3"],
                    q_rows["Q3"], "qkv-sym-token"),
+        # A1 replaces no TPU kernel: the XLA einsum chain of JAX's
+        # value-code attention (file:line of its first einsum)
+        _attn_row("packed_attention", src + "packed_attention.cu",
+                  "fpqvar_tpu/models/var.py:306", launches["A1"], a_rows,
+                  "d36-s9-pn32"),
     ]}
     # the teacher-forcing forward's launches of K1-K5 (phase 12) and their
     # times at its M = 5440, beside the generation path's

@@ -33,6 +33,7 @@ from fpqvar_tpu_torch.models.sampling import (Generators, gumbel_softmax,
                                               sample_with_top_k_top_p)
 from fpqvar_tpu_torch.ops.hadamard import apply_block_hadamard
 from fpqvar_tpu_torch.ops.int8_matmul import int8_linear, int8_linear_dual
+from fpqvar_tpu_torch.ops.packed_attention import packed_attention
 from fpqvar_tpu_torch.ops.packing import DUAL_CODE_MULT, IntPack, PackedTensor
 from fpqvar_tpu_torch.ops.quant_matmul import packed_linear
 from fpqvar_tpu_torch.ops.quantizers import safe_scale
@@ -165,13 +166,13 @@ def _packed_attention(q, k, v, qrt, cache, cur: int, attn_bias):
     ``[cur, cur + l)`` of the codes and scales in place; attention reads
     rows ``[0, cur + l)``.  With value codes the scales fold into the score
     columns (k) and the softmax weights (v), float32 scores and the second
-    product in ``q``'s dtype, or, under ``attn_int8``, both products run
-    over int8 codes; other grids decode to values for ``_attention``.
+    product in ``q``'s dtype (``ops/packed_attention.py``: kernel A1 on a
+    card), or, under ``attn_int8``, both products run over int8 codes;
+    other grids decode to values for ``_attention``.
     Returns ``[B, l, H*c]`` in ``q``'s dtype (the block's, to which JAX
     casts ``attn_int8``'s float32 output)."""
     codec = qrt.kv_codec
-    b, l, h, c = q.shape
-    end = cur + l
+    end = cur + q.shape[1]
     for t, codes, scales in ((k, "kc", "ks"), (v, "vc", "vs")):
         tc, ts = codec.encode(t)                    # [B,l,H,c], [B,l,H,1]
         cache[codes][:, :, cur:end] = tc.transpose(1, 2)
@@ -187,13 +188,7 @@ def _packed_attention(q, k, v, qrt, cache, cur: int, attn_bias):
     if qrt.attn_int8:
         return _int8_attention(q, kc, ks, vc, vs, codec.max_code,
                                attn_bias).to(q.dtype)
-    scores = q.transpose(1, 2).to(torch.float32) @ kc.to(
-        torch.float32).transpose(-1, -2)
-    scores = scores * ks[:, :, None, :]
-    if attn_bias is not None:
-        scores = scores + attn_bias
-    pv = (torch.softmax(scores, dim=-1) * vs[:, :, None, :]).to(q.dtype)
-    return (pv @ vc.to(q.dtype)).transpose(1, 2).reshape(b, l, h * c)
+    return packed_attention(q, kc, ks, vc, vs, attn_bias)
 
 
 def _rotate(qrt, x: torch.Tensor) -> torch.Tensor:

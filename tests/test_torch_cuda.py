@@ -59,6 +59,13 @@ ranks' column shards (qkv N = 1536, fc1 N = 2048) and row shards (proj K =
 product, and the row split's sum of two K1 halves within twice K1's bound
 of the whole K1.
 
+A1 (attention over the packed KV cache's value codes) against its plain
+chain within ``packed_attention.tolerance`` at VAR-d36-512's first,
+middle and last scales, VAR-d30's last at batch 32 and ragged tiles, with
+bfloat16 and float32 q; the same bits at 1 to 8 warps a block; its
+refusals; an ``int8kv`` generation's launches, and its fused replay equal
+to the eager loop.
+
 The tests are marked ``cuda`` and skip without a CUDA device.  The file
 imports no JAX, so it also runs where JAX is not installed:
 
@@ -1711,3 +1718,138 @@ def test_cuda_k3_at_d36_batch64_fc2(cuda_device):
     assert K.ch_launches == before + 1
     assert torch.equal(ours, K.int8ch_gemm_ref(ac, asc, pw.codes, pw.scales,
                                                torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# A1: attention over the packed KV cache's value codes
+# (ops/packed_attention.py, csrc/packed_attention.cu)
+# ---------------------------------------------------------------------------
+
+def _a1_operands(device, rows, heads, l, end, cache_rows, dtype, seed=0):
+    """q l2-normalised per head and scaled by 1 to 30; fp_e2 codes and
+    scales of keys and values through the ``int8kv`` codec, rows ``[0,
+    end)`` of cache leaves of ``cache_rows`` tokens."""
+    from fpqvar_tpu_torch.quantize.runtime import make_kv_codec
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((rows, l, heads, 64), device=device, generator=g)
+    hs = torch.linspace(1.0, 30.0, heads, device=device)
+    q = (q / q.norm(dim=-1, keepdim=True) * hs.reshape(1, 1, heads, 1))
+    codec, out = make_kv_codec("fp_e2"), [q.to(dtype)]
+    for _ in range(2):
+        t = torch.randn((rows, end, heads, 64), device=device, generator=g)
+        tc, ts = codec.encode(t)
+        codes = torch.zeros((rows, heads, cache_rows, 64), dtype=torch.int8,
+                            device=device)
+        scales = torch.zeros((rows, heads, cache_rows), device=device)
+        codes[:, :, :end] = tc.transpose(1, 2)
+        scales[:, :, :end] = ts[..., 0].transpose(1, 2)
+        out += [codes[:, :, :end], scales[:, :, :end]]
+    return tuple(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,heads,l,end,cache_rows", [
+    (16, 36, 1, 1, 2240), (16, 36, 4, 5, 2240),        # d36 first scales
+    (16, 36, 81, 147, 2240), (16, 36, 1024, 2240, 2240),   # d36 pn 9, 32
+    (64, 30, 256, 680, 680),                            # d30 last, batch 32
+    (3, 5, 37, 67, 70), (2, 1, 129, 129, 129)])         # ragged tiles
+def test_cuda_a1_matches_plain(cuda_device, rows, heads, l, end, cache_rows,
+                               dtype):
+    """A1 against the plain chain within ``packed_attention.tolerance``,
+    one launch a call, in q's dtype; at bf16 equal to it on all but 1% of
+    the outputs (the weights round where the chain rounds them; rounding
+    them before the division by the row sum moves 30-40%)."""
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    ops = _a1_operands(cuda_device, rows, heads, l, end, cache_rows,
+                       getattr(torch, dtype))
+    before = PA.attn_launches
+    got = PA.packed_attention(*ops)
+    torch.cuda.synchronize()
+    assert PA.attn_launches == before + 1
+    want = PA.packed_attention_ref(*ops)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    gap = (got.float() - want.float()).abs()
+    assert bool((gap <= PA.tolerance(*ops)).all())
+    if dtype == "bfloat16":
+        assert float((gap > 0).double().mean()) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_cuda_a1_any_warps_a_block(cuda_device, warps):
+    """A block of 1 to 8 warps computes the same output, bit for bit (a
+    query row's arithmetic does not depend on its block): the library's
+    entry point called with each."""
+    from fpqvar_tpu_torch.ops import _build
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    q, kc, ks, vc, vs = _a1_operands(cuda_device, 4, 3, 100, 230, 240,
+                                     torch.bfloat16)
+
+    def run(w):
+        out = torch.empty((4, 100, 3 * 64), dtype=q.dtype, device=q.device)
+        _build.launch(PA._lib(), "packed_attention", q.device, q.data_ptr(),
+                      *q.stride()[:3], 0, kc.data_ptr(), vc.data_ptr(),
+                      *kc.stride()[:2], ks.data_ptr(), vs.data_ptr(),
+                      *ks.stride()[:2], out.data_ptr(), 4, 3, 100, 230, w)
+        return out
+
+    assert torch.equal(run(warps), run(1))
+
+
+@pytest.mark.cuda
+def test_cuda_a1_raises_without_a_launch(cuda_device):
+    """On a card A1 launches or raises: an attn_bias, float16 q, head_dim
+    32, codes of another layout; nothing falls back to the chain."""
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    q, kc, ks, vc, vs = _a1_operands(cuda_device, 2, 2, 4, 9, 16,
+                                     torch.bfloat16)
+    relaid = [t.contiguous().transpose(1, 2).contiguous().transpose(1, 2)
+              for t in (kc, vc)]
+    bad = [((q, kc, ks, vc, vs), {"attn_bias": torch.zeros(
+               (1, 1, 4, 9), device=cuda_device)}),
+           ((q.half(), kc, ks, vc, vs), {}),
+           ((q[..., :32], kc[..., :32], ks, vc[..., :32], vs), {}),
+           ((q, relaid[0], ks, relaid[1], vs), {})]
+    before = PA.attn_launches
+    for args, kw in bad:
+        with pytest.raises((ValueError, TypeError)):
+            PA.packed_attention(*args, **kw)
+    assert PA.attn_launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_int8kv_generation_runs_a1_and_fuses(cuda_device):
+    """A width-256 ``int8kv`` generation launches A1 once a block forward
+    (depth x scales), and its fused replay (A1 captured) equals the eager
+    loop."""
+    import dataclasses
+
+    from fpqvar_tpu_torch.config import bench_recipes, var_tiny
+    from fpqvar_tpu_torch.models import (VARGenerator, init_var_params,
+                                         init_vqvae_params)
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+    from fpqvar_tpu_torch.quantize import quantize_var_params
+
+    cfg = dataclasses.replace(var_tiny(), embed_dim=256, num_heads=4)
+    q = bench_recipes()["int8kv"]
+    params = init_var_params(cfg, seed=4, device=cuda_device,
+                             adaln_gamma_std=0.02)
+    vae = init_vqvae_params(cfg.vae, seed=5, device=cuda_device)
+    galt = tuple(np.ones((cfg.depth, cfg.width), np.float32)
+                 for _ in range(2))
+    qp = quantize_var_params(params, cfg, q, galt=galt)
+    eager = VARGenerator(cfg, q, device=cuda_device, fuse_steps=False)
+    fused = VARGenerator(cfg, q, qrt=eager.qrt, device=cuda_device)
+    before = PA.attn_launches
+    want = eager.generate(qp, vae, [3, 5, 7],
+                          torch.Generator(device=cuda_device).manual_seed(1))
+    assert PA.attn_launches - before == cfg.depth * cfg.num_scales
+    got = fused.generate(qp, vae, [3, 5, 7],
+                         torch.Generator(device=cuda_device).manual_seed(1))
+    assert torch.equal(got, want)

@@ -5,7 +5,8 @@ here without a card.
 ``KERNEL_SOURCES`` (what phase 2 builds), ``WGMMA_SOURCES`` (the GEMM
 sources, whose SASS must hold a warpgroup MMA), ``QUANT_SOURCES`` (the
 quantizers Q1-Q3, which run no GEMM), ``TRACE_SOURCES`` (the stage marker,
-which computes nothing) and ``PORT_KERNELS`` (the profiler's
+which computes nothing), ``ATTN_SOURCES`` (the attention A1, its products
+on ``mma.sync``) and ``PORT_KERNELS`` (the profiler's
 keys, parts of kernel names, by which phase 6 counts each kernel's
 launches) are held against ``fpqvar_tpu_torch/csrc/``:
 
@@ -13,10 +14,11 @@ launches) are held against ``fpqvar_tpu_torch/csrc/``:
 - every ``#include "...cuh"`` names a header of ``csrc/``, and every header
   is reached from some source, so no orphan header is left;
 - every source is in exactly one of ``WGMMA_SOURCES``,
-  ``QUANT_SOURCES`` and ``TRACE_SOURCES``; every GEMM source runs on
-  ``wgmma`` (reaches ``wgmma_gemm.cuh``), every quantizer reaches
-  ``grid_snap.cuh`` and no GEMM, the marker reaches no header of either,
-  and the first slices' ``mma.sync`` tile loop ``int8_mma.cuh`` is gone;
+  ``QUANT_SOURCES``, ``TRACE_SOURCES`` and ``ATTN_SOURCES``; every GEMM
+  source runs on ``wgmma`` (reaches ``wgmma_gemm.cuh``), every quantizer
+  reaches ``grid_snap.cuh`` and no GEMM, the marker and the attention
+  reach no header of either (the attention's SASS holds ``HMMA``), and
+  the first slices' ``mma.sync`` tile loop ``int8_mma.cuh`` is gone;
 - no profiler key is a part of another label's key, and each key is a
   part of exactly one kernel or epilogue name defined in ``csrc/``: itself
   (one kernel sharing another's wgmma instantiation must give its
@@ -31,7 +33,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "fpqvar_tpu_torch" / "csrc"
 TABLES = ("KERNEL_SOURCES", "WGMMA_SOURCES", "QUANT_SOURCES",
-          "TRACE_SOURCES", "K4_KERNELS", "PORT_KERNELS")
+          "TRACE_SOURCES", "ATTN_SOURCES", "K4_KERNELS", "PORT_KERNELS")
 SOURCES = sorted(p.stem for p in CSRC.glob("*.cu"))
 HEADERS = sorted(p.name for p in CSRC.glob("*.cuh"))
 FILES = sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
@@ -105,17 +107,21 @@ def test_no_orphan_header(header):
 def test_every_source_but_the_probe_runs_on_wgmma():
     """Every GEMM source runs on ``wgmma``, the rate probe's K6 as well;
     every other source is a quantizer of ``QUANT_SOURCES`` (a group over
-    the lanes it needs, on ``grid_snap.cuh``, no GEMM) or the stage marker
-    of ``TRACE_SOURCES`` (neither), and each source is in exactly one of
-    the three tables."""
+    the lanes it needs, on ``grid_snap.cuh``, no GEMM), the stage marker
+    of ``TRACE_SOURCES`` (neither) or the attention of ``ATTN_SOURCES``
+    (neither: its two products on ``mma.sync`` with the softmax between
+    them in registers), and each source is in exactly one of the four
+    tables."""
     wgmma = _tables()["WGMMA_SOURCES"]
     quant = _tables()["QUANT_SOURCES"]
     trace = _tables()["TRACE_SOURCES"]
-    assert not (set(wgmma) & set(quant) or set(wgmma) & set(trace)
-                or set(quant) & set(trace))
-    assert set(wgmma) | set(quant) | set(trace) == set(SOURCES)
-    for src in trace:
+    attn = _tables()["ATTN_SOURCES"]
+    groups = [set(wgmma), set(quant), set(trace), set(attn)]
+    assert sum(len(g) for g in groups) == len(set().union(*groups))
+    assert set().union(*groups) == set(SOURCES)
+    for src in list(trace) + list(attn):
         assert not {"wgmma_gemm.cuh", "grid_snap.cuh"} & _reached(src), src
+    assert set(attn.values()) == {"HMMA"}
     assert set(wgmma.values()) <= {"HGMMA", "IGMMA"}
     assert wgmma["int8_probe_gemm"] == "IGMMA"
     for src in wgmma:
@@ -136,7 +142,7 @@ def test_port_kernel_keys_are_no_part_of_another_labels_key():
 
 
 @pytest.mark.parametrize("label", ["K1", "K2", "K3", "K4 (a)", "K4 (b)",
-                                   "K5", "Q1", "Q2", "Q3"])
+                                   "K5", "Q1", "Q2", "Q3", "A1"])
 def test_port_kernel_key_names_one_kernel_or_epilogue(label):
     names = _defined_names()
     for key in _tables()["PORT_KERNELS"][label]:

@@ -23,6 +23,13 @@ package.
   of float32 sums, layer norm and l2 norm, in another order); the block
   output within 2e-5 (values of order 1), as
   ``test_torch_var.test_block_forward_step_with_cache`` holds it.
+- A1 (``ops/packed_attention.py``), the card's kernel for the value-code
+  branch: its two-pass arithmetic mirrored tile by tile in this file
+  against the whole-tensor chain (within ``packed_attention.tolerance``
+  and equal on all but a few outputs, at l = 1, ragged last tiles and
+  VAR-d30's last scale, bfloat16 and float32 q), the CPU route equal to
+  the chain, the warps a block from l, and the operands the kernel
+  refuses.
 """
 import dataclasses
 import functools
@@ -282,3 +289,197 @@ def test_packed_block_forward_matches_jax(mode, cur):
             np.testing.assert_array_equal(got, theirs)
         else:
             assert _ulps(got[:, :, cur:], theirs[:, :, cur:]).max() <= 4
+
+
+# ---------------------------------------------------------------------------
+# A1 (ops/packed_attention.py): the kernel's arithmetic against the chain
+# ---------------------------------------------------------------------------
+
+def _a1_mirror(q, kc, ks, vc, vs, tile=64):
+    """A1's arithmetic, tile by tile over the cached tokens, in two
+    passes: float32 scores ``(q . kc) * ks``, each row's running max and
+    sum of ``exp(s - max)`` (pass 0), then the scores again, the weights
+    ``exp(s - max) / sum * vs`` rounded to q's dtype and their product
+    with ``vc`` summed in float32, the output rounded to q's dtype (pass
+    1).  (A float32 q's three bf16 parts sum to q exactly, as its
+    weights' do: the same float32 products.)"""
+    b, l, h, c = q.shape
+    qf = q.transpose(1, 2).to(torch.float32)
+    tiles = [slice(j, j + tile) for j in range(0, kc.shape[2], tile)]
+
+    def scores(t):
+        return (qf @ kc[:, :, t].float().transpose(-1, -2)) * ks[:, :, None, t]
+
+    mx = torch.full((b, h, l, 1), -torch.inf)
+    tot = torch.zeros((b, h, l, 1))
+    for t in tiles:
+        s = scores(t)
+        new = torch.maximum(mx, s.amax(-1, keepdim=True))
+        tot = tot * torch.exp(mx - new) + torch.exp(s - new).sum(
+            -1, keepdim=True)
+        mx = new
+    acc = torch.zeros((b, h, l, c))
+    for t in tiles:
+        w = (torch.exp(scores(t) - mx) / tot * vs[:, :, None, t]).to(q.dtype)
+        acc = acc + w.to(torch.float32) @ vc[:, :, t].float()
+    return acc.to(q.dtype).transpose(1, 2).reshape(b, l, h * c)
+
+
+def _a1_operands(l, cur, dtype, heads=3, rows=4, seed=0, headroom=0):
+    """q as the block makes it (l2-normalised rows times a head scale up
+    to 20, so some softmax rows are peaked) and fp_e2 codes and scales of
+    Gaussian keys and values through the int8kv codec, over ``cur + l``
+    cached tokens in a cache of ``cur + l + headroom`` rows."""
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    g = torch.Generator().manual_seed(seed)
+    hd, end = PA.HEAD_DIM, cur + l
+    q = torch.randn((rows, l, heads, hd), generator=g)
+    q = q / q.norm(dim=-1, keepdim=True) * torch.tensor(
+        [1.0, 5.0, 20.0][:heads]).reshape(1, 1, heads, 1)
+    codec = make_kv_codec("fp_e2")
+    cache = {}
+    for codes, scales in (("kc", "ks"), ("vc", "vs")):
+        t = torch.randn((rows, end, heads, hd), generator=g)
+        tc, ts = codec.encode(t)
+        cache[codes] = torch.zeros((rows, heads, end + headroom, hd),
+                                   dtype=torch.int8)
+        cache[scales] = torch.zeros((rows, heads, end + headroom))
+        cache[codes][:, :, :end] = tc.transpose(1, 2)
+        cache[scales][:, :, :end] = ts[..., 0].transpose(1, 2)
+    return (q.to(dtype), cache["kc"][:, :, :end], cache["ks"][:, :, :end],
+            cache["vc"][:, :, :end], cache["vs"][:, :, :end])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("l,cur", [(1, 0), (4, 1), (16, 14), (37, 30),
+                                   (64, 64), (100, 155), (256, 424)])
+def test_a1_reformulation_within_its_tolerance(l, cur, dtype):
+    """The two tiled passes (A1's arithmetic) against the whole-tensor
+    chain: within ``packed_attention.tolerance``, and, as the weights
+    round at the chain's values, equal to it but for outputs whose sums
+    land by an ulp on the other side of a rounding (under 1% of them
+    here): l = 1 over one token, ragged last tiles of 67 and 255 tokens,
+    whole tiles (128), the VAR-d30 last scale (256 over 680).  The same
+    chain with the weights rounded before the division by the row sum
+    (``exp(s - max) * vs``, one pass) moves a third or more of them."""
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    ops = _a1_operands(l, cur, getattr(torch, dtype), headroom=5)
+    want = PA.packed_attention_ref(*ops)
+    got = _a1_mirror(*ops)
+    assert got.dtype == want.dtype == ops[0].dtype
+    assert got.shape == (4, l, 3 * PA.HEAD_DIM)
+    gap = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((gap <= PA.tolerance(*ops)).all())
+    if dtype == "bfloat16":
+        assert float((gap > 0).float().mean()) < 0.01
+        q, kc, ks, vc, vs = ops
+        p = torch.softmax((q.transpose(1, 2).float() @ kc.float().transpose(
+            -1, -2)) * ks[:, :, None, :], dim=-1)
+        e = p * p.amax(-1, keepdim=True).reciprocal()
+        one_pass = (((e * vs[:, :, None, :]).to(q.dtype).float()
+                     @ vc.float()) / e.sum(-1, keepdim=True)).to(q.dtype)
+        moved = one_pass.transpose(1, 2).reshape(want.shape) != want
+        assert cur + l == 1 or float(moved.float().mean()) > 0.3
+
+
+@pytest.mark.parametrize("l,cur", [(1, 0), (16, 14), (100, 155),
+                                   (256, 424)])
+def test_a1_tolerance_covers_the_chains_own_rounding(l, cur):
+    """``packed_attention.tolerance`` at float32 holds the float32 chain
+    to the same chain in float64 (the exact sums, near enough): the bound
+    counts the chain's rounding as well as A1's, so a kernel whose sums
+    were exact would meet it too."""
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    ops = _a1_operands(l, cur, torch.float32, headroom=5)
+    want = PA.packed_attention_ref(*[t.double() if t.is_floating_point()
+                                     else t for t in ops])
+    gap = (PA.packed_attention_ref(*ops).double() - want).abs()
+    assert bool((gap <= PA.tolerance(*ops)).all())
+
+
+def test_a1_cpu_route_is_the_plain_chain():
+    """On the CPU ``packed_attention`` is the chain itself (bit for bit,
+    with an ``attn_bias`` too) and launches nothing; the block's
+    value-code branch goes through it."""
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    ops = _a1_operands(9, 5, torch.bfloat16, headroom=2)
+    before = PA.attn_launches
+    assert torch.equal(PA.packed_attention(*ops),
+                       PA.packed_attention_ref(*ops))
+    bias = torch.randn((1, 1, 9, 14))
+    assert torch.equal(PA.packed_attention(*ops, attn_bias=bias),
+                       PA.packed_attention_ref(*ops, attn_bias=bias))
+    assert PA.attn_launches == before
+    assert V.packed_attention is PA.packed_attention
+
+
+@pytest.mark.parametrize("l,warps", [(1, 1), (4, 1), (16, 1), (17, 2),
+                                     (100, 7), (128, 8), (1024, 8)])
+def test_a1_warps_follow_the_queries(l, warps):
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    assert PA.warps_for(l) == warps
+
+
+def test_a1_takes_cache_views_and_tp_head_slices():
+    """The operands as generation hands them: rows ``[0, end)`` of a
+    block's cache leaves (a strided view), and under a tp mesh a q of
+    this rank's heads cut from all of them."""
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    ops = _a1_operands(9, 5, torch.bfloat16, headroom=7)
+    assert not ops[1].is_contiguous()
+    PA.check_operands(*ops)
+    q = torch.randn((4, 9, 6, 64), dtype=torch.bfloat16)[:, :, 3:]
+    PA.check_operands(q, *ops[1:])
+    PA.check_operands(ops[0].float(), *ops[1:])
+
+
+def _bad_operands(case):
+    """A1 operands broken one way (``case``), from good ones."""
+    q, kc, ks, vc, vs = _a1_operands(9, 5, torch.bfloat16, headroom=3)
+    kw = {}
+    if case == "attn_bias":
+        kw["attn_bias"] = torch.zeros((1, 1, 9, 14))
+    elif case == "head_dim":
+        q, kc, vc = q[..., :32], kc[..., :32], vc[..., :32]
+    elif case == "float16":
+        q = q.to(torch.float16)
+    elif case == "codes_dtype":
+        kc = kc.to(torch.int16)
+    elif case == "scales_dtype":
+        vs = vs.to(torch.bfloat16)
+    elif case == "shapes":
+        vc = vc[:, :, :-1]
+    elif case == "q_layout":
+        q = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    elif case == "codes_layout":
+        kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)
+        kc, vc = kc.contiguous().transpose(1, 2), vc.contiguous().transpose(
+            1, 2)
+    elif case == "codes_strides_differ":
+        vc = vc.contiguous()
+    elif case == "scales_layout":
+        ks = ks.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "grad":
+        q = q.float().requires_grad_()
+    return (q, kc, ks, vc, vs), kw
+
+
+@pytest.mark.parametrize("case", [
+    "attn_bias", "head_dim", "float16", "codes_dtype", "scales_dtype",
+    "shapes", "q_layout", "codes_layout", "codes_strides_differ",
+    "scales_layout", "grad"])
+def test_a1_refuses_what_the_kernel_does_not_take(case):
+    """Each operand the kernel would misread raises before a launch (on a
+    card ``packed_attention`` runs these checks; nothing falls back)."""
+    from fpqvar_tpu_torch.ops import packed_attention as PA
+
+    ops, kw = _bad_operands(case)
+    with pytest.raises((ValueError, TypeError, RuntimeError)):
+        PA.check_operands(*ops, **kw)
